@@ -1,0 +1,468 @@
+#!/usr/bin/env python3
+"""Smoke test of the PyTorch/CUDA port on one NVIDIA GPU (Hopper).
+
+    python3 chip_smoke.py
+
+Runs from the root of a checkout and drives ``src/repro_torch`` only
+(no JAX, nothing of the JAX package).  Phases, each printing its lines:
+
+1. device — the card's name, count, and ``nvidia-smi`` name + power limit;
+2. build  — every CUDA kernel from ``src/repro_torch/csrc`` with ``nvcc``;
+3. kernel vs plain — the ParamSpMM kernel against its plain PyTorch
+   version on the same CUDA tensors, over every V/S/B combination, F ∈
+   {1, 2}, R ∈ {8, 16, 32}, dims 16/64/200 and every epilogue variant, on
+   bucket-padded serving packs and on ``corpus("large")``'s rmat17
+   (131k nodes) at dim 64: bit-exact with integer-valued operands (0/1
+   edges), ``atol=1e-4, rtol=1e-5`` with float operands (GCN-normalized
+   edges, normal features; the sums run in another order);
+4. serving — GCN then GIN at the published widths ([16, 64, 64, 64, 64,
+   16], ``configs/gcn.py`` / ``configs/gin.py``) through
+   ``GNNService(device="cuda")`` on ``corpus("serve")``'s rmat13, a
+   64-request seeded stream each, integer-valued features, weights and
+   edges; every request bit-exact against ``reference_forward`` on the
+   CPU; the kernel's launch count must equal layers × batches;
+5. timing — CUDA events after warm-up: the kernel, its plain version and
+   ``torch.sparse.mm`` (cuSPARSE, the paper's baseline; timed here only)
+   at a serving shape, on rmat17 and on ``corpus("large")``'s kreg150k
+   (uniform degree), beside the least time the card could take (bytes of
+   each input read once and the output written once over the data-sheet
+   HBM rate, vs the real MACs over the float32 peak).
+
+Any failure raises and exits non-zero.  The last two lines are the
+kernels' JSON summary and ``{"ok": true, "device": {...}}``.
+"""
+from __future__ import annotations
+
+import json
+import subprocess
+import sys
+import time
+import warnings
+from pathlib import Path
+
+import numpy as np
+import torch
+
+ROOT = Path(__file__).resolve().parent
+sys.path.insert(0, str(ROOT / "src"))
+
+from repro_torch.core.pcsr import SpMMConfig, build_pcsr  # noqa: E402
+from repro_torch.core.sparse import CSRMatrix  # noqa: E402
+from repro_torch.data.graphs import (extract_subgraph,  # noqa: E402
+                                     kregular, rmat, sample_khop)
+from repro_torch.kernels import build  # noqa: E402
+from repro_torch import obs  # noqa: E402
+from repro_torch.kernels.paramspmm import ops  # noqa: E402
+from repro_torch.pipeline import pick_config  # noqa: E402
+from repro_torch.serve import (BucketPolicy, GNNService,  # noqa: E402
+                               PackGeom, SteeringPackCache, pack_subgraph,
+                               reference_forward, replay, synthetic_stream)
+
+# H100 SXM data-sheet peaks (700 W): HBM3 rate, float32 outside tensor cores
+HBM_BYTES_PER_S = 3.35e12
+F32_FLOP_PER_S = 67e12
+ATOL, RTOL = 1e-4, 1e-5
+EPILOGUES = {
+    "none": {},
+    "scale": {"scale": True},
+    "bias": {"bias": True},
+    "residual": {"residual": True},
+    "relu": {"bias": True, "activation": "relu"},
+    "leaky_relu": {"scale": True, "activation": "leaky_relu"},
+    "all": {"scale": True, "bias": True, "residual": True,
+            "activation": "relu"},
+}
+SERVE_DIMS = [16, 64, 64, 64, 64, 16]     # configs/gcn.py, configs/gin.py
+
+
+def check(cond, msg):
+    if not cond:
+        raise RuntimeError(msg)
+
+
+def nvidia_smi() -> str:
+    res = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"],
+                         capture_output=True, text=True, timeout=60)
+    check(res.returncode == 0, f"nvidia-smi failed: {res.stderr}")
+    return res.stdout.strip().splitlines()[0]
+
+
+# ------------------------------------------------------------ operands
+def _normalized(csr):
+    """The same pattern with the symmetric-normalized values
+    D^{-1/2} A D^{-1/2} — float edge weights as a GCN sees them."""
+    deg = np.maximum(np.diff(csr.indptr), 1).astype(np.float64)
+    rows = np.repeat(np.arange(csr.n_rows), np.diff(csr.indptr))
+    data = (1.0 / np.sqrt(deg[rows] * deg[csr.indices])).astype(np.float32)
+    return CSRMatrix(csr.indptr, csr.indices, data, csr.n_rows, csr.n_cols)
+
+
+def _operands(rng, n, dim, spec, integer, device):
+    draw = ((lambda *s: rng.integers(-3, 4, s).astype(np.float32))
+            if integer else
+            (lambda *s: rng.standard_normal(s).astype(np.float32)))
+    B = torch.from_numpy(draw(n, dim)).to(device)
+    epi = {"activation": spec.get("activation", "none")}
+    for name, shape in (("scale", (n,)), ("bias", (dim,)),
+                        ("residual", (n, dim))):
+        if spec.get(name):
+            epi[name] = torch.from_numpy(draw(*shape)).to(device)
+    return B, epi
+
+
+def _compare(p, B, epi, integer, device):
+    """Kernel (through the wrapper) vs plain version on one input;
+    returns the max abs difference."""
+    cfg = p.config
+    got = ops.paramspmm(p, B, **epi)
+    want = ops.paramspmm_plain(
+        ops.device_steering(p, device), B, V=cfg.V, R=cfg.R, K=p.K,
+        n_blocks=p.n_blocks, n_rows=p.n_rows, **epi)
+    if device.type == "cuda":
+        torch.cuda.synchronize()
+    check(got.shape == want.shape and bool(torch.isfinite(got).all()),
+          f"bad output {tuple(got.shape)} for {cfg}")
+    if integer:
+        check(torch.equal(got, want), f"integer case not bit-exact: {cfg}")
+    else:
+        torch.testing.assert_close(got, want, rtol=RTOL, atol=ATOL)
+    return float((got - want).abs().max()) if got.numel() else 0.0
+
+
+def _union(g, n_requests, seed):
+    """Block-diagonal union of sampled request subgraphs, as a serving
+    batch packs it."""
+    reqs = synthetic_stream(n_requests, g.n_rows, seed=seed)
+    subs = [extract_subgraph(g, sample_khop(g, r.seeds, r.fanouts,
+                                            seed=r.sample_seed))
+            for r in reqs]
+    n = sum(s.n_rows for s in subs)
+    indptr, idx, off, eoff = [np.zeros(1, np.int64)], [], 0, 0
+    for s in subs:
+        indptr.append(s.indptr[1:] + eoff)
+        idx.append(s.indices + off)
+        off += s.n_rows
+        eoff += s.indices.size
+    return CSRMatrix(np.concatenate(indptr), np.concatenate(idx),
+                     np.ones(eoff, np.float32), n, n)
+
+
+def phase_kernel_grid(device, *, big=True):
+    """Phase 3: kernel vs plain over the config × dim × epilogue grid."""
+    rng = np.random.default_rng(0)
+    g = rmat(13, 8, seed=31)                   # corpus("serve")'s rmat13
+    union = _union(g, 8, seed=5)
+    bucket = BucketPolicy.default().pick(union.n_rows, union.nnz)
+    print(f"[grid] serving batch: {union.n_rows} nodes, {union.nnz} edges "
+          f"→ bucket {bucket.key}")
+    cases, max_err = 0, 0.0
+    for v in (1, 2):
+        for s, b in ((False, False), (True, False), (True, True)):
+            for r in (8, 16, 32):
+                for f in (1, 2):
+                    cfg = SpMMConfig(V=v, S=s, B=b, F=f, W=r // v)
+                    geom = PackGeom.from_bucket(bucket, cfg)
+                    p_int = pack_subgraph(union, geom)
+                    p_flt = pack_subgraph(_normalized(union), geom)
+                    for dim in (16, 64, 200):
+                        for spec in EPILOGUES.values():
+                            for integer, p in ((True, p_int),
+                                               (False, p_flt)):
+                                B, epi = _operands(rng, p.n_rows, dim, spec,
+                                                   integer, device)
+                                err = _compare(p, B, epi, integer, device)
+                                if not integer:
+                                    max_err = max(max_err, err)
+                                cases += 1
+    print(f"[grid] bucket packs: {cases} cases match "
+          f"(max abs err {max_err:.3e} on float operands)")
+    if big:
+        g17 = rmat(17, 6, seed=22)             # corpus("large")'s rmat17
+        g17n = _normalized(g17)
+        configs = [pick_config(g17, 64)] + [
+            SpMMConfig(V=v, S=s, B=b, W=16 // v)
+            for v in (1, 2) for s, b in ((False, False), (True, False),
+                                         (True, True))]
+        n17 = 0
+        for cfg in configs:
+            t0 = time.perf_counter()
+            p_int, p_flt = (build_pcsr(g.indptr, g.indices, g.data,
+                                       g.n_rows, g.n_cols, cfg)
+                            for g in (g17, g17n))
+            for name in ("none", "all", "leaky_relu"):
+                for integer, p in ((True, p_int), (False, p_flt)):
+                    B, epi = _operands(rng, g17.n_rows, 64, EPILOGUES[name],
+                                       integer, device)
+                    err = _compare(p, B, epi, integer, device)
+                    if not integer:
+                        max_err = max(max_err, err)
+                    n17 += 1
+            print(f"[grid] rmat17 {cfg.astuple()} K={p_int.K} "
+                  f"C={p_int.covered_num_chunks}: match "
+                  f"({time.perf_counter() - t0:.1f} s)")
+        cases += n17
+    return cases, max_err
+
+
+# ------------------------------------------------------------- serving
+def _int_params(model, seed):
+    """Integer-valued parameters at the published widths: every weight
+    matrix is a signed selection (each output unit reads one input unit,
+    with sign ±1) and biases lie in {-1, 0, 1}.  That keeps every partial
+    sum of the 5-layer forward on a sampled subgraph below 2^24 (checked
+    per request by ``_abs_bound``), so float32 sums are exact in any order
+    and the served outputs must be bit-equal to the CPU reference."""
+    rng = np.random.default_rng(seed)
+
+    def sel(fan_in, fan_out):
+        w = np.zeros((fan_in, fan_out), np.float32)
+        w[rng.integers(0, fan_in, fan_out), np.arange(fan_out)] = \
+            rng.choice([-1.0, 1.0], fan_out)
+        return torch.from_numpy(w)
+
+    def bias(n):
+        return torch.from_numpy(rng.integers(-1, 2, n).astype(np.float32))
+
+    d = SERVE_DIMS
+    if model == "gcn":
+        return [{"w": sel(d[i], d[i + 1]), "b": bias(d[i + 1])}
+                for i in range(len(d) - 1)]
+    return [{"eps": torch.zeros(()), "w1": sel(d[i], d[i + 1]),
+             "b1": bias(d[i + 1]), "w2": sel(d[i + 1], d[i + 1]),
+             "b2": bias(d[i + 1])} for i in range(len(d) - 1)]
+
+
+def _abs_bound(sub, X, params, model):
+    """Largest partial sum any order of summation can reach in the
+    forward: the forward on |A|, |X|, |W|, |b| in float64."""
+    A = np.abs(sub.to_dense()).astype(np.float64)
+    h = np.abs(X).astype(np.float64)
+    a = [{k: np.abs(v.numpy()).astype(np.float64) for k, v in l.items()}
+         for l in params]
+    for l in a:
+        if model == "gcn":
+            h = A @ (h @ l["w"]) + l["b"]
+        else:
+            h = ((1 + l["eps"]) * h + A @ h) @ l["w1"] + l["b1"]
+            h = h @ l["w2"] + l["b2"]
+    return float(h.max()) if h.size else 0.0
+
+
+def phase_serve(model, device, *, requests=64, seed=0):
+    """Phase 4: serve a seeded stream, check every request bit-exact
+    against the CPU reference forward.  Returns the launch count."""
+    g = rmat(13, 8, seed=31)                   # corpus("serve")'s rmat13
+    feats = np.random.default_rng(seed).integers(
+        0, 3, (g.n_rows, SERVE_DIMS[0])).astype(np.float32)
+    params = _int_params(model, seed)
+    # warm-up on its own service: library handles, allocator
+    replay(GNNService(g, feats, params, model=model, device=device),
+           synthetic_stream(4, g.n_rows, seed=seed + 100), tick_every=4)
+    svc = GNNService(g, feats, params, model=model, device=device,
+                     keep_subgraphs=True)
+    stream = synthetic_stream(requests, g.n_rows, seed=seed)
+    ops.reset_launch_count()
+    t0 = time.perf_counter()
+    with obs.tracing():
+        results = replay(svc, stream, tick_every=8)
+        spans: dict = {}
+        for e in obs.trace_events():
+            spans[e["name"]] = spans.get(e["name"], 0.0) + e["dur"] / 1e3
+    wall = time.perf_counter() - t0
+    launches = ops.launch_count()
+    check(len(results) == requests, f"{model}: {len(results)} results")
+    n_layers = len(SERVE_DIMS) - 1
+    predicted = n_layers * len(svc.batch_log)
+    check(launches == predicted > 0,
+          f"{model}: {launches} kernel launches, layer structure predicts "
+          f"{predicted}")
+    worst = 0.0
+    for r in results:
+        sr = r.sampled
+        worst = max(worst, _abs_bound(sr.sub, feats[sr.nodes], params, model))
+        ref = reference_forward(sr.sub, torch.from_numpy(feats[sr.nodes]),
+                                params, model=model, config=r.config)
+        want = ref.numpy()[sr.seed_local]
+        check(np.isfinite(r.outputs).all()
+              and r.outputs.shape == (len(sr.seed_local), SERVE_DIMS[-1]),
+              f"{model} {r.rid}: bad output")
+        check(np.array_equal(r.outputs, want),
+              f"{model} {r.rid}: not bit-exact vs the CPU reference "
+              f"(max diff {np.abs(r.outputs - want).max()})")
+    check(worst < 2 ** 24, f"{model}: partial sums reach {worst:.3g}, past "
+          "float32's exact integers; the bit-exact check would not hold")
+    lat = np.array([r.latency_s for r in results]) * 1e3
+    buckets: dict = {}
+    for key, _ in svc.batch_log:
+        buckets[key] = buckets.get(key, 0) + 1
+    configs = sorted({r.config.astuple() for r in results})
+    print(f"[serve] {model}: {requests} requests in {len(svc.batch_log)} "
+          f"batches, all bit-exact vs the CPU reference (partial sums "
+          f"≤ {worst:.3g} < 2^24); "
+          f"{launches} kernel launches (= {n_layers} layers × "
+          f"{len(svc.batch_log)} batches)")
+    print(f"[serve] {model}: batches per bucket {buckets}; configs "
+          f"(W,F,V,S,B) {configs}; cache {svc.cache.hits} hits / "
+          f"{svc.cache.misses} misses")
+    print(f"[serve] {model}: latency p50 {np.percentile(lat, 50):.3f} ms, "
+          f"p99 {np.percentile(lat, 99):.3f} ms, wall {wall:.3f} s "
+          f"({requests / wall:.1f} requests/s)")
+    print(f"[serve] {model}: host spans (ms, summed): " + ", ".join(
+        f"{k} {spans[k]:.2f}" for k in ("serve.sample", "serve.pack",
+                                        "pcsr.build", "serve.forward",
+                                        "serve.batch") if k in spans))
+    return launches
+
+
+# -------------------------------------------------------------- timing
+def cuda_ms(fn, reps=50, warmup=5):
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def _bound(p, steer, B, out_numel, epi):
+    """Least time for the work: every input read once + the output written
+    once over the HBM rate, vs the real MACs over the float32 peak."""
+    nbytes = (B.numel() * 4 + out_numel * 4
+              + sum(t.numel() * t.element_size()
+                    for t in (steer.colidx, steer.lrow, steer.trow,
+                              steer.vals, steer.groups))
+              + sum(t.numel() * 4 for k, t in epi.items()
+                    if k != "activation"))
+    flops = 2.0 * p.nnz * B.shape[1]
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / F32_FLOP_PER_S
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations")
+
+
+def time_one(label, csr, p, dim, device, epi_spec=None):
+    """Kernel, plain version and cuSPARSE on the same inputs."""
+    rng = np.random.default_rng(1)
+    cfg = p.config
+    steer = ops.device_steering(p, device)
+    B, epi = _operands(rng, p.n_cols, dim, epi_spec or {}, False, device)
+    kernel = lambda: ops.paramspmm(p, B, **epi)
+    plain = lambda: ops.paramspmm_plain(
+        steer, B, V=cfg.V, R=cfg.R, K=p.K, n_blocks=p.n_blocks,
+        n_rows=p.n_rows, **epi)
+    row = {"at": label, "config": list(cfg.astuple()), "dim": dim,
+           "nnz": p.nnz, "ms": cuda_ms(kernel), "plain_ms": cuda_ms(plain)}
+    if not epi_spec:
+        indptr = np.concatenate([csr.indptr, np.full(
+            p.n_rows - csr.n_rows, csr.indptr[-1])])
+        with warnings.catch_warnings():          # "CSR support is in beta"
+            warnings.simplefilter("ignore", UserWarning)
+            A = torch.sparse_csr_tensor(
+                torch.as_tensor(indptr, device=device),
+                torch.as_tensor(csr.indices, device=device),
+                torch.as_tensor(csr.data, device=device),
+                size=(p.n_rows, p.n_cols), check_invariants=True)
+        row["library_ms"] = cuda_ms(lambda: torch.sparse.mm(A, B))
+        lib_out = torch.sparse.mm(A, B)
+        check(torch.allclose(lib_out, kernel(), rtol=RTOL, atol=ATOL),
+              f"{label}: cuSPARSE and the kernel disagree")
+    else:
+        row["library_ms"] = None
+    row["bound_ms"], row["bound_by"] = _bound(p, steer, B,
+                                              p.n_rows * dim, epi)
+    print(f"[time] {label} {cfg.astuple()} dim {dim} "
+          f"{'+epilogue ' if epi_spec else ''}kernel {row['ms']:.4f} ms, "
+          f"plain {row['plain_ms']:.4f} ms, library "
+          f"{row['library_ms'] if row['library_ms'] is None else round(row['library_ms'], 4)} ms, "
+          f"bound {row['bound_ms']:.4f} ms ({row['bound_by']})")
+    return row
+
+
+def phase_timing(device):
+    rows = []
+    g = rmat(13, 8, seed=31)
+    union = _union(g, 8, seed=5)
+    bucket = BucketPolicy.default().pick(union.n_rows, union.nnz)
+    cfg = SteeringPackCache(dim=64).get(bucket, union).config
+    p = pack_subgraph(union, PackGeom.from_bucket(bucket, cfg))
+    padded = CSRMatrix(np.concatenate([union.indptr, np.full(
+        p.n_rows - union.n_rows, union.indptr[-1])]), union.indices,
+        union.data, p.n_rows, p.n_rows)
+    rows.append(time_one(f"serve batch {bucket.key}", padded, p, 64, device))
+    rows.append(time_one(f"serve batch {bucket.key}", padded, p, 64, device,
+                         {"bias": True, "activation": "relu"}))
+    g17 = rmat(17, 6, seed=22)
+    p17 = build_pcsr(g17.indptr, g17.indices, g17.data, g17.n_rows,
+                     g17.n_cols, pick_config(g17, 64))
+    rows.append(time_one("rmat17", g17, p17, 64, device))
+    rows.append(time_one("rmat17", g17, p17, 64, device,
+                         {"bias": True, "activation": "relu"}))
+    # corpus("large")'s kreg150k: uniform degree, no hub group
+    gk = kregular(150_000, 6, seed=29)
+    pk = build_pcsr(gk.indptr, gk.indices, gk.data, gk.n_rows, gk.n_cols,
+                    pick_config(gk, 64))
+    rows.append(time_one("kreg150k", gk, pk, 64, device))
+    return rows
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("chip_smoke: CUDA is not available; this script needs an "
+              "NVIDIA GPU", file=sys.stderr)
+        return 2
+    t_start = time.perf_counter()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    device = torch.device("cuda")
+    kind = torch.cuda.get_device_name(0)
+    smi = nvidia_smi()
+    print(f"[device] {kind} ×{torch.cuda.device_count()}, torch "
+          f"{torch.__version__}, CUDA {torch.version.cuda}")
+    print(f"[device] nvidia-smi: {smi}")
+
+    t0 = time.perf_counter()
+    libs = build.build()
+    print(f"[build] {sorted(libs)} built in {time.perf_counter() - t0:.2f} s")
+    for name, log in build.BUILD_LOG.items():
+        for line in log.splitlines():
+            if "registers" in line or "spill" in line:
+                print(f"[build] {name}: {line.strip()}")
+
+    t0 = time.perf_counter()
+    cases, max_err = phase_kernel_grid(device)
+    print(f"[grid] {cases} kernel-vs-plain cases in "
+          f"{time.perf_counter() - t0:.1f} s")
+
+    t0 = time.perf_counter()
+    launches = sum(phase_serve(m, device) for m in ("gcn", "gin"))
+    print(f"[serve] {launches} kernel launches on the serving path in "
+          f"{time.perf_counter() - t0:.1f} s")
+
+    rows = phase_timing(device)
+    main_row = rows[2]                       # rmat17, A·B, dim 64
+    print(f"[done] {time.perf_counter() - t_start:.1f} s")
+    print(f"[device] nvidia-smi: {smi}")
+    print(json.dumps({"kernels": [{
+        "name": "paramspmm", "route": "cuda",
+        "source": "src/repro_torch/csrc/paramspmm.cu",
+        "replaces": "src/repro/kernels/paramspmm/kernel.py:122",
+        "launches": launches, "max_abs_err": max_err,
+        "ms": main_row["ms"], "plain_ms": main_row["plain_ms"],
+        "bound_ms": main_row["bound_ms"], "bound_by": main_row["bound_by"],
+        "library_ms": main_row["library_ms"],
+        "at": f"{main_row['at']} dim {main_row['dim']} "
+              f"config {main_row['config']}",
+        "timings": rows}]}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": kind,
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

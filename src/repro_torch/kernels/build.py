@@ -1,0 +1,93 @@
+"""Build the port's CUDA kernels from the sources in ``repro_torch/csrc``.
+
+Each ``csrc/<name>.cu`` exposes a plain C interface and is compiled by
+``nvcc`` into its own shared library for ``sm_90a`` (Hopper), which the
+kernel's wrapper loads with ``ctypes``.  No source includes PyTorch's
+headers, so a build takes seconds rather than minutes.  Builds happen at
+first use, never at import, into ``build/repro_torch/`` at the root of
+the checkout (listed in ``.gitignore``); a library's file name carries a
+hash of its source and flags, so an edited source is rebuilt.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+from pathlib import Path
+
+PKG_DIR = Path(__file__).resolve().parents[1]
+CSRC_DIR = PKG_DIR / "csrc"
+BUILD_DIR = PKG_DIR.parents[1] / "build" / "repro_torch"
+NVCC_FLAGS = ("-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+_LOCK = threading.Lock()
+_LIBS: dict[str, ctypes.CDLL] = {}
+BUILD_LOG: dict[str, str] = {}       # name → nvcc/ptxas output of its build
+
+
+def nvcc() -> str:
+    """Path of the CUDA compiler: ``nvcc`` on PATH, else under CUDA_HOME."""
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    from torch.utils.cpp_extension import CUDA_HOME
+    if CUDA_HOME and os.path.exists(os.path.join(CUDA_HOME, "bin", "nvcc")):
+        return os.path.join(CUDA_HOME, "bin", "nvcc")
+    raise RuntimeError("nvcc not found: the CUDA kernels need the CUDA "
+                       "toolkit (nvcc on PATH or CUDA_HOME set)")
+
+
+def sources() -> list[str]:
+    """Names of every kernel source in ``csrc/``."""
+    return sorted(p.stem for p in CSRC_DIR.glob("*.cu"))
+
+
+def library_path(name: str) -> Path:
+    src = (CSRC_DIR / f"{name}.cu").read_bytes()
+    tag = hashlib.sha1(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
+    return BUILD_DIR / f"lib{name}-{tag}.so"
+
+
+def build(names=None) -> dict[str, Path]:
+    """Compile the named sources (default: all), one ``nvcc`` process per
+    source, all started together.  Raises with the compiler's output if
+    any build fails.  Returns name → library path."""
+    names = sources() if names is None else list(names)
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    todo, out = {}, {}
+    for name in names:
+        lib = library_path(name)
+        out[name] = lib
+        if not lib.exists():
+            tmp = lib.with_suffix(f".{os.getpid()}.tmp")
+            cmd = [nvcc(), *NVCC_FLAGS, "-o", str(tmp),
+                   str(CSRC_DIR / f"{name}.cu")]
+            todo[name] = (tmp, subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                text=True))
+    failed = []
+    for name, (tmp, proc) in todo.items():
+        log, _ = proc.communicate()
+        BUILD_LOG[name] = log
+        if proc.returncode != 0:
+            failed.append(f"--- {name} (exit {proc.returncode})\n{log}")
+        else:
+            os.replace(tmp, out[name])
+    if failed:
+        raise RuntimeError("kernel build failed:\n" + "\n".join(failed))
+    return out
+
+
+def load(name: str) -> ctypes.CDLL:
+    """The shared library built from ``csrc/<name>.cu``, built on first
+    use and loaded once per process."""
+    with _LOCK:
+        lib = _LIBS.get(name)
+        if lib is None:
+            path = build([name])[name]
+            lib = _LIBS[name] = ctypes.CDLL(str(path))
+        return lib

@@ -1,0 +1,19 @@
+"""Process-wide telemetry: spans and counters behind one switch.
+
+Tracing is off by default and every instrumentation point in the hot
+paths degrades to a near-zero no-op.  Enable with ``obs.tracing(path)``
+or the ``--trace`` flag of ``repro_torch.apps.serve_gnn``.
+"""
+from repro_torch.obs.trace import (
+    tracing, start_tracing, stop_tracing, trace_enabled, span,
+    export_trace, trace_events,
+)
+from repro_torch.obs.metrics import (
+    counter, histogram, metrics_snapshot, reset_metrics,
+)
+
+__all__ = [
+    "tracing", "start_tracing", "stop_tracing", "trace_enabled", "span",
+    "export_trace", "trace_events",
+    "counter", "histogram", "metrics_snapshot", "reset_metrics",
+]

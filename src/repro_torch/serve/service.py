@@ -1,0 +1,190 @@
+"""GNNService — the request path, end to end.
+
+``submit`` runs the sampling stage (seeded k-hop fanout-capped expansion
++ induced-subgraph extraction with local relabeling, span
+``serve.sample``) and queues the result; ``tick`` drains the batcher,
+and for each batch: coalesces the member subgraphs into one
+block-diagonal union, picks the shape bucket, fetches the bucket's pack
+from the cache (span ``serve.pack``, config pick amortized), packs the
+union into the bucket geometry and moves its steering and padded
+features to the service's device, and runs the bucket forward (span
+``serve.forward``).  Per-request outputs are the forward's rows at each
+request's seed positions.
+
+Everything is deterministic given the request stream: sampling is
+seeded per request, batch composition is a pure function of queue
+order, and the padded layouts are fixed per bucket.
+"""
+from __future__ import annotations
+
+import time
+from dataclasses import dataclass
+
+import numpy as np
+import torch
+
+from repro_torch.core.cost_model import H100, Hardware
+from repro_torch.core.sparse import CSRMatrix
+from repro_torch.data.graphs import extract_subgraph, sample_khop
+from repro_torch.device import resolve_device
+from repro_torch.obs import metrics as _metrics
+from repro_torch.obs import span
+
+from .batcher import RequestBatcher, SampledRequest, SubgraphRequest
+from .bucket import BucketPolicy, pack_subgraph, steering_arrays
+from .cache import SteeringPackCache
+from .forward import _model_forward, bucket_forward
+
+
+@dataclass
+class RequestResult:
+    rid: str
+    outputs: np.ndarray        # (n_seeds, out_dim) rows for req.seeds
+    bucket_key: str
+    latency_s: float
+    config: object = None      # the SpMMConfig the batch was served under
+    sampled: SampledRequest | None = None   # kept when keep_subgraphs
+
+
+def _model_dims(model: str, params) -> int:
+    """Widest layer width — the config pick's embedding-dim argument."""
+    if model == "gin":
+        return max(int(l["w1"].shape[1]) for l in params)
+    return max(int(l["w"].shape[1]) for l in params)
+
+
+def _union_csr(members) -> CSRMatrix:
+    """Block-diagonal union of the members' local-id subgraphs."""
+    n_tot = sum(sr.n for sr in members)
+    indptr = [np.zeros(1, np.int64)]
+    indices, data = [], []
+    n_off = e_off = 0
+    for sr in members:
+        indptr.append(sr.sub.indptr[1:] + e_off)
+        indices.append(sr.sub.indices + n_off)
+        data.append(sr.sub.data)
+        n_off += sr.n
+        e_off += int(sr.sub.indices.size)
+    return CSRMatrix(np.concatenate(indptr), np.concatenate(indices),
+                     np.concatenate(data), n_tot, n_tot)
+
+
+class GNNService:
+    """Serve a GCN or GIN over one base graph.
+
+    ``csr`` is the propagation matrix to sample from (pre-normalize it
+    for GCN: edge weights travel with the extracted edges), ``features``
+    the ``(n_nodes, f)`` node features (numpy, host-resident), ``params``
+    the model parameters (moved to the service's device).  ``device``
+    defaults to CUDA and raises if there is none; pass ``device="cpu"``
+    to serve through the kernel's plain version.  ``hardware`` is what
+    the per-bucket config pick prices with.  ``keep_subgraphs=True``
+    retains each request's sampled subgraph on its result, for
+    re-checking against ``reference_forward``.
+    """
+
+    def __init__(self, csr: CSRMatrix, features, params, *,
+                 model: str = "gcn", device=None,
+                 policy: BucketPolicy | None = None,
+                 cache_capacity: int = 8, max_batch: int = 32,
+                 keep_subgraphs: bool = False,
+                 hardware: Hardware = H100):
+        _model_forward(model)                 # raises for gat / unknown
+        self.device = resolve_device(device)
+        self.csr = csr
+        self.features = np.asarray(features, np.float32)
+        self.params = [{k: v.to(self.device) for k, v in layer.items()}
+                       for layer in params]
+        self.model = model
+        self.policy = policy or BucketPolicy.default()
+        self.keep_subgraphs = keep_subgraphs
+        self.cache = SteeringPackCache(
+            dim=_model_dims(model, params), capacity=cache_capacity,
+            hardware=hardware)
+        big = self.policy.largest
+        self.batcher = RequestBatcher(n_max=big.n_ceil, e_max=big.e_ceil,
+                                      max_batch=max_batch)
+        self.batch_log: list = []       # (bucket_key, (rid, ...)) per batch
+        self.requests_served = 0
+        self._geoms: set = set()        # distinct (geometry, model) forwards
+
+    # ------------------------------------------------------------ intake
+    def submit(self, req: SubgraphRequest) -> SampledRequest:
+        """Sample + extract the request's subgraph and queue it."""
+        with span("serve.sample", rid=req.rid, seeds=len(req.seeds)):
+            t0 = time.perf_counter()
+            nodes = sample_khop(self.csr, req.seeds, req.fanouts,
+                                seed=req.sample_seed)
+            sub = extract_subgraph(self.csr, nodes)
+            seed_local = np.searchsorted(
+                nodes, np.unique(np.asarray(req.seeds, np.int64)))
+            sr = SampledRequest(req, nodes, sub, seed_local, t_submit=t0)
+            _metrics.counter("serve_requests_total").inc(model=self.model)
+        self.batcher.add(sr)
+        return sr
+
+    # ------------------------------------------------------------- serve
+    def tick(self) -> list:
+        """Drain the queue and serve every pending batch."""
+        results = []
+        for members in self.batcher.drain():
+            results.extend(self._run_batch(members))
+        return results
+
+    def _run_batch(self, members) -> list:
+        n_tot = sum(sr.n for sr in members)
+        union = _union_csr(members)
+        e_tot = int(union.indices.size)
+        bucket = self.policy.pick(n_tot, e_tot)
+        with span("serve.batch", bucket=bucket.key, requests=len(members),
+                  nodes=n_tot, edges=e_tot):
+            with span("serve.pack", bucket=bucket.key):
+                t0 = time.perf_counter()
+                pack = self.cache.get(bucket, union)
+                steer = steering_arrays(pack_subgraph(union, pack.geom),
+                                        self.device)
+                _metrics.histogram("serve_pack_seconds").observe(
+                    time.perf_counter() - t0, bucket=bucket.key)
+            self._geoms.add((pack.geom, self.model))
+            X = np.zeros((pack.geom.n_rows, self.features.shape[1]),
+                         np.float32)
+            X[:n_tot] = self.features[
+                np.concatenate([sr.nodes for sr in members])]
+            with span("serve.forward", bucket=bucket.key):
+                out = bucket_forward(
+                    steer, torch.from_numpy(X).to(self.device), self.params,
+                    geom=pack.geom, model=self.model)
+                out = out.cpu().numpy()
+        now = time.perf_counter()
+        results, off = [], 0
+        for sr in members:
+            rows = off + sr.seed_local
+            results.append(RequestResult(
+                rid=sr.req.rid, outputs=out[rows], bucket_key=bucket.key,
+                latency_s=now - sr.t_submit, config=pack.config,
+                sampled=sr if self.keep_subgraphs else None))
+            off += sr.n
+        self.batch_log.append((bucket.key,
+                               tuple(sr.req.rid for sr in members)))
+        self.requests_served += len(members)
+        return results
+
+    @property
+    def compiled_buckets(self) -> int:
+        """Distinct (geometry, model) forwards this service has run — the
+        count of per-bucket programs (one CUDA-graph capture each, once
+        per-bucket capture lands)."""
+        return len(self._geoms)
+
+
+def replay(service: GNNService, stream, *, tick_every: int = 8) -> list:
+    """Drive a request stream through the service deterministically:
+    submit in arrival order, tick whenever ``tick_every`` requests are
+    pending, drain at the end.  Returns results in completion order."""
+    results = []
+    for req in stream:
+        service.submit(req)
+        if len(service.batcher) >= tick_every:
+            results.extend(service.tick())
+    results.extend(service.tick())
+    return results

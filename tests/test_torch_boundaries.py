@@ -1,0 +1,109 @@
+"""Package boundaries of the PyTorch port.
+
+``repro_torch`` and ``chip_smoke.py`` import neither JAX nor the JAX
+package ``repro`` (the port keeps its own copy of what it needs); only
+the ``tests/test_torch_*`` files import both.  Entry points run on the
+card unless the caller asks for the CPU.
+"""
+import ast
+import pathlib
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+PORT = ROOT / "src" / "repro_torch"
+PORT_FILES = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+
+
+def _imported_modules(path: pathlib.Path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for a in node.names:
+                yield a.name
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module or ""
+
+
+@pytest.mark.parametrize("path", PORT_FILES,
+                         ids=lambda p: str(p.relative_to(ROOT)))
+def test_no_jax_or_reference_imports(path):
+    bad = [m for m in _imported_modules(path)
+           if m.split(".")[0] in ("jax", "jaxlib", "repro")]
+    assert not bad, f"{path.name} imports {bad}"
+
+
+def test_every_module_imports_without_jax():
+    code = (
+        "import sys\n"
+        "sys.modules['jax'] = None\n"
+        "sys.modules['repro'] = None\n"
+        "import importlib, pkgutil, repro_torch\n"
+        "names = [m.name for m in pkgutil.walk_packages(\n"
+        "    repro_torch.__path__, 'repro_torch.')]\n"
+        "for n in names:\n"
+        "    importlib.import_module(n)\n"
+        "assert 'jax' not in [k for k, v in sys.modules.items() if v]\n"
+        "print(len(names))\n")
+    res = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         env={"PYTHONPATH": str(ROOT / "src"),
+                              "PATH": "/usr/bin:/bin"},
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stderr
+    assert int(res.stdout.split()[-1]) >= 20
+
+
+def test_entry_points_default_to_cuda(monkeypatch):
+    from repro_torch.apps.serve_gnn import main
+    from repro_torch.device import resolve_device
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for dev in (None, "cuda", "cuda:0"):
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            resolve_device(dev)
+    assert resolve_device("cpu") == torch.device("cpu")
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        main(["--requests", "2"])
+
+
+def test_kernel_sources_build_targets_hopper():
+    from repro_torch.kernels import build
+    assert build.sources() == ["paramspmm"]
+    assert "-gencode=arch=compute_90a,code=sm_90a" in build.NVCC_FLAGS
+    src = (build.CSRC_DIR / "paramspmm.cu").read_text()
+    assert "torch/extension.h" not in src
+    assert "src/repro/kernels/paramspmm/kernel.py" in src
+    # the build directory is one git ignores
+    ignored = (ROOT / ".gitignore").read_text().split()
+    assert "build/" in ignored
+    assert build.BUILD_DIR.relative_to(ROOT).parts[0] == "build"
+
+
+def test_chip_smoke_refuses_to_run_without_a_card(tmp_path):
+    """Without CUDA — and in a directory holding nothing else of the
+    repo — ``chip_smoke.py`` exits non-zero and prints no result."""
+    if torch.cuda.is_available():
+        pytest.skip("a card is present; this checks the card-less path")
+    lone = tmp_path / "chip_smoke.py"
+    lone.write_text((ROOT / "chip_smoke.py").read_text())
+    for cwd, script in ((ROOT, ROOT / "chip_smoke.py"), (tmp_path, lone)):
+        res = subprocess.run([sys.executable, str(script)], cwd=cwd,
+                             capture_output=True, text=True, timeout=120)
+        assert res.returncode != 0
+        assert '"ok": true' not in res.stdout
+
+
+def test_plain_path_is_taken_only_for_cpu_tensors():
+    from repro_torch.core.pcsr import SpMMConfig, build_pcsr
+    from repro_torch.kernels.paramspmm import ops
+    A = np.eye(8, dtype=np.float32)
+    from repro_torch.core.sparse import CSRMatrix
+    c = CSRMatrix.from_dense(A)
+    p = build_pcsr(c.indptr, c.indices, c.data, 8, 8, SpMMConfig())
+    B = torch.arange(16, dtype=torch.float32).reshape(8, 2)
+    assert torch.equal(ops.paramspmm(p, B), B)
+    with pytest.raises(ValueError, match="cpu or cuda"):
+        ops.paramspmm(p, B.to("meta"))

@@ -1,0 +1,108 @@
+"""The port's CUDA kernel on the card (marker ``cuda``; skips without one).
+
+These tests import neither JAX nor the JAX package, so they run on a
+machine that has only PyTorch and the CUDA toolkit:
+
+    PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
+
+The kernel is held against its plain PyTorch version on the same CUDA
+tensors: bit-exact with integer-valued operands, ``atol=1e-4,
+rtol=1e-5`` with float operands (the sums run in another order).
+"""
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.core.pcsr import SpMMConfig, build_pcsr
+from repro_torch.core.sparse import CSRMatrix
+from repro_torch.data.graphs import rmat
+from repro_torch.kernels.paramspmm import ops
+from repro_torch.models.gnn import init_gcn
+from repro_torch.serve import GNNService, replay, synthetic_stream
+
+CONFIGS = [SpMMConfig(V=v, S=s, B=b, F=f, W=r // v)
+           for v in (1, 2) for (s, b) in ((False, False), (True, False),
+                                          (True, True))
+           for f, r in ((1, 32), (2, 8))]
+
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU and nvcc")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    return torch.device("cuda")
+
+
+def _pack(cfg, integer, seed=0):
+    """A skewed graph with empty row blocks, integer or float edges."""
+    rng = np.random.default_rng(seed)
+    A = (rng.random((90, 90)) < 0.05).astype(np.float32)
+    A[rng.integers(0, 90, 4)] = (rng.random((4, 90)) < 0.5)
+    A[20:52] = 0.0
+    A = A * (rng.integers(-2, 3, A.shape) if integer
+             else rng.standard_normal(A.shape))
+    c = CSRMatrix.from_dense(A.astype(np.float32))
+    return build_pcsr(c.indptr, c.indices, c.data, 90, 90, cfg)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cfg", CONFIGS, ids=lambda c: str(c.astuple()))
+@pytest.mark.parametrize("activation", ["none", "relu", "leaky_relu"])
+def test_kernel_matches_plain(cuda_device, cfg, activation):
+    for integer in (False, True):
+        p = _pack(cfg, integer)
+        rng = np.random.default_rng(3)
+        draw = ((lambda *s: rng.integers(-3, 4, s)) if integer
+                else (lambda *s: rng.standard_normal(s)))
+        t = lambda *s: torch.tensor(draw(*s), dtype=torch.float32,
+                                    device=cuda_device)
+        B = t(90, 200)
+        epi = {"scale": t(90), "bias": t(200), "residual": t(90, 200),
+               "activation": activation}
+        before = ops.launch_count()
+        got = ops.paramspmm(p, B, **epi)
+        torch.cuda.synchronize()
+        assert ops.launch_count() == before + 1
+        want = ops.paramspmm_plain(
+            ops.device_steering(p, cuda_device), B, V=cfg.V, R=cfg.R, K=p.K,
+            n_blocks=p.n_blocks, n_rows=p.n_rows, **epi)
+        if integer:
+            assert torch.equal(got, want)
+        else:
+            torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-4)
+
+
+@pytest.mark.cuda
+def test_wrapper_refuses_other_dtypes(cuda_device):
+    p = _pack(SpMMConfig(V=1, S=True, W=8), integer=False)
+    B = torch.ones((90, 16), device=cuda_device)
+    for dtype in (torch.float64, torch.bfloat16, torch.float16):
+        with pytest.raises(TypeError, match="float32"):
+            ops.paramspmm(p, B.to(dtype))
+    with pytest.raises(TypeError, match="float32"):
+        ops.paramspmm(p, B, bias=torch.ones(16, dtype=torch.float64,
+                                            device=cuda_device))
+    with pytest.raises(ValueError, match="contiguous"):
+        ops.paramspmm(p, torch.ones((16, 90), device=cuda_device).t())
+
+
+@pytest.mark.cuda
+def test_service_on_card_matches_cpu(cuda_device):
+    g = rmat(10, 6, seed=1)
+    feats = np.random.default_rng(0).integers(0, 3, (g.n_rows, 8)).astype(
+        np.float32)
+    params = [{k: torch.round(v * 2) for k, v in l.items()}
+              for l in init_gcn([8, 16, 16, 4],
+                                generator=torch.Generator().manual_seed(0))]
+    stream = synthetic_stream(12, g.n_rows, seed=3)
+    out = {}
+    for dev in ("cpu", cuda_device):
+        svc = GNNService(g, feats, params, device=dev)
+        before = ops.launch_count()
+        out[str(dev)] = replay(svc, stream, tick_every=4)
+        launches = ops.launch_count() - before
+        assert launches == (0 if dev == "cpu" else 3 * len(svc.batch_log))
+    for a, b in zip(out["cpu"], out[str(cuda_device)]):
+        assert a.rid == b.rid and np.array_equal(a.outputs, b.outputs)
