@@ -1,0 +1,212 @@
+#!/usr/bin/env python3
+"""Comparisons of two versions on one NVIDIA GPU, in one run.
+
+    python3 chip_compare.py spmm ROOT [ROOT ...]
+    python3 chip_compare.py sddmm-sum
+
+``spmm`` times the ParamSpMM rows of ``chip_smoke.py``'s timing phase
+(serving bucket with and without the bias + ReLU epilogue, rmat17 with
+and without it, kreg150k; dim 64) with the ``chip_smoke.py`` and
+``src/repro_torch`` of each checkout ROOT, each in a process of its own
+and in the order given (give parent, change, change, parent to see the
+drift).  ``sddmm-sum`` builds ``csrc/sddmm_softmax.cu`` a second time with
+a float64 Σexp (``-DREPRO_SDDMM_SUM=double``) and times it against the
+shipped float32 Σexp on the GAT-picked configs of a serving bucket,
+rmat17 (also at 4 heads) and kreg150k, and reads each one's largest
+relative rowsum error against the plain version (whose Σexp is float64)
+on rows with an edge, over three seeds.
+
+Each prints a table and writes its rows as JSON under ``build/compare/``.
+Needs a card; exits non-zero without one.
+"""
+from __future__ import annotations
+
+import ctypes
+import json
+import subprocess
+import sys
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent
+OUT = ROOT / "build" / "compare"
+
+
+def _need_card():
+    import torch
+    if not torch.cuda.is_available():
+        sys.exit("chip_compare: CUDA is not available")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return torch.device("cuda")
+
+
+def _smoke(root: Path):
+    """``chip_smoke`` of ``root``; it puts ``root/src`` on the path, so
+    the ``repro_torch`` it drives is that checkout's."""
+    sys.path.insert(0, str(root))
+    import chip_smoke
+    check = Path(chip_smoke.__file__).resolve().parent
+    if check != root.resolve():
+        sys.exit(f"chip_compare: imported {check}, wanted {root}")
+    return chip_smoke
+
+
+# --------------------------------------------------------------- spmm
+def spmm_rows(root: Path) -> list:
+    """The ParamSpMM timing rows of ``root``'s chip_smoke phase 5."""
+    device = _need_card()
+    cs = _smoke(root)
+    cs.build.build()
+    import numpy as np
+    g = cs.rmat(13, 8, seed=31)
+    union = cs._union(g, 8, seed=5)
+    bucket = cs.BucketPolicy.default().pick(union.n_rows, union.nnz)
+    cfg = cs.SteeringPackCache(dim=64).get(bucket, union).config
+    p = cs.pack_subgraph(union, cs.PackGeom.from_bucket(bucket, cfg))
+    padded = cs.CSRMatrix(np.concatenate([union.indptr, np.full(
+        p.n_rows - union.n_rows, union.indptr[-1])]), union.indices,
+        union.data, p.n_rows, p.n_rows)
+    epi = {"bias": True, "activation": "relu"}
+    rows = [cs.time_one(f"serve batch {bucket.key}", padded, p, 64, device),
+            cs.time_one(f"serve batch {bucket.key}", padded, p, 64, device,
+                        epi)]
+    g17 = cs.rmat(17, 6, seed=22)
+    p17 = cs.build_pcsr(g17.indptr, g17.indices, g17.data, g17.n_rows,
+                        g17.n_cols, cs.pick_config(g17, 64))
+    rows += [cs.time_one("rmat17", g17, p17, 64, device),
+             cs.time_one("rmat17", g17, p17, 64, device, epi)]
+    gk = cs.kregular(150_000, 6, seed=29)
+    pk = cs.build_pcsr(gk.indptr, gk.indices, gk.data, gk.n_rows, gk.n_cols,
+                       cs.pick_config(gk, 64))
+    rows.append(cs.time_one("kreg150k", gk, pk, 64, device))
+    for r in rows:
+        r["epilogue"] = r.get("library_ms") is None
+    return rows
+
+
+def run_spmm(roots: list) -> int:
+    runs = []
+    for i, root in enumerate(roots):
+        res = subprocess.run([sys.executable, __file__, "_spmm_rows", root],
+                             capture_output=True, text=True, timeout=900)
+        sys.stderr.write(res.stderr[-4000:])
+        if res.returncode != 0:
+            print(res.stdout[-4000:])
+            sys.exit(f"chip_compare: run {i} ({root}) failed")
+        runs.append({"run": i, "root": root,
+                     "rows": json.loads(res.stdout.strip().splitlines()[-1])})
+    print("run | root | at | epilogue | kernel ms | plain ms | library ms")
+    for run in runs:
+        for r in run["rows"]:
+            lib = r["library_ms"]
+            print(f"{run['run']} | {run['root']} | {r['at']} | "
+                  f"{r['epilogue']} | {r['ms']:.4f} | {r['plain_ms']:.4f} | "
+                  f"{'—' if lib is None else f'{lib:.4f}'}")
+    OUT.mkdir(parents=True, exist_ok=True)
+    (OUT / "compare_spmm.json").write_text(json.dumps(runs, indent=1))
+    return 0
+
+
+# ---------------------------------------------------------- sddmm-sum
+def _sum_variant_libs(cs):
+    """The shipped ``sddmm_softmax`` library and the same source built
+    with a float64 Σexp, the second loaded through the wrapper's own
+    ``_lib`` so it gets the same argument types."""
+    build, ops = cs.build, cs.sddmm_ops
+    src = build.CSRC_DIR / "sddmm_softmax.cu"
+    path = build.BUILD_DIR / "libsddmm_softmax-sum_double.so"
+    build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    subprocess.run([build.nvcc(), *build.NVCC_FLAGS,
+                    "-DREPRO_SDDMM_SUM=double", "-o", str(path), str(src)],
+                   check=True, capture_output=True, timeout=600)
+    shipped = ops._lib()
+    load = build.load
+    build.load = lambda name: ctypes.CDLL(str(path))
+    try:
+        ops._LIB = None
+        variant = ops._lib()
+    finally:
+        build.load = load
+        ops._LIB = shipped
+    return shipped, variant
+
+
+def run_sddmm_sum() -> int:
+    import numpy as np
+    import torch
+    device = _need_card()
+    cs = _smoke(ROOT)
+    ops = cs.sddmm_ops
+    libs = dict(zip(("float32", "float64"), _sum_variant_libs(cs)))
+    g = cs.rmat(13, 8, seed=31)
+    union = cs._union(g, 8, seed=5)
+    bucket = cs.BucketPolicy.default().pick(union.n_rows, union.nnz)
+    cfg = cs.SteeringPackCache(dim=64, op="gat").get(bucket, union).config
+    cases = [(f"serve batch {bucket.key}",
+              cs.pack_subgraph(union, cs.PackGeom.from_bucket(bucket, cfg)),
+              1, 64)]
+    for label, gr in (("rmat17", cs.rmat(17, 6, seed=22)),
+                      ("kreg150k", cs.kregular(150_000, 6, seed=29))):
+        p = cs.build_pcsr(gr.indptr, gr.indices, gr.data, gr.n_rows,
+                          gr.n_cols, cs.pick_config(gr, 64, op="gat"))
+        cases.append((label, p, 1, 64))
+        if label == "rmat17":
+            cases.append((label, p, 4, 16))
+    rows = []
+    for label, p, H, d in cases:
+        c = p.config
+        steer = ops.device_steering(p, device)
+        geo = dict(V=c.V, R=c.R, K=p.K, n_blocks=p.n_blocks, n_rows=p.n_rows)
+        row = {"at": label, "config": list(c.astuple()), "H": H, "dim": d,
+               "nnz": p.nnz}
+        for seed in range(3):
+            rng = np.random.default_rng(seed)
+            Q, K = (torch.from_numpy(rng.standard_normal(
+                (H, n, d)).astype(np.float32)).to(device)
+                for n in (p.n_rows, p.n_cols))
+            want = ops.sddmm_softmax_plain(steer, Q, K, scale=float(
+                1.0 / np.sqrt(d)), slope=cs.SLOPE, **geo)
+            has = want[2] > 0
+            for name, lib in libs.items():
+                ops._LIB = lib
+                got = ops.sddmm_softmax_stats(p, Q, K)
+                torch.cuda.synchronize()
+                cs.check(torch.equal(got[0], want[0])
+                         or torch.allclose(got[0], want[0], rtol=1e-5,
+                                           atol=1e-5),
+                         f"{label}: logits differ ({name})")
+                rel = ((got[2] - want[2]).abs() / want[2])[has]
+                key = f"rowsum_rel_err_{name}"
+                row[key] = max(row.get(key, 0.0), float(rel.max()))
+        Q1, K1 = (torch.randn((H, n, d), device=device)
+                  for n in (p.n_rows, p.n_cols))
+        for rep in range(2):                    # f32, f64, f64, f32
+            for name in (("float32", "float64") if rep == 0
+                         else ("float64", "float32")):
+                ops._LIB = libs[name]
+                ms = cs.cuda_ms(lambda: ops.sddmm_softmax_stats(p, Q1, K1))
+                row.setdefault(f"ms_{name}", []).append(ms)
+        ops._LIB = libs["float32"]
+        rows.append(row)
+        print(f"{label} {tuple(c.astuple())} H={H} d={d}: "
+              f"float32 Σexp {row['ms_float32']} ms, float64 Σexp "
+              f"{row['ms_float64']} ms; max rel rowsum err vs plain "
+              f"float32 {row['rowsum_rel_err_float32']:.3e}, float64 "
+              f"{row['rowsum_rel_err_float64']:.3e}")
+    OUT.mkdir(parents=True, exist_ok=True)
+    (OUT / "compare_sddmm_sum.json").write_text(json.dumps(rows, indent=1))
+    return 0
+
+
+def main(argv) -> int:
+    if len(argv) >= 2 and argv[0] == "_spmm_rows":
+        print(json.dumps(spmm_rows(Path(argv[1]))))
+        return 0
+    if len(argv) >= 2 and argv[0] == "spmm":
+        return run_spmm(argv[1:])
+    if argv == ["sddmm-sum"]:
+        return run_sddmm_sum()
+    sys.exit(__doc__)
+
+
+if __name__ == "__main__":
+    sys.exit(main(sys.argv[1:]))

@@ -7,26 +7,39 @@ Runs from the root of a checkout and drives ``src/repro_torch`` only
 (no JAX, nothing of the JAX package).  Phases, each printing its lines:
 
 1. device — the card's name, count, and ``nvidia-smi`` name + power limit;
-2. build  — every CUDA kernel from ``src/repro_torch/csrc`` with ``nvcc``;
-3. kernel vs plain — the ParamSpMM kernel against its plain PyTorch
-   version on the same CUDA tensors, over every V/S/B combination, F ∈
-   {1, 2}, R ∈ {8, 16, 32}, dims 16/64/200 and every epilogue variant, on
+2. build  — every CUDA kernel from ``src/repro_torch/csrc`` with ``nvcc``
+   (``paramspmm.cu`` and ``sddmm_softmax.cu``, in parallel);
+3. kernel vs plain — each kernel against its plain PyTorch version on the
+   same CUDA tensors.  ParamSpMM: every V/S/B combination, F ∈ {1, 2},
+   R ∈ {8, 16, 32}, dims 16/64/200 and every epilogue variant, on
    bucket-padded serving packs and on ``corpus("large")``'s rmat17
    (131k nodes) at dim 64: bit-exact with integer-valued operands (0/1
    edges), ``atol=1e-4, rtol=1e-5`` with float operands (GCN-normalized
-   edges, normal features; the sums run in another order);
+   edges, normal features; the sums run in another order).  Fused SDDMM →
+   softmax stats and the ParamSpMM softmax prologue: the same V/S/B × R ×
+   F grid on bucket packs at d ∈ {16, 64}, rmat17 at d = 64, and 4 heads
+   at d = 16: logits bit-exact with integer-valued Q/K, stats and α within
+   ``rtol=1e-5, atol=1e-6`` (logits ``atol=1e-5`` with float Q/K), the
+   prologue SpMM within ``rtol=1e-5, atol=1e-4``;
 4. serving — GCN then GIN at the published widths ([16, 64, 64, 64, 64,
    16], ``configs/gcn.py`` / ``configs/gin.py``) through
    ``GNNService(device="cuda")`` on ``corpus("serve")``'s rmat13, a
    64-request seeded stream each, integer-valued features, weights and
    edges; every request bit-exact against ``reference_forward`` on the
-   CPU; the kernel's launch count must equal layers × batches;
-5. timing — CUDA events after warm-up: the kernel, its plain version and
-   ``torch.sparse.mm`` (cuSPARSE, the paper's baseline; timed here only)
-   at a serving shape, on rmat17 and on ``corpus("large")``'s kreg150k
-   (uniform degree), beside the least time the card could take (bytes of
-   each input read once and the output written once over the data-sheet
-   HBM rate, vs the real MACs over the float32 peak).
+   CPU; the kernel's launch count must equal layers × batches.  Then
+   single-head GAT at ``configs/gat.py``'s width ([16, 64, 64, 16]) on the
+   same graph and stream, seeded random weights and features: every
+   request within ``rtol=1e-4, atol=1e-4`` of ``reference_forward`` on
+   the CPU, and each of the two kernels launched layers × batches times;
+5. timing — CUDA events after warm-up, at a serving shape, on rmat17 and
+   on ``corpus("large")``'s kreg150k (uniform degree), at dim 64: each
+   kernel, its plain version and one PyTorch library call (timed here
+   only: ``torch.sparse.mm``, cuSPARSE SpMM, the paper's baseline; for the
+   SDDMM ``torch.sparse.sampled_addmm``, cuSPARSE SDDMM, which gives raw
+   scores without the softmax; for the prologue SpMM ``torch.sparse.mm``
+   on a CSR holding α, i.e. α given), beside the least time the card could
+   take (bytes of each input read once and each output written once over
+   the data-sheet HBM rate, vs the real MACs over the float32 peak).
 
 Any failure raises and exits non-zero.  The last two lines are the
 kernels' JSON summary and ``{"ok": true, "device": {...}}``.
@@ -46,6 +59,7 @@ import torch
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
+from repro_torch.core.engine import _slot_rows  # noqa: E402
 from repro_torch.core.pcsr import SpMMConfig, build_pcsr  # noqa: E402
 from repro_torch.core.sparse import CSRMatrix  # noqa: E402
 from repro_torch.data.graphs import (extract_subgraph,  # noqa: E402
@@ -53,6 +67,8 @@ from repro_torch.data.graphs import (extract_subgraph,  # noqa: E402
 from repro_torch.kernels import build  # noqa: E402
 from repro_torch import obs  # noqa: E402
 from repro_torch.kernels.paramspmm import ops  # noqa: E402
+from repro_torch.kernels.sddmm import ops as sddmm_ops  # noqa: E402
+from repro_torch.models.gnn import init_gat  # noqa: E402
 from repro_torch.pipeline import pick_config  # noqa: E402
 from repro_torch.serve import (BucketPolicy, GNNService,  # noqa: E402
                                PackGeom, SteeringPackCache, pack_subgraph,
@@ -73,6 +89,10 @@ EPILOGUES = {
             "activation": "relu"},
 }
 SERVE_DIMS = [16, 64, 64, 64, 64, 16]     # configs/gcn.py, configs/gin.py
+GAT_DIMS = [16, 64, 64, 16]                # configs/gat.py, heads = 1
+GAT_ATOL, GAT_RTOL = 1e-4, 1e-4            # served GAT vs the CPU reference
+STATS_ATOL, STATS_RTOL = 1e-6, 1e-5        # SDDMM stats and α, kernel vs plain
+SLOPE = 0.2                                # GAT's LeakyReLU slope
 
 
 def check(cond, msg):
@@ -205,6 +225,112 @@ def phase_kernel_grid(device, *, big=True):
     return cases, max_err
 
 
+def _gat_compare(p, device, rng, d, H, integer):
+    """The SDDMM kernel and the prologue SpMM kernel, each against its
+    plain version on the same CUDA tensors.  Returns the max abs
+    differences (logits, prologue output)."""
+    cfg = p.config
+    steer = ops.device_steering(p, device)
+    draw = ((lambda *s: rng.integers(-3, 4, s).astype(np.float32))
+            if integer else
+            (lambda *s: rng.standard_normal(s).astype(np.float32)))
+    Q = torch.from_numpy(draw(H, p.n_rows, d)).to(device)
+    K = torch.from_numpy(draw(H, p.n_cols, d)).to(device)
+    B = torch.from_numpy(rng.standard_normal((H, p.n_cols, d)).astype(
+        np.float32)).to(device)
+    geo = dict(V=cfg.V, R=cfg.R, K=p.K, n_blocks=p.n_blocks,
+               n_rows=p.n_rows)
+    if H == 1:        # the single-head entry point, as GAT serving calls it
+        got = [t[None] for t in sddmm_ops.sddmm_softmax_stats(p, Q[0], K[0])]
+    else:
+        got = list(sddmm_ops.sddmm_softmax_stats(p, Q, K))
+    want = sddmm_ops.sddmm_softmax_plain(
+        steer, Q, K, scale=float(1.0 / np.sqrt(d)), slope=SLOPE, **geo)
+    torch.cuda.synchronize()
+    what = f"{cfg.astuple()} d={d} H={H} integer={integer}"
+    check(got[0].shape == want[0].shape
+          and torch.equal(torch.isneginf(got[0]), torch.isneginf(want[0])),
+          f"sddmm logits: shape or −inf pattern differs ({what})")
+    if integer:
+        check(torch.equal(got[0], want[0]),
+              f"sddmm logits not bit-exact on integer Q/K ({what})")
+    else:
+        torch.testing.assert_close(got[0], want[0], rtol=RTOL, atol=1e-5)
+    for a, b in zip(got[1:], want[1:]):
+        torch.testing.assert_close(a, b, rtol=STATS_RTOL, atol=STATS_ATOL)
+    alpha = [sddmm_ops.normalize_from_stats(*x, steer.lrow, steer.trow,
+                                            R=cfg.R, V=cfg.V, K=p.K)
+             for x in (got, want)]
+    torch.testing.assert_close(alpha[0], alpha[1], rtol=STATS_RTOL,
+                               atol=STATS_ATOL)
+    fin = torch.isfinite(want[0])
+    err_lg = float((got[0][fin] - want[0][fin]).abs().max()) \
+        if bool(fin.any()) else 0.0
+    if H == 1:
+        out = ops.paramspmm_with_vals(p, got[0][0], B[0],
+                                      stats=(got[1][0], got[2][0]))[None]
+    else:
+        out = ops.paramspmm_with_vals(p, got[0], B, stats=tuple(got[1:]))
+    ref = ops.paramspmm_plain(steer, B, vals=got[0], rowmax=got[1],
+                              rowsum=got[2], **geo)
+    torch.cuda.synchronize()
+    check(out.shape == ref.shape and bool(torch.isfinite(out).all()),
+          f"prologue spmm: bad output ({what})")
+    torch.testing.assert_close(out, ref, rtol=RTOL, atol=ATOL)
+    return err_lg, float((out - ref).abs().max())
+
+
+def phase_gat_grid(device):
+    """Phase 3, GAT kernels: the fused SDDMM → softmax stats and the
+    prologue SpMM against their plain versions."""
+    rng = np.random.default_rng(2)
+    g = rmat(13, 8, seed=31)
+    union = _union(g, 8, seed=5)
+    bucket = BucketPolicy.default().pick(union.n_rows, union.nnz)
+    cases, err_lg, err_out = 0, 0.0, 0.0
+
+    def run(p, d, H):
+        nonlocal cases, err_lg, err_out
+        for integer in (True, False):
+            e_lg, e_out = _gat_compare(p, device, rng, d, H, integer)
+            if not integer:
+                err_lg = max(err_lg, e_lg)
+            err_out = max(err_out, e_out)
+            cases += 1
+
+    for v in (1, 2):
+        for s, b in ((False, False), (True, False), (True, True)):
+            for r in (8, 16, 32):
+                for f in (1, 2):
+                    cfg = SpMMConfig(V=v, S=s, B=b, F=f, W=r // v)
+                    p = pack_subgraph(union, PackGeom.from_bucket(bucket,
+                                                                  cfg))
+                    for d in (16, 64):
+                        run(p, d, 1)
+                    if r == 16 and f == 1:
+                        run(p, 16, 4)
+    print(f"[gat grid] bucket packs: {cases} cases match (max abs err: "
+          f"logits {err_lg:.3e} on float Q/K, prologue spmm "
+          f"{err_out:.3e})")
+    g17 = rmat(17, 6, seed=22)
+    picked = pick_config(g17, 64, op="gat")
+    configs = [picked] + [SpMMConfig(V=v, S=s, B=b, W=16 // v)
+                          for v in (1, 2) for s, b in ((False, False),
+                                                       (True, False),
+                                                       (True, True))]
+    for cfg in configs:
+        t0 = time.perf_counter()
+        p = build_pcsr(g17.indptr, g17.indices, g17.data, g17.n_rows,
+                       g17.n_cols, cfg)
+        run(p, 64, 1)
+        if cfg == picked:
+            run(p, 16, 4)
+        print(f"[gat grid] rmat17 {cfg.astuple()} K={p.K} "
+              f"C={p.covered_num_chunks}: match "
+              f"({time.perf_counter() - t0:.1f} s)")
+    return cases, err_lg, err_out
+
+
 # ------------------------------------------------------------- serving
 def _int_params(model, seed):
     """Integer-valued parameters at the published widths: every weight
@@ -262,21 +388,14 @@ def phase_serve(model, device, *, requests=64, seed=0):
     svc = GNNService(g, feats, params, model=model, device=device,
                      keep_subgraphs=True)
     stream = synthetic_stream(requests, g.n_rows, seed=seed)
-    ops.reset_launch_count()
-    t0 = time.perf_counter()
-    with obs.tracing():
-        results = replay(svc, stream, tick_every=8)
-        spans: dict = {}
-        for e in obs.trace_events():
-            spans[e["name"]] = spans.get(e["name"], 0.0) + e["dur"] / 1e3
-    wall = time.perf_counter() - t0
-    launches = ops.launch_count()
+    results, spans, wall, launches = _drive(svc, stream)
     check(len(results) == requests, f"{model}: {len(results)} results")
     n_layers = len(SERVE_DIMS) - 1
     predicted = n_layers * len(svc.batch_log)
-    check(launches == predicted > 0,
-          f"{model}: {launches} kernel launches, layer structure predicts "
-          f"{predicted}")
+    check(launches == (predicted, 0) and predicted > 0,
+          f"{model}: (paramspmm, sddmm_softmax) launches {launches}, layer "
+          f"structure predicts ({predicted}, 0)")
+    launches = launches[0]
     worst = 0.0
     for r in results:
         sr = r.sampled
@@ -292,27 +411,89 @@ def phase_serve(model, device, *, requests=64, seed=0):
               f"(max diff {np.abs(r.outputs - want).max()})")
     check(worst < 2 ** 24, f"{model}: partial sums reach {worst:.3g}, past "
           "float32's exact integers; the bit-exact check would not hold")
-    lat = np.array([r.latency_s for r in results]) * 1e3
-    buckets: dict = {}
-    for key, _ in svc.batch_log:
-        buckets[key] = buckets.get(key, 0) + 1
-    configs = sorted({r.config.astuple() for r in results})
     print(f"[serve] {model}: {requests} requests in {len(svc.batch_log)} "
           f"batches, all bit-exact vs the CPU reference (partial sums "
           f"≤ {worst:.3g} < 2^24); "
           f"{launches} kernel launches (= {n_layers} layers × "
           f"{len(svc.batch_log)} batches)")
+    _report(model, svc, results, spans, wall)
+    return launches
+
+
+def _drive(svc, stream):
+    """The main path: every launch count set to 0 just before the stream
+    is replayed, read just after.  Returns (results, summed host spans in
+    ms, wall s, (paramspmm launches, sddmm_softmax launches))."""
+    ops.reset_launch_count()
+    sddmm_ops.reset_launch_count()
+    t0 = time.perf_counter()
+    with obs.tracing():
+        results = replay(svc, stream, tick_every=8)
+        spans: dict = {}
+        for e in obs.trace_events():
+            spans[e["name"]] = spans.get(e["name"], 0.0) + e["dur"] / 1e3
+    wall = time.perf_counter() - t0
+    return results, spans, wall, (ops.launch_count(),
+                                  sddmm_ops.launch_count())
+
+
+def _report(model, svc, results, spans, wall):
+    lat = np.array([r.latency_s for r in results]) * 1e3
+    buckets: dict = {}
+    for key, _ in svc.batch_log:
+        buckets[key] = buckets.get(key, 0) + 1
+    configs = sorted({r.config.astuple() for r in results})
     print(f"[serve] {model}: batches per bucket {buckets}; configs "
           f"(W,F,V,S,B) {configs}; cache {svc.cache.hits} hits / "
           f"{svc.cache.misses} misses")
     print(f"[serve] {model}: latency p50 {np.percentile(lat, 50):.3f} ms, "
           f"p99 {np.percentile(lat, 99):.3f} ms, wall {wall:.3f} s "
-          f"({requests / wall:.1f} requests/s)")
+          f"({len(results) / wall:.1f} requests/s)")
     print(f"[serve] {model}: host spans (ms, summed): " + ", ".join(
         f"{k} {spans[k]:.2f}" for k in ("serve.sample", "serve.pack",
                                         "pcsr.build", "serve.forward",
                                         "serve.batch") if k in spans))
-    return launches
+
+
+def phase_serve_gat(device, *, requests=64, seed=0):
+    """Phase 4, GAT: serve a seeded stream at configs/gat.py's width,
+    check every request against the CPU reference forward.  Returns the
+    launch counts (paramspmm, sddmm_softmax) and the max abs error."""
+    g = rmat(13, 8, seed=31)                   # corpus("serve")'s rmat13
+    feats = np.random.default_rng(seed).standard_normal(
+        (g.n_rows, GAT_DIMS[0])).astype(np.float32)
+    params = init_gat(GAT_DIMS, generator=torch.Generator().manual_seed(seed))
+    replay(GNNService(g, feats, params, model="gat", device=device),
+           synthetic_stream(4, g.n_rows, seed=seed + 100), tick_every=4)
+    svc = GNNService(g, feats, params, model="gat", device=device,
+                     keep_subgraphs=True)
+    stream = synthetic_stream(requests, g.n_rows, seed=seed)
+    results, spans, wall, launches = _drive(svc, stream)
+    check(len(results) == requests, f"gat: {len(results)} results")
+    n_layers = len(GAT_DIMS) - 1
+    predicted = n_layers * len(svc.batch_log)
+    check(launches == (predicted, predicted) and predicted > 0,
+          f"gat: (paramspmm, sddmm_softmax) launches {launches}, layer "
+          f"structure predicts 2 × {predicted}")
+    worst = 0.0
+    for r in results:
+        sr = r.sampled
+        ref = reference_forward(sr.sub, torch.from_numpy(feats[sr.nodes]),
+                                params, model="gat", config=r.config)
+        want = ref.numpy()[sr.seed_local]
+        check(np.isfinite(r.outputs).all()
+              and r.outputs.shape == (len(sr.seed_local), GAT_DIMS[-1]),
+              f"gat {r.rid}: bad output")
+        np.testing.assert_allclose(r.outputs, want, rtol=GAT_RTOL,
+                                   atol=GAT_ATOL, err_msg=f"gat {r.rid}")
+        worst = max(worst, float(np.abs(r.outputs - want).max()))
+    print(f"[serve] gat: {requests} requests in {len(svc.batch_log)} "
+          f"batches, all within rtol={GAT_RTOL}, atol={GAT_ATOL} of the "
+          f"CPU reference (max abs err {worst:.3e}); {launches[1]} "
+          f"sddmm_softmax + {launches[0]} paramspmm launches (= {n_layers} "
+          f"layers × {len(svc.batch_log)} batches each)")
+    _report("gat", svc, results, spans, wall)
+    return launches, worst
 
 
 # -------------------------------------------------------------- timing
@@ -383,6 +564,101 @@ def time_one(label, csr, p, dim, device, epi_spec=None):
     return row
 
 
+def _csr_tensor(indptr, indices, data, shape, device):
+    with warnings.catch_warnings():              # "CSR support is in beta"
+        warnings.simplefilter("ignore", UserWarning)
+        return torch.sparse_csr_tensor(
+            torch.as_tensor(indptr, device=device),
+            torch.as_tensor(indices, device=device),
+            torch.as_tensor(data, device=device), size=shape,
+            check_invariants=True)
+
+
+def _gat_bound(p, steer, operands, out_numel, dim):
+    """Least time for one GAT kernel's work: its inputs read once and its
+    outputs written once over the HBM rate, vs its 2·nnz·dim MACs over
+    the float32 peak."""
+    nbytes = (sum(t.numel() * t.element_size() for t in operands)
+              + out_numel * 4
+              + sum(t.numel() * t.element_size()
+                    for t in (steer.colidx, steer.lrow, steer.trow,
+                              steer.vals, steer.groups)))
+    flops = 2.0 * p.nnz * dim
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / F32_FLOP_PER_S
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations")
+
+
+def time_gat(label, csr, p, dim, device):
+    """The SDDMM kernel and the prologue SpMM kernel, each beside its plain
+    version, a library call and its bound, on the same inputs."""
+    rng = np.random.default_rng(3)
+    cfg = p.config
+    steer = ops.device_steering(p, device)
+    geo = dict(V=cfg.V, R=cfg.R, K=p.K, n_blocks=p.n_blocks,
+               n_rows=p.n_rows)
+    draw = lambda n: torch.from_numpy(rng.standard_normal(
+        (n, dim)).astype(np.float32)).to(device)
+    Q, K, Vf = draw(p.n_rows), draw(p.n_cols), draw(p.n_cols)
+    scale = float(1.0 / np.sqrt(dim))
+    at = {"config": list(cfg.astuple()), "dim": dim, "nnz": p.nnz}
+    check(bool(np.all(csr.data != 0)), f"{label}: stored zeros")
+    indptr = np.concatenate([csr.indptr, np.full(p.n_rows - csr.n_rows,
+                                                 csr.indptr[-1])])
+    rows = torch.as_tensor(np.repeat(np.arange(p.n_rows), np.diff(indptr)),
+                           device=device)
+    lg, rm, rs = sddmm_ops.sddmm_softmax_stats(p, Q, K)
+
+    # SDDMM → softmax stats; cuSPARSE SDDMM gives the raw scores only
+    A = _csr_tensor(indptr, csr.indices, csr.data, (p.n_rows, p.n_cols),
+                    device)
+    Kt = K.t().contiguous()
+    lib = lambda: torch.sparse.sampled_addmm(A, Q, Kt, beta=0.0)
+    x = lib().values() * scale
+    x = torch.where(x >= 0, x, SLOPE * x)
+    lib_max = torch.full((p.n_rows,), -torch.inf, device=device
+                         ).scatter_reduce(0, rows, x, "amax")
+    torch.testing.assert_close(rm[:p.n_rows], lib_max, rtol=RTOL, atol=1e-5)
+    sd = {"at": label, "kernel": "sddmm_softmax", **at,
+          "ms": cuda_ms(lambda: sddmm_ops.sddmm_softmax_stats(p, Q, K)),
+          "plain_ms": cuda_ms(lambda: sddmm_ops.sddmm_softmax_plain(
+              steer, Q[None], K[None], scale=scale, slope=SLOPE, **geo)),
+          "library_ms": cuda_ms(lib),
+          "library": "torch.sparse.sampled_addmm: raw scores, no softmax"}
+    sd["bound_ms"], sd["bound_by"] = _gat_bound(
+        p, steer, (Q, K), lg.numel() + rm.numel() + rs.numel(), dim)
+
+    # the prologue SpMM; cuSPARSE SpMM on a CSR that already holds α
+    alpha = sddmm_ops.normalize_from_stats(lg, rm, rs, steer.lrow,
+                                           steer.trow, R=cfg.R, V=cfg.V,
+                                           K=p.K)
+    srows = _slot_rows(steer.lrow, steer.trow, V=cfg.V, R=cfg.R,
+                                 K=p.K)
+    real = steer.vals != 0
+    cols = steer.colidx.long().reshape(-1, 1, p.K).expand_as(srows)
+    A_alpha = torch.sparse_coo_tensor(
+        torch.stack([srows[real], cols[real]]), alpha[real],
+        (p.n_rows, p.n_cols), check_invariants=True)
+    A_alpha = A_alpha.coalesce().to_sparse_csr()
+    kernel = lambda: ops.paramspmm_with_vals(p, lg, Vf, stats=(rm, rs))
+    lib = lambda: torch.sparse.mm(A_alpha, Vf)
+    torch.testing.assert_close(lib(), kernel(), rtol=RTOL, atol=ATOL)
+    pro = {"at": label, "kernel": "paramspmm prologue", **at,
+           "ms": cuda_ms(kernel),
+           "plain_ms": cuda_ms(lambda: ops.paramspmm_plain(
+               steer, Vf, vals=lg, rowmax=rm, rowsum=rs, **geo)),
+           "library_ms": cuda_ms(lib),
+           "library": "torch.sparse.mm on a CSR holding α: α given"}
+    pro["bound_ms"], pro["bound_by"] = _gat_bound(
+        p, steer, (Vf, lg, rm, rs), p.n_rows * dim, dim)
+    for row in (sd, pro):
+        print(f"[time] {label} {cfg.astuple()} dim {dim} {row['kernel']}: "
+              f"kernel {row['ms']:.4f} ms, plain {row['plain_ms']:.4f} ms, "
+              f"library {row['library_ms']:.4f} ms ({row['library']}), "
+              f"bound {row['bound_ms']:.4f} ms ({row['bound_by']})")
+    return sd, pro
+
+
 def phase_timing(device):
     rows = []
     g = rmat(13, 8, seed=31)
@@ -407,7 +683,16 @@ def phase_timing(device):
     pk = build_pcsr(gk.indptr, gk.indices, gk.data, gk.n_rows, gk.n_cols,
                     pick_config(gk, 64))
     rows.append(time_one("kreg150k", gk, pk, 64, device))
-    return rows
+
+    gat_rows = []
+    cfg = SteeringPackCache(dim=64, op="gat").get(bucket, union).config
+    p = pack_subgraph(union, PackGeom.from_bucket(bucket, cfg))
+    gat_rows += time_gat(f"serve batch {bucket.key}", union, p, 64, device)
+    for label, g in (("rmat17", g17), ("kreg150k", gk)):
+        p = build_pcsr(g.indptr, g.indices, g.data, g.n_rows, g.n_cols,
+                       pick_config(g, 64, op="gat"))
+        gat_rows += time_gat(label, g, p, 64, device)
+    return rows, gat_rows
 
 
 def main() -> int:
@@ -437,27 +722,46 @@ def main() -> int:
     cases, max_err = phase_kernel_grid(device)
     print(f"[grid] {cases} kernel-vs-plain cases in "
           f"{time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    gat_cases, err_logits, err_prologue = phase_gat_grid(device)
+    print(f"[gat grid] {gat_cases} kernel-vs-plain cases (each: SDDMM "
+          f"kernel and prologue SpMM) in {time.perf_counter() - t0:.1f} s")
 
     t0 = time.perf_counter()
     launches = sum(phase_serve(m, device) for m in ("gcn", "gin"))
-    print(f"[serve] {launches} kernel launches on the serving path in "
+    gat_launches, gat_err = phase_serve_gat(device)
+    spmm_launches = launches + gat_launches[0]
+    print(f"[serve] {spmm_launches} paramspmm and {gat_launches[1]} "
+          f"sddmm_softmax launches on the serving paths in "
           f"{time.perf_counter() - t0:.1f} s")
 
-    rows = phase_timing(device)
+    rows, gat_rows = phase_timing(device)
     main_row = rows[2]                       # rmat17, A·B, dim 64
+    sd_row = gat_rows[2]                     # rmat17, SDDMM, dim 64
     print(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(f"[device] nvidia-smi: {smi}")
+    at = lambda row: (f"{row['at']} dim {row['dim']} "
+                      f"config {row['config']}")
     print(json.dumps({"kernels": [{
         "name": "paramspmm", "route": "cuda",
         "source": "src/repro_torch/csrc/paramspmm.cu",
         "replaces": "src/repro/kernels/paramspmm/kernel.py:122",
-        "launches": launches, "max_abs_err": max_err,
+        "launches": spmm_launches,
+        "max_abs_err": max(max_err, err_prologue),
         "ms": main_row["ms"], "plain_ms": main_row["plain_ms"],
         "bound_ms": main_row["bound_ms"], "bound_by": main_row["bound_by"],
-        "library_ms": main_row["library_ms"],
-        "at": f"{main_row['at']} dim {main_row['dim']} "
-              f"config {main_row['config']}",
-        "timings": rows}]}))
+        "library_ms": main_row["library_ms"], "at": at(main_row),
+        "timings": rows + [r for r in gat_rows
+                           if r["kernel"] == "paramspmm prologue"]}, {
+        "name": "sddmm_softmax", "route": "cuda",
+        "source": "src/repro_torch/csrc/sddmm_softmax.cu",
+        "replaces": "src/repro/kernels/sddmm/kernel.py:111",
+        "launches": gat_launches[1], "max_abs_err": err_logits,
+        "ms": sd_row["ms"], "plain_ms": sd_row["plain_ms"],
+        "bound_ms": sd_row["bound_ms"], "bound_by": sd_row["bound_by"],
+        "library_ms": sd_row["library_ms"], "at": at(sd_row),
+        "timings": [r for r in gat_rows
+                    if r["kernel"] == "sddmm_softmax"]}]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}))

@@ -1,7 +1,8 @@
 """Carry GNN parameters across from numpy.
 
 The JAX package keeps parameters as pytrees: a list of ``{"w", "b"}``
-dicts for GCN and of ``{"eps", "w1", "b1", "w2", "b2"}`` dicts for GIN.
+dicts for GCN, of ``{"eps", "w1", "b1", "w2", "b2"}`` dicts for GIN and
+of ``{"wq", "wk", "wv", "b"}`` dicts for GAT.
 Given those as numpy arrays (``np.asarray`` of each leaf), ``params_to_torch``
 returns the port's parameters — the same structure as float32 tensors on
 one device — so both packages can run the same model.
@@ -11,7 +12,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-_KEYS = ({"w", "b"}, {"eps", "w1", "b1", "w2", "b2"})
+_KEYS = ({"w", "b"}, {"eps", "w1", "b1", "w2", "b2"},
+         {"wq", "wk", "wv", "b"})
 
 
 def params_to_torch(params, device="cpu"):
@@ -19,9 +21,10 @@ def params_to_torch(params, device="cpu"):
     out = []
     for i, layer in enumerate(params):
         if set(layer) not in _KEYS:
-            raise ValueError(f"layer {i}: keys {sorted(layer)} are neither "
-                             "GCN's {w, b} nor GIN's {eps, w1, b1, w2, b2}")
-        out.append({k: torch.as_tensor(np.asarray(v, np.float32),
+            raise ValueError(f"layer {i}: keys {sorted(layer)} are none of "
+                             "GCN's {w, b}, GIN's {eps, w1, b1, w2, b2} "
+                             "and GAT's {wq, wk, wv, b}")
+        out.append({k: torch.as_tensor(np.array(v, np.float32),
                                        device=device)
                     for k, v in layer.items()})
     return out

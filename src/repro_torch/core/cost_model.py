@@ -115,11 +115,52 @@ def kernel_cost(stats: PCSRStats, dim: int, config: SpMMConfig,
         flops=flops, steps=steps, chunk_setups=J * C)
 
 
+def sddmm_cost(stats: PCSRStats, dim: int, config: SpMMConfig,
+               hw: Hardware = H100, *, heads: int = 1) -> CostBreakdown:
+    """Price one fused SDDMM(+softmax stats) under ⟨W,F,V,S,B⟩.
+
+    Reduction-bound where the SpMM is scatter-bound: every step streams a
+    (V, Dblk) query panel and the gathered (1, Dblk) key row but writes
+    one score per slot plus two per-row softmax stats per block,
+    independent of ``dim``.  ``heads`` prices H grids over the per-head
+    dim, as in ``kernel_cost``.
+    """
+    if stats.V != config.V or stats.W != config.W:
+        raise ValueError(f"stats (V={stats.V}, W={stats.W}) do not match "
+                         f"{config}")
+    dtype_bytes = hw.dtype_bytes
+    C, K, _ = stats.chunks_and_slots(config.S, B=config.B)
+    dblk = config.dblk
+    d_head = _head_dim(dim, heads)
+    J = -(-d_head // dblk)
+    C *= heads
+    n_blocks = stats.n_nonempty_blocks * heads
+    steps = J * C * K
+    # per step: the key-row gather (1, Dblk) + the query panel (V, Dblk)
+    bytes_gather = steps * (1 + config.V) * dblk * dtype_bytes
+    # colidx/lrow per slot + trow/init per chunk + the mask vals
+    bytes_meta = C * K * 8 + C * 8 + C * config.V * K * dtype_bytes
+    # scores once per slot; softmax stats once per block row
+    bytes_out = (C * config.V * K
+                 + 2 * n_blocks * config.R) * dtype_bytes
+    # dot-product MACs + ~8 operations of exp/max per slot row
+    flops = 2.0 * steps * config.V * dblk + 8.0 * C * K * config.V
+    return CostBreakdown(
+        t_mem=(bytes_gather + bytes_meta + bytes_out) / hw.hbm_bw,
+        t_compute=flops / hw.flops,
+        t_overhead=steps * hw.step_overhead + C * hw.chunk_setup,
+        bytes_gather=bytes_gather, bytes_meta=bytes_meta, bytes_out=bytes_out,
+        flops=flops, steps=steps, chunk_setups=C)
+
+
 class CostModel:
     """Caches per-(V,W) stats for one matrix; prices any config × dim.
 
-    Only ``op="spmm"`` is priced so far; the SDDMM and the GAT pair come
-    with the GAT slice of the port.
+    ``op`` is the operator priced: ``"spmm"``, ``"sddmm"``, or ``"gat"``
+    — the attention pair, one fused SDDMM+softmax pass plus one SpMM
+    aggregation pass, so ``best(..., op="gat")`` picks the config that
+    minimises the pair.  ``H`` prices the per-head grids.  The unfused
+    pipeline's price (``fused=False``) is not ported yet.
     """
 
     def __init__(self, csr: CSRMatrix, hardware: Hardware = H100):
@@ -135,23 +176,24 @@ class CostModel:
                                           V, W)
         return self._stats[key]
 
-    @staticmethod
-    def _check_op(op: str) -> None:
-        if op != "spmm":
-            raise NotImplementedError(
-                f"op={op!r} is not ported yet (GAT slice, ROADMAP Queue 1)")
-
     def cost(self, dim: int, config: SpMMConfig, op: str = "spmm", *,
              H: int = 1, epilogue: bool = False,
              residual: bool = False) -> CostBreakdown:
-        self._check_op(op)
-        return kernel_cost(self.stats(config.V, config.W), dim, config,
-                           self.hardware, heads=H, epilogue=epilogue,
-                           residual=residual)
+        st = self.stats(config.V, config.W)
+        if op == "spmm":
+            return kernel_cost(st, dim, config, self.hardware, heads=H,
+                               epilogue=epilogue, residual=residual)
+        if op == "sddmm":
+            return sddmm_cost(st, dim, config, self.hardware, heads=H)
+        raise ValueError(f"no single-kernel breakdown for op={op!r}")
 
     def time(self, dim: int, config: SpMMConfig, op: str = "spmm", *,
              H: int = 1, epilogue: bool = False) -> float:
-        """Seconds for one kernel pass: the analytic roofline total."""
+        """Seconds for one kernel pass (the analytic roofline total), or
+        for the SDDMM + SpMM pair when ``op="gat"``."""
+        if op == "gat":
+            return (self.cost(dim, config, "sddmm", H=H).total
+                    + self.cost(dim, config, "spmm", H=H).total)
         return self.cost(dim, config, op, H=H, epilogue=epilogue).total
 
     def best(self, dim: int, space, op: str = "spmm", *,

@@ -1,12 +1,15 @@
 """ParamSpMM on tensors: the CUDA kernel's wrapper, its plain version, and
-the ``paramspmm(pcsr, B)`` entry point.
+the ``paramspmm(pcsr, B)`` / ``paramspmm_with_vals(pcsr, vals, B,
+stats=)`` entry points.
 
 Dispatch goes through *covered* steering arrays
 (``PCSR.steering(covered=True)``): every output block, empty ones
 included, is one chunk group, so the kernel zeroes it and runs the fused
 epilogue (per-row scale, per-feature bias, dense residual, activation) on
 it.  ``Steering`` carries those arrays on a device together with the
-group table the kernel is launched over.
+group table the kernel is launched over.  With softmax stats the kernel
+runs the GAT *prologue* instead: the slot values are logits and each slot
+weight is α = exp(logit − rowmax)/rowsum, computed in registers.
 
 ``_call`` picks the implementation by the device of ``B``: on a CPU
 tensor the plain version (``paramspmm_plain``: the engine's gather +
@@ -22,7 +25,8 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from repro_torch.core.engine import _engine, apply_epilogue
+from repro_torch.core.engine import (_engine, apply_epilogue,
+                                     normalize_from_stats)
 from repro_torch.core.pcsr import PCSR
 
 ACTIVATIONS = ("none", "relu", "leaky_relu")
@@ -107,18 +111,29 @@ def device_steering(pcsr: PCSR, device) -> Steering:
 
 
 def paramspmm_plain(steer: Steering, B, *, V, R, K, n_blocks, n_rows,
-                    scale=None, bias=None, residual=None,
-                    activation: str = "none"):
+                    vals=None, rowmax=None, rowsum=None, scale=None,
+                    bias=None, residual=None, activation: str = "none"):
     """The kernel's plain PyTorch version, on any device: the engine's
-    gather + ``index_add_`` then ``apply_epilogue``."""
-    out = _engine(steer.colidx, steer.lrow, steer.trow, steer.vals, B,
-                  V=V, R=R, K=K, n_blocks=n_blocks, n_rows=n_rows)
-    return apply_epilogue(out, scale, bias, activation, LEAKY_SLOPE,
-                          residual)
+    gather + ``index_add_`` then ``apply_epilogue``.  ``vals`` overrides
+    the stored slot values; with ``rowmax``/``rowsum`` they are logits
+    and the prologue is ``normalize_from_stats``.  ``B`` of shape
+    ``(H, n, d)`` (with ``vals`` ``(H, C, V, K)`` and stats
+    ``(H, n_blocks·R)``) runs each head over the same steering."""
+    vals = steer.vals if vals is None else vals
+    if rowmax is not None:
+        vals = normalize_from_stats(vals, rowmax, rowsum, steer.lrow,
+                                    steer.trow, R=R, V=V, K=K)
+    run = lambda v, b: _engine(steer.colidx, steer.lrow, steer.trow, v, b,
+                               V=V, R=R, K=K, n_blocks=n_blocks,
+                               n_rows=n_rows)
+    if B.ndim == 3:
+        return torch.stack([run(vals[h], B[h]) for h in range(B.shape[0])])
+    return apply_epilogue(run(vals, B), scale, bias, activation,
+                          LEAKY_SLOPE, residual)
 
 
-def _check_operands(steer, B, scale, bias, residual, *, V, R, K, n_blocks,
-                    n_rows, activation):
+def _check_operands(steer, B, vals, rowmax, rowsum, scale, bias, residual,
+                    *, V, R, K, n_blocks, n_rows, activation):
     if activation not in ACTIVATIONS:
         raise ValueError(f"activation {activation!r} not in {ACTIVATIONS}")
     C = int(steer.trow.shape[0])
@@ -128,17 +143,40 @@ def _check_operands(steer, B, scale, bias, residual, *, V, R, K, n_blocks,
         raise ValueError("steering arrays do not match the geometry "
                          f"(C={C}, V={V}, K={K}, n_blocks={n_blocks}, "
                          f"R={R}, n_rows={n_rows})")
-    if B.ndim != 2 or B.shape[0] < steer.n_cols:
-        raise ValueError(f"B must be (≥{steer.n_cols}, dim), got "
-                         f"{tuple(B.shape)}")
-    dim = B.shape[1]
+    if B.ndim not in (2, 3) or B.shape[-2] < steer.n_cols:
+        raise ValueError(f"B must be (≥{steer.n_cols}, dim) or (H, "
+                         f"≥{steer.n_cols}, dim), got {tuple(B.shape)}")
+    lead = tuple(B.shape[:-2])
+    if B.ndim == 3 and (scale is not None or bias is not None
+                        or residual is not None or activation != "none"):
+        raise NotImplementedError("epilogue fusion is single-head")
+    if B.ndim == 3 and vals is None:
+        raise ValueError("a head batch needs per-head vals (H, C, V, K)")
+    if vals is not None and tuple(vals.shape) != lead + (C, V, K):
+        raise ValueError(f"vals must be {lead + (C, V, K)} (covered "
+                         f"layout), got {tuple(vals.shape)}")
+    if (rowmax is None) != (rowsum is None):
+        raise ValueError("the softmax prologue needs both rowmax and rowsum")
+    if rowmax is not None:
+        if vals is None:
+            # the prologue reads vals as logits; the stored edge values
+            # (and the 0-valued coverage chunks) are not logits
+            raise ValueError("stats= requires explicit logits as vals "
+                             "(from sddmm_softmax_stats), not the stored "
+                             "PCSR values")
+        for name, t in (("rowmax", rowmax), ("rowsum", rowsum)):
+            if tuple(t.shape) != lead + (n_blocks * R,):
+                raise ValueError(f"{name} must be {lead + (n_blocks * R,)}, "
+                                 f"got {tuple(t.shape)}")
+    dim = B.shape[-1]
     for name, t, shape in (("scale", scale, (n_rows,)),
                            ("bias", bias, (dim,)),
                            ("residual", residual, (n_rows, dim))):
         if t is not None and tuple(t.shape) != shape:
             raise ValueError(f"{name} must be {shape}, got {tuple(t.shape)}")
     devices = {t.device for t in (steer.colidx, steer.vals, steer.groups, B,
-                                  scale, bias, residual) if t is not None}
+                                  vals, rowmax, rowsum, scale, bias,
+                                  residual) if t is not None}
     if len(devices) != 1:
         raise ValueError(f"operands on several devices: {devices}")
 
@@ -153,8 +191,8 @@ def _lib():
         lib = build.load("paramspmm")
         p, i = ctypes.c_void_p, ctypes.c_int
         lib.repro_paramspmm_f32.argtypes = [
-            p, p, p, p, p, i, p, i, p, p, p, p, i, i, i, i, i, i,
-            ctypes.c_float, p]
+            p, p, p, p, p, i, i, p, i, i, p, p, p, p, p, p, i, i, i, i, i,
+            i, i, ctypes.c_float, p]
         lib.repro_paramspmm_f32.restype = i
         lib.repro_cuda_error_string.argtypes = [i]
         lib.repro_cuda_error_string.restype = ctypes.c_char_p
@@ -162,19 +200,25 @@ def _lib():
     return _LIB
 
 
-def _launch(steer: Steering, B, *, V, R, K, dblk, n_rows, scale, bias,
-            residual, activation):
-    """Launch the CUDA kernel; raises on anything it does not take."""
+def _launch(steer: Steering, B, *, V, R, K, dblk, n_rows, vals, rowmax,
+            rowsum, scale, bias, residual, activation):
+    """Launch the CUDA kernel on ``B`` ``([H,] n, dim)``, ``vals``
+    ``([H,] C, V, K)`` and stats ``([H,] n_blocks·R)`` or None; raises on
+    anything it does not take."""
     global _launches
     if V not in (1, 2) or R > MAX_R or dblk > MAX_DBLK:
         raise ValueError(f"CUDA paramspmm takes V ∈ {{1,2}}, R ≤ {MAX_R}, "
                          f"Dblk ≤ {MAX_DBLK}; got V={V}, R={R}, Dblk={dblk}")
+    lead, (b_rows, dim) = tuple(B.shape[:-2]), B.shape[-2:]
+    H = B.shape[0] if lead else 1
     for name, t, dtype in (
             ("colidx", steer.colidx, torch.int32),
             ("lrow", steer.lrow, torch.int32),
             ("trow", steer.trow, torch.int32),
             ("groups", steer.groups, torch.int32),
-            ("vals", steer.vals, torch.float32), ("B", B, torch.float32),
+            ("vals", vals, torch.float32), ("B", B, torch.float32),
+            ("rowmax", rowmax, torch.float32),
+            ("rowsum", rowsum, torch.float32),
             ("scale", scale, torch.float32), ("bias", bias, torch.float32),
             ("residual", residual, torch.float32)):
         if t is None:
@@ -184,19 +228,20 @@ def _launch(steer: Steering, B, *, V, R, K, dblk, n_rows, scale, bias,
                             f"{t.dtype}")
         if not t.is_contiguous():
             raise ValueError(f"CUDA paramspmm needs a contiguous {name}")
-    dim = B.shape[1]
-    out = torch.empty((n_rows, dim), dtype=torch.float32, device=B.device)
-    if n_rows == 0 or dim == 0:
+    out = torch.empty(lead + (n_rows, dim), dtype=torch.float32,
+                      device=B.device)
+    if n_rows == 0 or dim == 0 or H == 0:
         return out
     lib = _lib()
     ptr = lambda t: None if t is None else t.data_ptr()
     with torch.cuda.device(B.device):
         stream = torch.cuda.current_stream(B.device).cuda_stream
         err = lib.repro_paramspmm_f32(
-            ptr(steer.colidx), ptr(steer.lrow), ptr(steer.trow),
-            ptr(steer.vals), ptr(steer.groups), steer.n_groups, ptr(B), dim,
-            ptr(scale), ptr(bias), ptr(residual), ptr(out), n_rows, V, R, K,
-            dblk, _ACT_CODE[activation], LEAKY_SLOPE, stream)
+            ptr(steer.colidx), ptr(steer.lrow), ptr(steer.trow), ptr(vals),
+            ptr(steer.groups), steer.n_groups, int(steer.trow.shape[0]),
+            ptr(B), b_rows, dim, ptr(rowmax), ptr(rowsum), ptr(scale),
+            ptr(bias), ptr(residual), ptr(out), n_rows, H, V, R, K, dblk,
+            _ACT_CODE[activation], LEAKY_SLOPE, stream)
     if err != 0:
         raise RuntimeError("paramspmm kernel launch failed: "
                            + lib.repro_cuda_error_string(err).decode())
@@ -205,21 +250,29 @@ def _launch(steer: Steering, B, *, V, R, K, dblk, n_rows, scale, bias,
 
 
 def _call(steer: Steering, B, *, n_blocks, R, V, K, dblk, n_rows,
-          scale=None, bias=None, residual=None, activation: str = "none"):
+          vals=None, rowmax=None, rowsum=None, scale=None, bias=None,
+          residual=None, activation: str = "none"):
     """act(scale ⊙ (A·B) + bias + residual) on pre-packed covered
     steering, shapes ``scale (n_rows,)``, ``bias (dim,)``, ``residual
-    (n_rows, dim)``.  The plain version for a CPU ``B``, the CUDA kernel
-    for a CUDA ``B``."""
-    _check_operands(steer, B, scale, bias, residual, V=V, R=R, K=K,
-                    n_blocks=n_blocks, n_rows=n_rows, activation=activation)
+    (n_rows, dim)``.  ``vals`` (covered ``(C, V, K)``) overrides the
+    stored slot values; ``rowmax``/``rowsum`` (``(n_blocks·R,)``) turn
+    on the softmax prologue, ``vals`` then being logits.  A ``(H, n,
+    dim)`` ``B`` takes ``(H, C, V, K)`` vals and ``(H, n_blocks·R)``
+    stats and returns ``(H, n_rows, dim)`` (no epilogue).  The plain
+    version for a CPU ``B``, the CUDA kernel for a CUDA ``B``."""
+    _check_operands(steer, B, vals, rowmax, rowsum, scale, bias, residual,
+                    V=V, R=R, K=K, n_blocks=n_blocks, n_rows=n_rows,
+                    activation=activation)
     if B.device.type == "cpu":
         return paramspmm_plain(steer, B, V=V, R=R, K=K, n_blocks=n_blocks,
-                               n_rows=n_rows, scale=scale, bias=bias,
+                               n_rows=n_rows, vals=vals, rowmax=rowmax,
+                               rowsum=rowsum, scale=scale, bias=bias,
                                residual=residual, activation=activation)
     if B.device.type != "cuda":
         raise ValueError(f"paramspmm runs on cpu or cuda, not {B.device}")
     return _launch(steer, B, V=V, R=R, K=K, dblk=dblk, n_rows=n_rows,
-                   scale=scale, bias=bias, residual=residual,
+                   vals=steer.vals if vals is None else vals, rowmax=rowmax,
+                   rowsum=rowsum, scale=scale, bias=bias, residual=residual,
                    activation=activation)
 
 
@@ -227,8 +280,30 @@ def paramspmm(pcsr: PCSR, B, *, scale=None, bias=None, residual=None,
               activation: str = "none"):
     """C = act(scale ⊙ (A·B) + bias + residual) where A is held as PCSR —
     the epilogue operands default to the identity (plain A·B)."""
+    return paramspmm_with_vals(pcsr, None, B, scale=scale, bias=bias,
+                               residual=residual, activation=activation)
+
+
+def paramspmm_with_vals(pcsr: PCSR, vals, B, *, stats=None, scale=None,
+                        bias=None, residual=None, activation: str = "none"):
+    """SpMM over A's *pattern* with per-slot values supplied at call time
+    (``vals=None``: the values stored in the PCSR) — the aggregation step
+    of attention GNNs.
+
+    ``stats=(rowmax, rowsum)`` turns on the softmax **prologue**: ``vals``
+    are then the logits of ``sddmm_softmax_stats`` in the covered layout
+    (masked, padding and coverage slots −inf) and α = exp(logit −
+    rowmax)/rowsum is computed in the kernel, never written out.
+
+    The epilogue (``scale``/``bias``/``residual``/``activation``) is
+    single-head.  Multi-head: ``vals`` ``(H, C, V, K)``, ``B``
+    ``(H, n, d)`` and stats ``(H, n_blocks·R)`` run every head in one
+    launch and return ``(H, n_rows, d)``.
+    """
     cfg = pcsr.config
+    rowmax, rowsum = stats if stats is not None else (None, None)
     return _call(device_steering(pcsr, B.device), B, n_blocks=pcsr.n_blocks,
                  R=cfg.R, V=cfg.V, K=pcsr.K, dblk=cfg.dblk,
-                 n_rows=pcsr.n_rows, scale=scale, bias=bias,
-                 residual=residual, activation=activation)
+                 n_rows=pcsr.n_rows, vals=vals, rowmax=rowmax,
+                 rowsum=rowsum, scale=scale, bias=bias, residual=residual,
+                 activation=activation)

@@ -1,0 +1,223 @@
+"""Fused SDDMM → edge-softmax stats on tensors: the CUDA kernel's wrapper,
+its plain version, and the GAT attention entry points.
+
+``sddmm_softmax_stats(pcsr, Q, K)`` is the front half of the GAT forward:
+one pass returning the raw post-LeakyReLU logits in slot layout (masked
+and padding slots −inf) and the per-row softmax stats ``rowmax`` /
+``rowsum``, the operands the ParamSpMM softmax prologue
+(``kernels.paramspmm.ops.paramspmm_with_vals(stats=...)``) consumes.
+``sddmm_softmax`` materialises α from them (``normalize_from_stats``, from
+``core.engine``, where both kernels' plain versions take it).
+
+Layouts.  Logits are ``(C, V, K)`` over the *covered* steering (its first
+``pcsr.num_chunks`` chunks are the uncovered ones; coverage chunks hold
+−inf), or ``(H, C, V, K)`` for ``(H, n, d)`` operands: heads are a grid
+axis over the single-head steering.  Stats are dense float32
+``(n_blocks·R,)`` per head — ``(H, n_blocks·R)`` for a head batch — and
+every row has them: ``−inf`` / ``0`` for a row without a real edge.
+
+``_call`` picks the implementation by the device of ``Q``: on a CPU
+tensor the plain version (``sddmm_softmax_plain``: gather + dot,
+``scatter_reduce`` amax, ``index_add_`` of the exps in float64), on a
+CUDA tensor the kernel in ``repro_torch/csrc/sddmm_softmax.cu`` or an
+error.  Each kernel launch adds one to ``launch_count()``.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import numpy as np
+import torch
+
+from repro_torch.core.engine import _slot_rows, normalize_from_stats
+from repro_torch.core.pcsr import PCSR
+from repro_torch.kernels.paramspmm.ops import Steering, device_steering
+
+MAX_R = 32            # one warp's lanes hold a block's row stats
+
+_launches = 0
+
+
+def launch_count() -> int:
+    """Kernel launches since the last ``reset_launch_count()``."""
+    return _launches
+
+
+def reset_launch_count() -> None:
+    global _launches
+    _launches = 0
+
+
+def sddmm_softmax_plain(steer: Steering, Q, K_mat, *, V, R, K, n_blocks,
+                        n_rows, scale: float, slope: float):
+    """The kernel's plain PyTorch version, on any device.  ``Q`` is
+    ``(H, n_rows, d)``, ``K_mat`` ``(H, ≥n_cols, d)``; returns logits
+    ``(H, C, V, K)`` and stats ``(H, n_blocks·R)``."""
+    H, _, d = Q.shape
+    C = steer.trow.shape[0]
+    Qp = Q.new_zeros((H, n_blocks * R, d))     # padding rows read as zero
+    Qp[:, :n_rows] = Q
+    # gather and dot only the slots holding a stored value: padding slots
+    # (most of an unbalanced pack) are −inf whatever Q and K hold
+    real = (steer.vals != 0).transpose(1, 2).reshape(C * K, V)
+    idx = real.any(dim=1).nonzero()[:, 0]
+    base = (steer.trow.long().repeat_interleave(K)[idx] * R
+            + steer.lrow.long()[idx] * V)
+    gathered = K_mat.index_select(1, steer.colidx.long()[idx])  # (H, S, d)
+    x = Q.new_full((H, C * K, V), -torch.inf)
+    for v in range(V):                                        # V ≤ 2
+        xv = (Qp.index_select(1, base + v) * gathered).sum(-1) * scale
+        xv = torch.where(xv >= 0, xv, slope * xv)             # LeakyReLU
+        x[:, idx, v] = torch.where(real[idx, v], xv, -torch.inf)
+    logits = x.reshape(H, C, K, V).transpose(2, 3).contiguous()
+    rows = _slot_rows(steer.lrow, steer.trow, V=V, R=R, K=K).reshape(-1)
+    flat = logits.reshape(H, -1)
+    rowmax = torch.full((H, n_blocks * R), -torch.inf, dtype=Q.dtype,
+                        device=Q.device)
+    rowmax = rowmax.scatter_reduce(1, rows.expand(H, -1), flat, "amax")
+    # Σexp in float64, rounded once, so the check of the kernel (float32,
+    # online per warp) sees the kernel's rounding only: a hub row sums
+    # thousands of terms, and two float32 sums in other orders (this
+    # index_add_ runs in no fixed order) differ by more than 1e-5 relative
+    m = torch.where(torch.isfinite(rowmax), rowmax, 0.0).double()
+    ex = torch.exp(flat.double() - m[:, rows])                 # −inf → 0
+    heads = torch.arange(H, device=Q.device)[:, None] * (n_blocks * R)
+    rowsum = ex.new_zeros(H * n_blocks * R).index_add_(
+        0, (heads + rows).reshape(-1), ex.reshape(-1))
+    return logits, rowmax, rowsum.to(Q.dtype).reshape(H, -1)
+
+
+def _check_operands(steer, Q, K_mat, *, V, R, K, n_blocks, n_rows):
+    C = int(steer.trow.shape[0])
+    if (tuple(steer.vals.shape) != (C, V, K)
+            or steer.colidx.shape[0] != C * K or steer.n_groups != n_blocks
+            or n_rows > n_blocks * R):
+        raise ValueError("steering arrays do not match the geometry "
+                         f"(C={C}, V={V}, K={K}, n_blocks={n_blocks}, "
+                         f"R={R}, n_rows={n_rows})")
+    if (Q.ndim not in (2, 3) or K_mat.ndim != Q.ndim
+            or Q.shape[:-2] != K_mat.shape[:-2]
+            or Q.shape[-1] != K_mat.shape[-1] or Q.shape[-2] != n_rows
+            or K_mat.shape[-2] < steer.n_cols):
+        raise ValueError(f"Q must be ([H,] {n_rows}, d) and K ([H,] "
+                         f"≥{steer.n_cols}, d); got {tuple(Q.shape)} and "
+                         f"{tuple(K_mat.shape)}")
+    devices = {t.device for t in (steer.colidx, steer.vals, steer.groups, Q,
+                                  K_mat)}
+    if len(devices) != 1:
+        raise ValueError(f"operands on several devices: {devices}")
+
+
+_LIB = None
+
+
+def _lib():
+    global _LIB
+    if _LIB is None:
+        from repro_torch.kernels import build
+        lib = build.load("sddmm_softmax")
+        p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+        lib.repro_sddmm_softmax_f32.argtypes = [
+            p, p, p, p, p, i, i, p, i, p, i, i, i, i, i, i, f, f, p, p, p,
+            p]
+        lib.repro_sddmm_softmax_f32.restype = i
+        lib.repro_cuda_error_string.argtypes = [i]
+        lib.repro_cuda_error_string.restype = ctypes.c_char_p
+        _LIB = lib
+    return _LIB
+
+
+def _launch(steer: Steering, Q, K_mat, *, V, R, K, n_blocks, n_rows,
+            scale, slope):
+    """Launch the CUDA kernel; raises on anything it does not take."""
+    global _launches
+    if V not in (1, 2) or R > MAX_R:
+        raise ValueError(f"CUDA sddmm_softmax takes V ∈ {{1,2}}, R ≤ "
+                         f"{MAX_R}; got V={V}, R={R}")
+    for name, t, dtype in (
+            ("colidx", steer.colidx, torch.int32),
+            ("lrow", steer.lrow, torch.int32),
+            ("trow", steer.trow, torch.int32),
+            ("groups", steer.groups, torch.int32),
+            ("vals", steer.vals, torch.float32), ("Q", Q, torch.float32),
+            ("K", K_mat, torch.float32)):
+        if t.dtype != dtype:
+            raise TypeError(f"CUDA sddmm_softmax takes {name} as {dtype}, "
+                            f"got {t.dtype}")
+        if not t.is_contiguous():
+            raise ValueError(f"CUDA sddmm_softmax needs a contiguous {name}")
+    lead, d = tuple(Q.shape[:-2]), Q.shape[-1]
+    H = Q.shape[0] if lead else 1
+    C = int(steer.trow.shape[0])
+    logits = torch.empty(lead + (C, V, K), dtype=torch.float32,
+                         device=Q.device)
+    rowmax = torch.empty(lead + (n_blocks * R,), dtype=torch.float32,
+                         device=Q.device)
+    rowsum = torch.empty_like(rowmax)
+    if H == 0:
+        return logits, rowmax, rowsum
+    lib = _lib()
+    ptr = lambda t: t.data_ptr()
+    with torch.cuda.device(Q.device):
+        stream = torch.cuda.current_stream(Q.device).cuda_stream
+        err = lib.repro_sddmm_softmax_f32(
+            ptr(steer.colidx), ptr(steer.lrow), ptr(steer.trow),
+            ptr(steer.vals), ptr(steer.groups), steer.n_groups, C, ptr(Q),
+            n_rows, ptr(K_mat), K_mat.shape[-2], d, H, V, R, K, scale, slope,
+            ptr(logits), ptr(rowmax), ptr(rowsum), stream)
+    if err != 0:
+        raise RuntimeError("sddmm_softmax kernel launch failed: "
+                           + lib.repro_cuda_error_string(err).decode())
+    _launches += 1
+    return logits, rowmax, rowsum
+
+
+def _call(steer: Steering, Q, K_mat, *, n_blocks, R, V, K, n_rows,
+          scale: float, slope: float = 0.2):
+    """Logits ``([H,] C, V, K)`` and stats ``([H,] n_blocks·R)`` for
+    ``Q`` ``([H,] n_rows, d)`` and ``K_mat`` ``([H,] ≥n_cols, d)`` on
+    pre-packed covered steering.  The plain version for a CPU ``Q``, the
+    CUDA kernel for a CUDA ``Q``."""
+    _check_operands(steer, Q, K_mat, V=V, R=R, K=K, n_blocks=n_blocks,
+                    n_rows=n_rows)
+    kw = dict(V=V, R=R, K=K, n_blocks=n_blocks, n_rows=n_rows,
+              scale=float(scale), slope=float(slope))
+    if Q.device.type == "cpu":
+        if Q.ndim == 2:
+            return tuple(t[0] for t in sddmm_softmax_plain(
+                steer, Q[None], K_mat[None], **kw))
+        return sddmm_softmax_plain(steer, Q, K_mat, **kw)
+    if Q.device.type != "cuda":
+        raise ValueError(f"sddmm_softmax runs on cpu or cuda, not "
+                         f"{Q.device}")
+    return _launch(steer, Q, K_mat, **kw)
+
+
+def sddmm_softmax_stats(pcsr: PCSR, Q, K, *, scale: float | None = None,
+                        slope: float = 0.2):
+    """The fused GAT attention front half, *stats form*: ``(logits,
+    rowmax, rowsum)`` — raw post-LeakyReLU(``slope``) logits of
+    ``scale·Q·Kᵀ`` on A's pattern (masked and padding slots −inf) and
+    the per-row max and Σexp(logit − max).  ``scale`` defaults to 1/√d.
+    ``(n, d)`` operands give ``(C, V, K)`` logits and ``(n_blocks·R,)``
+    stats; ``(H, n, d)`` operands a leading head axis on each."""
+    if scale is None:
+        scale = float(1.0 / np.sqrt(Q.shape[-1]))
+    cfg = pcsr.config
+    return _call(device_steering(pcsr, Q.device), Q, K,
+                 n_blocks=pcsr.n_blocks, R=cfg.R, V=cfg.V, K=pcsr.K,
+                 n_rows=pcsr.n_rows, scale=scale, slope=slope)
+
+
+def sddmm_softmax(pcsr: PCSR, Q, K, *, scale: float | None = None,
+                  slope: float = 0.2):
+    """GAT attention weights softmax_row(LeakyReLU(scale·Q·Kᵀ)) on A's
+    pattern, in covered slot layout: the *materialised-α* form (stats
+    pass + one elementwise normalize).  The GAT path never runs it: the
+    SpMM prologue takes the stats instead."""
+    logits, rowmax, rowsum = sddmm_softmax_stats(pcsr, Q, K, scale=scale,
+                                                 slope=slope)
+    steer = device_steering(pcsr, Q.device)
+    cfg = pcsr.config
+    return normalize_from_stats(logits, rowmax, rowsum, steer.lrow,
+                                steer.trow, R=cfg.R, V=cfg.V, K=pcsr.K)

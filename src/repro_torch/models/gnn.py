@@ -1,11 +1,13 @@
-"""GCN and GIN (paper §6.5) with pluggable sparse aggregation, forward only.
+"""GCN, GIN and GAT (paper §6.5) with pluggable sparse aggregation,
+forward only.
 
 The forwards take an ``spmm: (n, d) -> (n, d)`` closure over the graph.
 Closures that also expose ``.fused(B, scale=, bias=, activation=,
 residual=)`` get each GCN layer's bias + ReLU, and each GIN layer's
 ``(1+ε)h`` term, handed to the SpMM's fused epilogue — one kernel per
 aggregation.  The fuse rules are the JAX package's, so the port launches
-the same kernels in the same order.  Parameters are lists of dicts of
+the same kernels in the same order.  GAT takes a ``gat_msg(Q, K, Vf)``
+closure instead (two kernel launches per layer).  Parameters are lists of dicts of
 tensors; ``repro_torch.convert`` carries them over from numpy.
 """
 from __future__ import annotations
@@ -91,7 +93,53 @@ def gin_forward(params, X, spmm):
 
 
 # -------------------------------------------------------------------- GAT
+def init_gat(layer_dims, *, generator: torch.Generator, device="cpu",
+             heads: int = 1):
+    """Dot-product attention GAT: per layer ``wq``/``wk`` project into the
+    attention space (the per-head output dim) and ``wv`` transforms the
+    message features.  With ``heads > 1`` hidden layers concatenate the
+    per-head outputs (their width must divide by ``heads``) and the last
+    layer averages full-width heads."""
+    params = []
+    L = len(layer_dims) - 1
+    for i in range(L):
+        out = layer_dims[i + 1]
+        concat = heads > 1 and i < L - 1
+        if concat and out % heads:
+            raise ValueError(f"layer dim {out} not divisible by {heads} heads")
+        dv = out // heads if concat else out
+        params.append({
+            "wq": _dense_init(layer_dims[i], heads * dv, generator, device),
+            "wk": _dense_init(layer_dims[i], heads * dv, generator, device),
+            "wv": _dense_init(layer_dims[i], heads * dv, generator, device),
+            "b": torch.zeros(out, device=device),
+        })
+    return params
+
+
 def gat_forward(params, X, gat_msg, heads: int = 1):
-    raise NotImplementedError(
-        "GAT needs the SDDMM→softmax kernel and the SpMM prologue, which "
-        "come with the next slice of the port (ROADMAP Queue 1)")
+    """h'_i = Σ_j α_ij · (h_j·Wv), α = softmax_j(LeakyReLU(q_i·k_j/√d)).
+
+    ``gat_msg(Q, K, Vf)`` is the attention message
+    (``core.engine.make_gat_message_fn``).  With ``heads > 1`` the
+    projections are split into ``(H, n, d_head)`` stacks and handed to it
+    as one batch, so every head runs in the same two kernel launches.
+    The projections, bias and ReLU are plain tensor ops."""
+    h = X
+    L = len(params)
+    for i, layer in enumerate(params):
+        q, k, v = h @ layer["wq"], h @ layer["wk"], h @ layer["wv"]
+        if heads == 1:
+            h = gat_msg(q, k, v) + layer["b"]
+        else:
+            n = h.shape[0]
+            split = lambda m: m.reshape(n, heads, -1).transpose(0, 1) \
+                .contiguous()
+            msg = gat_msg(split(q), split(k), split(v))    # (H, n, dv)
+            if i < L - 1:                                  # concat heads
+                h = msg.transpose(0, 1).reshape(n, -1) + layer["b"]
+            else:                                          # average heads
+                h = msg.mean(dim=0) + layer["b"]
+        if i < L - 1:
+            h = torch.relu(h)
+    return h

@@ -2,8 +2,9 @@
 
 Request path: seed node ids → seeded fanout-capped k-hop sampling →
 induced-subgraph extraction with local relabeling → shape-bucket PCSR
-pack (padded to the bucket ceiling) → fused GCN/GIN forward through the
-ParamSpMM kernel — with dynamic request batching into fixed-geometry
+pack (padded to the bucket ceiling) → GCN/GIN forward through the
+ParamSpMM kernel with its fused epilogue, or GAT forward through the fused
+SDDMM → softmax-stats kernel and the ParamSpMM softmax prologue — with dynamic request batching into fixed-geometry
 shape buckets and a bucket-keyed cache amortizing the config pick.
 """
 from .batcher import (RequestBatcher, SampledRequest, SubgraphRequest,

@@ -43,16 +43,18 @@ class SteeringPackCache:
     """LRU cache ``ShapeBucket → BucketPack``.
 
     ``dim`` is the widest layer of the served model (the config pick's
-    embedding-dim argument); ``hardware`` the constants the cost model
-    prices with.
+    embedding-dim argument); ``op`` steers the cost model ("spmm" for
+    GCN/GIN, "gat" for attention, priced as the SDDMM + SpMM pair);
+    ``hardware`` the constants it prices with.
     """
 
-    def __init__(self, *, dim: int, capacity: int = 8,
+    def __init__(self, *, dim: int, capacity: int = 8, op: str = "spmm",
                  hardware: Hardware = H100):
         if capacity < 1:
             raise ValueError("cache capacity must be >= 1")
         self.dim = dim
         self.capacity = capacity
+        self.op = op
         self.hardware = hardware
         self.hits = 0
         self.misses = 0
@@ -72,7 +74,8 @@ class SteeringPackCache:
             return entry
         self.misses += 1
         _metrics.counter("serve_cache_misses_total").inc(bucket=bucket.key)
-        config = pick_config(csr, self.dim, hardware=self.hardware)
+        config = pick_config(csr, self.dim, op=self.op,
+                             hardware=self.hardware)
         entry = BucketPack(bucket, config, PackGeom.from_bucket(bucket,
                                                                 config))
         self._entries[bucket] = entry

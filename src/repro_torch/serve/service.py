@@ -33,7 +33,7 @@ from repro_torch.obs import span
 from .batcher import RequestBatcher, SampledRequest, SubgraphRequest
 from .bucket import BucketPolicy, pack_subgraph, steering_arrays
 from .cache import SteeringPackCache
-from .forward import _model_forward, bucket_forward
+from .forward import bucket_forward, check_model
 
 
 @dataclass
@@ -48,6 +48,8 @@ class RequestResult:
 
 def _model_dims(model: str, params) -> int:
     """Widest layer width — the config pick's embedding-dim argument."""
+    if model == "gat":
+        return max(int(l["wv"].shape[1]) for l in params)
     if model == "gin":
         return max(int(l["w1"].shape[1]) for l in params)
     return max(int(l["w"].shape[1]) for l in params)
@@ -70,7 +72,7 @@ def _union_csr(members) -> CSRMatrix:
 
 
 class GNNService:
-    """Serve a GCN or GIN over one base graph.
+    """Serve a GCN, GIN or (single-head) GAT over one base graph.
 
     ``csr`` is the propagation matrix to sample from (pre-normalize it
     for GCN: edge weights travel with the extracted edges), ``features``
@@ -89,7 +91,7 @@ class GNNService:
                  cache_capacity: int = 8, max_batch: int = 32,
                  keep_subgraphs: bool = False,
                  hardware: Hardware = H100):
-        _model_forward(model)                 # raises for gat / unknown
+        check_model(model)
         self.device = resolve_device(device)
         self.csr = csr
         self.features = np.asarray(features, np.float32)
@@ -100,7 +102,7 @@ class GNNService:
         self.keep_subgraphs = keep_subgraphs
         self.cache = SteeringPackCache(
             dim=_model_dims(model, params), capacity=cache_capacity,
-            hardware=hardware)
+            op="gat" if model == "gat" else "spmm", hardware=hardware)
         big = self.policy.largest
         self.batcher = RequestBatcher(n_max=big.n_ceil, e_max=big.e_ceil,
                                       max_batch=max_batch)
@@ -150,7 +152,8 @@ class GNNService:
                          np.float32)
             X[:n_tot] = self.features[
                 np.concatenate([sr.nodes for sr in members])]
-            with span("serve.forward", bucket=bucket.key):
+            with span("serve.forward", bucket=bucket.key), \
+                    torch.no_grad():
                 out = bucket_forward(
                     steer, torch.from_numpy(X).to(self.device), self.params,
                     geom=pack.geom, model=self.model)

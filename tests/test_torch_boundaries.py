@@ -1,9 +1,9 @@
 """Package boundaries of the PyTorch port.
 
-``repro_torch`` and ``chip_smoke.py`` import neither JAX nor the JAX
-package ``repro`` (the port keeps its own copy of what it needs); only
-the ``tests/test_torch_*`` files import both.  Entry points run on the
-card unless the caller asks for the CPU.
+``repro_torch``, ``chip_smoke.py`` and ``chip_compare.py`` import
+neither JAX nor the JAX package ``repro`` (the port keeps its own copy of
+what it needs); only the ``tests/test_torch_*`` files import both.  Entry
+points run on the card unless the caller asks for the CPU.
 """
 import ast
 import pathlib
@@ -16,7 +16,8 @@ import torch
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 PORT = ROOT / "src" / "repro_torch"
-PORT_FILES = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+PORT_FILES = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py",
+                                           ROOT / "chip_compare.py"]
 
 
 def _imported_modules(path: pathlib.Path):
@@ -65,17 +66,28 @@ def test_entry_points_default_to_cuda(monkeypatch):
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             resolve_device(dev)
     assert resolve_device("cpu") == torch.device("cpu")
+    for model in ("gcn", "gat"):
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            main(["--requests", "2", "--model", model])
+    from repro_torch.data.graphs import er
+    from repro_torch.models.gnn import init_gat
+    from repro_torch.serve import GNNService
+    g = er(50, 4, seed=0)
+    params = init_gat([8, 8, 4], generator=torch.Generator().manual_seed(0))
     with pytest.raises(RuntimeError, match="CUDA is not available"):
-        main(["--requests", "2"])
+        GNNService(g, np.ones((50, 8), np.float32), params, model="gat")
 
 
 def test_kernel_sources_build_targets_hopper():
     from repro_torch.kernels import build
-    assert build.sources() == ["paramspmm"]
+    assert build.sources() == ["paramspmm", "sddmm_softmax"]
     assert "-gencode=arch=compute_90a,code=sm_90a" in build.NVCC_FLAGS
-    src = (build.CSRC_DIR / "paramspmm.cu").read_text()
-    assert "torch/extension.h" not in src
-    assert "src/repro/kernels/paramspmm/kernel.py" in src
+    assert "--use_fast_math" not in build.NVCC_FLAGS
+    for name, tpu in (("paramspmm", "paramspmm/kernel.py"),
+                      ("sddmm_softmax", "sddmm/kernel.py")):
+        src = (build.CSRC_DIR / f"{name}.cu").read_text()
+        assert "torch/extension.h" not in src
+        assert f"src/repro/kernels/{tpu}" in src
     # the build directory is one git ignores
     ignored = (ROOT / ".gitignore").read_text().split()
     assert "build/" in ignored
@@ -99,6 +111,7 @@ def test_chip_smoke_refuses_to_run_without_a_card(tmp_path):
 def test_plain_path_is_taken_only_for_cpu_tensors():
     from repro_torch.core.pcsr import SpMMConfig, build_pcsr
     from repro_torch.kernels.paramspmm import ops
+    from repro_torch.kernels.sddmm import ops as sddmm_ops
     A = np.eye(8, dtype=np.float32)
     from repro_torch.core.sparse import CSRMatrix
     c = CSRMatrix.from_dense(A)
@@ -107,3 +120,8 @@ def test_plain_path_is_taken_only_for_cpu_tensors():
     assert torch.equal(ops.paramspmm(p, B), B)
     with pytest.raises(ValueError, match="cpu or cuda"):
         ops.paramspmm(p, B.to("meta"))
+    # one edge per row: every row's softmax is α = 1, so A·B = B again
+    lg, rm, rs = sddmm_ops.sddmm_softmax_stats(p, B, B)
+    assert torch.equal(ops.paramspmm_with_vals(p, lg, B, stats=(rm, rs)), B)
+    with pytest.raises(ValueError, match="cpu or cuda"):
+        sddmm_ops.sddmm_softmax_stats(p, B.to("meta"), B.to("meta"))

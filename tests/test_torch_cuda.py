@@ -1,13 +1,17 @@
-"""The port's CUDA kernel on the card (marker ``cuda``; skips without one).
+"""The port's CUDA kernels on the card (marker ``cuda``; skips without one).
 
 These tests import neither JAX nor the JAX package, so they run on a
 machine that has only PyTorch and the CUDA toolkit:
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 
-The kernel is held against its plain PyTorch version on the same CUDA
-tensors: bit-exact with integer-valued operands, ``atol=1e-4,
-rtol=1e-5`` with float operands (the sums run in another order).
+Each kernel is held against its plain PyTorch version on the same CUDA
+tensors.  ParamSpMM: bit-exact with integer-valued operands, ``atol=1e-4,
+rtol=1e-5`` with float operands (the sums run in another order).  Fused
+SDDMM → softmax stats: logits bit-exact with integer-valued Q/K, stats
+and α within ``rtol=1e-5, atol=1e-6``.  ParamSpMM with the softmax
+prologue: ``rtol=1e-5, atol=1e-4``.  GAT serving on the card matches the
+CPU within ``rtol=1e-4, atol=1e-4``.
 """
 import numpy as np
 import pytest
@@ -17,7 +21,8 @@ from repro_torch.core.pcsr import SpMMConfig, build_pcsr
 from repro_torch.core.sparse import CSRMatrix
 from repro_torch.data.graphs import rmat
 from repro_torch.kernels.paramspmm import ops
-from repro_torch.models.gnn import init_gcn
+from repro_torch.kernels.sddmm import ops as sddmm_ops
+from repro_torch.models.gnn import init_gat, init_gcn
 from repro_torch.serve import GNNService, replay, synthetic_stream
 
 CONFIGS = [SpMMConfig(V=v, S=s, B=b, F=f, W=r // v)
@@ -106,3 +111,66 @@ def test_service_on_card_matches_cpu(cuda_device):
         assert launches == (0 if dev == "cpu" else 3 * len(svc.batch_log))
     for a, b in zip(out["cpu"], out[str(cuda_device)]):
         assert a.rid == b.rid and np.array_equal(a.outputs, b.outputs)
+
+
+def _sddmm_case(p, dev, d, H, integer, seed=5):
+    rng = np.random.default_rng(seed)
+    draw = ((lambda *s: rng.integers(-3, 4, s)) if integer
+            else (lambda *s: rng.standard_normal(s)))
+    t = lambda *s: torch.tensor(draw(*s), dtype=torch.float32, device=dev)
+    return t(H, p.n_rows, d), t(H, p.n_cols, d), t(H, p.n_cols, 24)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cfg", CONFIGS, ids=lambda c: str(c.astuple()))
+@pytest.mark.parametrize("H", [1, 4])
+def test_sddmm_softmax_and_prologue_match_plain(cuda_device, cfg, H):
+    for integer in (True, False):
+        p = _pack(cfg, integer)
+        Q, K, B = _sddmm_case(p, cuda_device, 16, H, integer)
+        steer = ops.device_steering(p, cuda_device)
+        geo = dict(V=cfg.V, R=cfg.R, K=p.K, n_blocks=p.n_blocks,
+                   n_rows=p.n_rows)
+        before = sddmm_ops.launch_count()
+        got = sddmm_ops.sddmm_softmax_stats(p, Q, K)
+        torch.cuda.synchronize()
+        assert sddmm_ops.launch_count() == before + 1
+        want = sddmm_ops.sddmm_softmax_plain(steer, Q, K, scale=0.25,
+                                             slope=0.2, **geo)
+        if integer:
+            assert torch.equal(got[0], want[0])
+        else:
+            torch.testing.assert_close(got[0], want[0], rtol=1e-5,
+                                       atol=1e-5)
+        for a, b in zip(got[1:], want[1:]):
+            torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-6)
+        before = ops.launch_count()
+        out = ops.paramspmm_with_vals(p, got[0], B, stats=got[1:])
+        torch.cuda.synchronize()
+        assert ops.launch_count() == before + 1
+        ref = ops.paramspmm_plain(steer, B, vals=got[0], rowmax=got[1],
+                                  rowsum=got[2], **geo)
+        torch.testing.assert_close(out, ref, rtol=1e-5, atol=1e-4)
+
+
+@pytest.mark.cuda
+def test_gat_service_on_card_matches_cpu(cuda_device):
+    g = rmat(10, 6, seed=1)
+    feats = np.random.default_rng(0).standard_normal(
+        (g.n_rows, 16)).astype(np.float32)
+    params = init_gat([16, 64, 64, 16],
+                      generator=torch.Generator().manual_seed(0))
+    stream = synthetic_stream(12, g.n_rows, seed=3)
+    out = {}
+    for dev in ("cpu", cuda_device):
+        svc = GNNService(g, feats, params, model="gat", device=dev)
+        before = (ops.launch_count(), sddmm_ops.launch_count())
+        out[str(dev)] = replay(svc, stream, tick_every=4)
+        launches = (ops.launch_count() - before[0],
+                    sddmm_ops.launch_count() - before[1])
+        per_kernel = 0 if dev == "cpu" else 3 * len(svc.batch_log)
+        assert launches == (per_kernel, per_kernel)
+    for a, b in zip(out["cpu"], out[str(cuda_device)]):
+        assert a.rid == b.rid
+        np.testing.assert_allclose(b.outputs, a.outputs, rtol=1e-4,
+                                   atol=1e-4)

@@ -158,8 +158,13 @@ def test_cost_model_h100_default_and_unported_ops():
     assert model.hardware is tcm.H100
     cfg, t = model.best(64, tp.config_space(64))
     assert cfg in tp.config_space(64) and 0 < t < np.inf
-    with pytest.raises(NotImplementedError):
+    # "gat" is a pair of kernels: it has a time but no single breakdown,
+    # as in the reference
+    assert model.time(64, cfg, op="gat") > model.time(64, cfg)
+    with pytest.raises(ValueError, match="single-kernel"):
         model.cost(64, cfg, op="gat")
+    with pytest.raises(ValueError):
+        model.cost(64, cfg, op="attention")
 
 
 def test_config_space_matches_reference():
