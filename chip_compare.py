@@ -118,15 +118,15 @@ def _sum_variant_libs(cs):
     subprocess.run([build.nvcc(), *build.NVCC_FLAGS,
                     "-DREPRO_SDDMM_SUM=double", "-o", str(path), str(src)],
                    check=True, capture_output=True, timeout=600)
-    shipped = ops._lib()
+    shipped = ops._lib("sddmm_softmax")
     load = build.load
     build.load = lambda name: ctypes.CDLL(str(path))
     try:
-        ops._LIB = None
-        variant = ops._lib()
+        del ops._LIBS["sddmm_softmax"]
+        variant = ops._lib("sddmm_softmax")
     finally:
         build.load = load
-        ops._LIB = shipped
+        ops._LIBS["sddmm_softmax"] = shipped
     return shipped, variant
 
 
@@ -167,7 +167,7 @@ def run_sddmm_sum() -> int:
                 1.0 / np.sqrt(d)), slope=cs.SLOPE, **geo)
             has = want[2] > 0
             for name, lib in libs.items():
-                ops._LIB = lib
+                ops._LIBS["sddmm_softmax"] = lib
                 got = ops.sddmm_softmax_stats(p, Q, K)
                 torch.cuda.synchronize()
                 cs.check(torch.equal(got[0], want[0])
@@ -182,10 +182,10 @@ def run_sddmm_sum() -> int:
         for rep in range(2):                    # f32, f64, f64, f32
             for name in (("float32", "float64") if rep == 0
                          else ("float64", "float32")):
-                ops._LIB = libs[name]
+                ops._LIBS["sddmm_softmax"] = libs[name]
                 ms = cs.cuda_ms(lambda: ops.sddmm_softmax_stats(p, Q1, K1))
                 row.setdefault(f"ms_{name}", []).append(ms)
-        ops._LIB = libs["float32"]
+        ops._LIBS["sddmm_softmax"] = libs["float32"]
         rows.append(row)
         print(f"{label} {tuple(c.astuple())} H={H} d={d}: "
               f"float32 Σexp {row['ms_float32']} ms, float64 Σexp "

@@ -8,7 +8,7 @@ Runs from the root of a checkout and drives ``src/repro_torch`` only
 
 1. device — the card's name, count, and ``nvidia-smi`` name + power limit;
 2. build  — every CUDA kernel from ``src/repro_torch/csrc`` with ``nvcc``
-   (``paramspmm.cu`` and ``sddmm_softmax.cu``, in parallel);
+   (``paramspmm.cu``, ``sddmm.cu`` and ``sddmm_softmax.cu``, in parallel);
 3. kernel vs plain — each kernel against its plain PyTorch version on the
    same CUDA tensors.  ParamSpMM: every V/S/B combination, F ∈ {1, 2},
    R ∈ {8, 16, 32}, dims 16/64/200 and every epilogue variant, on
@@ -20,7 +20,14 @@ Runs from the root of a checkout and drives ``src/repro_torch`` only
    F grid on bucket packs at d ∈ {16, 64}, rmat17 at d = 64, and 4 heads
    at d = 16: logits bit-exact with integer-valued Q/K, stats and α within
    ``rtol=1e-5, atol=1e-6`` (logits ``atol=1e-5`` with float Q/K), the
-   prologue SpMM within ``rtol=1e-5, atol=1e-4``;
+   prologue SpMM within ``rtol=1e-5, atol=1e-4``.  Raw SDDMM: the 12
+   configs of ``tests/test_torch_cuda.py`` × H ∈ {1, 4} × d ∈ {16, 64} on
+   a bucket pack with explicit zeros, and rmat17: bit-exact with integer
+   Q/K, every masked slot exactly 0.  Autograd: the training operators'
+   outputs and gradients on the card against the port on the CPU
+   (``make_spmm_fn``, ``make_fused_spmm_fn`` with bias + relu, scale +
+   leaky_relu and residual — bit-exact on integer operands —, and the
+   GAT message at 1 and 4 heads within ``rtol=1e-5, atol=1e-4``);
 4. serving — GCN then GIN at the published widths ([16, 64, 64, 64, 64,
    16], ``configs/gcn.py`` / ``configs/gin.py``) through
    ``GNNService(device="cuda")`` on ``corpus("serve")``'s rmat13, a
@@ -31,15 +38,30 @@ Runs from the root of a checkout and drives ``src/repro_torch`` only
    same graph and stream, seeded random weights and features: every
    request within ``rtol=1e-4, atol=1e-4`` of ``reference_forward`` on
    the CPU, and each of the two kernels launched layers × batches times;
-5. timing — CUDA events after warm-up, at a serving shape, on rmat17 and
+5. training — GCN, GIN (5 × 64) and single-head GAT (3 × 64) through
+   ``train_gnn`` on ``community_task()`` for 10 steps, on the card and on
+   the CPU: loss trajectories within ``rtol=1e-4``, equal val_acc (also
+   GAT with 4 heads, see ``MH_RTOL``); kernel launches per step checked
+   against the model's structure; ms per step from a run without the
+   profiler, and the device time per step by kernel family from a second
+   run under ``torch.profiler``;
+6. training at real size — the same models for 5 steps on
+   ``community_task(n_blocks=16, block_size=8192, p_in=0.0025)`` (131,072
+   nodes): losses finite and falling, ms per step, the kernels' share;
+7. timing — CUDA events after warm-up, at a serving shape, on rmat17 and
    on ``corpus("large")``'s kreg150k (uniform degree), at dim 64: each
    kernel, its plain version and one PyTorch library call (timed here
    only: ``torch.sparse.mm``, cuSPARSE SpMM, the paper's baseline; for the
    SDDMM ``torch.sparse.sampled_addmm``, cuSPARSE SDDMM, which gives raw
    scores without the softmax; for the prologue SpMM ``torch.sparse.mm``
-   on a CSR holding α, i.e. α given), beside the least time the card could
-   take (bytes of each input read once and each output written once over
-   the data-sheet HBM rate, vs the real MACs over the float32 peak).
+   on a CSR holding α, i.e. α given; for the raw SDDMM
+   ``sampled_addmm`` again, the same function), beside the least time the
+   card could take (bytes of each input read once and each output written
+   once over the data-sheet HBM rate, vs the real MACs over the float32
+   peak).
+
+Each main path (serving per model, training per model) runs with the
+launch counts set to 0 just before it and read just after.
 
 Any failure raises and exits non-zero.  The last two lines are the
 kernels' JSON summary and ``{"ok": true, "device": {...}}``.
@@ -59,9 +81,13 @@ import torch
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
+from repro_torch.apps.gnn import train_gnn  # noqa: E402
+from repro_torch.core import engine  # noqa: E402
 from repro_torch.core.engine import _slot_rows  # noqa: E402
-from repro_torch.core.pcsr import SpMMConfig, build_pcsr  # noqa: E402
+from repro_torch.core.pcsr import (SpMMConfig, build_pcsr,  # noqa: E402
+                                   pcsr_slot_coords, transpose_pcsr)
 from repro_torch.core.sparse import CSRMatrix  # noqa: E402
+from repro_torch.data.tasks import community_task  # noqa: E402
 from repro_torch.data.graphs import (extract_subgraph,  # noqa: E402
                                      kregular, rmat, sample_khop)
 from repro_torch.kernels import build  # noqa: E402
@@ -93,6 +119,21 @@ GAT_DIMS = [16, 64, 64, 16]                # configs/gat.py, heads = 1
 GAT_ATOL, GAT_RTOL = 1e-4, 1e-4            # served GAT vs the CPU reference
 STATS_ATOL, STATS_RTOL = 1e-6, 1e-5        # SDDMM stats and α, kernel vs plain
 SLOPE = 0.2                                # GAT's LeakyReLU slope
+# training at the published widths: (hidden, layers); configs/gcn.py,
+# configs/gin.py: 5 layers of [16, 64, 64, 64, 64, n_classes]; configs/gat.py
+# 3 layers at hidden 64, one head
+TRAIN_SHAPES = {"gcn": (64, 5), "gin": (64, 5), "gat": (64, 3)}
+TRAIN_HEADS = {"gat_mh": 4}                # configs/gat.py's GAT_MH
+TRAIN_RTOL = 1e-4                          # card vs CPU loss trajectories
+# GAT_MH is held at TRAIN_RTOL over its first 3 steps and at MH_RTOL over
+# all 10.  Its trajectory has two branches: perturbing its initial
+# weights by ±1e-7 relative moves the CPU's own step-10 loss by up to
+# 2.4e-4 relative (tests/test_torch_train.py::
+# test_gat_trajectory_sensitivity), so rounding alone crosses 1e-4 late
+# in the run; a gradient fault shows within the first steps
+MH_HELD_STEPS = 3
+MH_RTOL = 1e-3
+KERNELS = ("paramspmm", "sddmm_softmax", "sddmm")
 
 
 def check(cond, msg):
@@ -496,6 +537,383 @@ def phase_serve_gat(device, *, requests=64, seed=0):
     return launches, worst
 
 
+# -------------------------------------------------- raw SDDMM, autograd
+def _masked(csr, every=5):
+    """The same pattern with every ``every``-th stored value set to 0:
+    explicit zeros, which every SDDMM masks."""
+    data = csr.data.copy()
+    data[::every] = 0.0
+    return CSRMatrix(csr.indptr, csr.indices, data, csr.n_rows, csr.n_cols)
+
+
+def _raw_sddmm_compare(p, device, rng, d, H, integer):
+    """The raw SDDMM kernel against ``sddmm_plain`` on the same CUDA
+    tensors; returns the max abs difference."""
+    cfg = p.config
+    steer = ops.device_steering(p, device)
+    draw = ((lambda *s: rng.integers(-3, 4, s).astype(np.float32))
+            if integer else
+            (lambda *s: rng.standard_normal(s).astype(np.float32)))
+    Q = torch.from_numpy(draw(H, p.n_rows, d)).to(device)
+    K = torch.from_numpy(draw(H, p.n_cols, d)).to(device)
+    if H == 1:                # the single-head entry point, as GAT calls it
+        got = sddmm_ops.sddmm(p, Q[0], K[0])[None]
+    else:
+        got = sddmm_ops.sddmm(p, Q, K)
+    want = sddmm_ops.sddmm_plain(steer, Q, K, V=cfg.V, R=cfg.R, K=p.K,
+                                 n_rows=p.n_rows)
+    torch.cuda.synchronize()
+    what = f"{cfg.astuple()} d={d} H={H} integer={integer}"
+    check(got.shape == want.shape and bool(torch.isfinite(got).all()),
+          f"raw sddmm: bad output ({what})")
+    check(bool((got[:, steer.vals == 0] == 0).all()),
+          f"raw sddmm: a masked slot is not exactly 0 ({what})")
+    if integer:
+        check(torch.equal(got, want),
+              f"raw sddmm not bit-exact on integer Q/K ({what})")
+    else:
+        torch.testing.assert_close(got, want, rtol=RTOL, atol=1e-5)
+    return float((got - want).abs().max()) if got.numel() else 0.0
+
+
+def phase_sddmm_grid(device):
+    """Phase 3, raw SDDMM: the kernel against its plain version over the
+    12 configs of tests/test_torch_cuda.py × H ∈ {1, 4} × d ∈ {16, 64}, on
+    a bucket-padded serving pack whose every 5th edge is an explicit zero,
+    and on rmat17 at the GAT-picked config."""
+    rng = np.random.default_rng(4)
+    g = rmat(13, 8, seed=31)
+    union = _masked(_union(g, 8, seed=5))
+    bucket = BucketPolicy.default().pick(union.n_rows, union.nnz)
+    cases, err = 0, 0.0
+    for v in (1, 2):
+        for s, b in ((False, False), (True, False), (True, True)):
+            for f, r in ((1, 32), (2, 8)):
+                cfg = SpMMConfig(V=v, S=s, B=b, F=f, W=r // v)
+                p = pack_subgraph(union, PackGeom.from_bucket(bucket, cfg))
+                for H in (1, 4):
+                    for d in (16, 64):
+                        for integer in (True, False):
+                            e = _raw_sddmm_compare(p, device, rng, d, H,
+                                                   integer)
+                            err = max(err, 0.0 if integer else e)
+                            cases += 1
+    g17 = rmat(17, 6, seed=22)
+    p = build_pcsr(g17.indptr, g17.indices, g17.data, g17.n_rows,
+                   g17.n_cols, pick_config(g17, 64, op="gat"))
+    for d, H in ((64, 1), (16, 4)):
+        for integer in (True, False):
+            e = _raw_sddmm_compare(p, device, rng, d, H, integer)
+            err = max(err, 0.0 if integer else e)
+            cases += 1
+    print(f"[sddmm grid] {cases} raw SDDMM kernel-vs-plain cases match "
+          f"(integer Q/K bit-exact, masked slots exactly 0; max abs err "
+          f"{err:.3e} on float Q/K)")
+    return cases, err
+
+
+def _grads(fn, args, dOut):
+    """(output, gradients) of ``fn(*args)`` for the cotangent ``dOut``."""
+    args = [a.clone().requires_grad_() for a in args]
+    out = fn(*args)
+    return [out.detach()] + list(torch.autograd.grad(out, args, dOut))
+
+
+def _counts():
+    return {"paramspmm": ops.launch_count(),
+            "sddmm_softmax": sddmm_ops.launch_count("sddmm_softmax"),
+            "sddmm": sddmm_ops.launch_count("sddmm")}
+
+
+def _reset_counts():
+    ops.reset_launch_count()
+    sddmm_ops.reset_launch_count()
+
+
+def phase_autograd(device):
+    """Phase 3, autograd: the training operators' outputs and gradients on
+    the card against the port on the CPU (kernels vs plain versions
+    through the whole backward), on a serving batch of rmat13 at d=64:
+    ``make_spmm_fn`` and ``make_fused_spmm_fn`` (bias + relu, scale +
+    leaky_relu, residual) bit-exact with integer operands and within
+    rtol=1e-5, atol=1e-4 with float ones; the GAT message at 1 and 4
+    heads within the same tolerance."""
+    rng = np.random.default_rng(6)
+    union = _union(rmat(13, 8, seed=31), 8, seed=5)
+    worst = 0.0
+    for integer in (True, False):
+        csr = union if integer else _normalized(union)
+        p = build_pcsr(csr.indptr, csr.indices, csr.data, csr.n_rows,
+                       csr.n_cols, pick_config(csr, 64))
+        p_t = transpose_pcsr(p)
+        n = csr.n_rows
+        draw = ((lambda *s: torch.from_numpy(
+                    rng.integers(-3, 4, s).astype(np.float32) * 5))
+                if integer else
+                (lambda *s: torch.from_numpy(
+                    rng.standard_normal(s).astype(np.float32))))
+        B, dOut, resid = draw(n, 64), draw(n, 64), draw(n, 64)
+        bias, scale = draw(64), draw(n)
+        spmm = engine.make_spmm_fn(p, p_t)
+        fused = engine.make_fused_spmm_fn(p, p_t)
+        cases = {
+            "spmm": (spmm, [B]),
+            "fused bias+relu": (lambda B_, b_: fused(
+                B_, bias=b_, activation="relu"), [B, bias]),
+            "fused scale+leaky_relu": (lambda B_: fused(
+                B_, scale=scale.to(B_.device), activation="leaky_relu"),
+                [B]),
+            "fused residual": (lambda B_, r_: fused(B_, residual=r_),
+                               [B, resid]),
+        }
+        for name, (fn, args) in cases.items():
+            want = _grads(fn, args, dOut)
+            got = _grads(fn, [a.to(device) for a in args], dOut.to(device))
+            torch.cuda.synchronize()
+            for a, b in zip(got, want):
+                a = a.cpu()
+                if integer:
+                    check(torch.equal(a, b), f"autograd {name}: not "
+                          "bit-exact on integer operands")
+                else:
+                    torch.testing.assert_close(a, b, rtol=RTOL, atol=ATOL)
+                    worst = max(worst, float((a - b).abs().max()))
+    p = build_pcsr(union.indptr, union.indices, union.data, union.n_rows,
+                   union.n_cols, pick_config(union, 64, op="gat"))
+    f = engine.make_gat_message_fn(p, transpose_pcsr(p))
+    for H in (1, 4):
+        lead = (H,) if H > 1 else ()
+        d = 64 // H
+        x = [torch.from_numpy(rng.standard_normal(lead + (union.n_rows, d))
+                              .astype(np.float32)) for _ in range(4)]
+        want = _grads(f, x[:3], x[3])
+        before = _counts()
+        got = _grads(f, [a.to(device) for a in x[:3]], x[3].to(device))
+        torch.cuda.synchronize()
+        ran = {k: v - before[k] for k, v in _counts().items()}
+        check(ran == {"paramspmm": 4, "sddmm_softmax": 1, "sddmm": 1},
+              f"GAT message at H={H}: launches {ran}, expected 4 paramspmm "
+              "+ 1 sddmm_softmax + 1 sddmm")
+        for a, b in zip(got, want):
+            a = a.cpu()
+            check(bool(torch.isfinite(a).all()), f"GAT H={H}: not finite")
+            torch.testing.assert_close(a, b, rtol=RTOL, atol=ATOL)
+            worst = max(worst, float((a - b).abs().max()))
+    print(f"[autograd] spmm, fused (bias+relu, scale+leaky_relu, residual) "
+          f"and GAT message (H=1, 4) outputs and gradients on the card "
+          f"match the CPU (integer cases bit-exact; max abs err "
+          f"{worst:.3e} on float operands)")
+    return worst
+
+
+# ------------------------------------------------------------- training
+def launches_per_step(model, n_layers):
+    """Kernel launches one training step makes, from the model's
+    structure.  GCN/GIN: every layer's aggregation forward, and its dB
+    backward on the transpose PCSR except layer 0's (the features need no
+    gradient).  GAT, per layer: the SDDMM → softmax stats and the
+    prologue SpMM forward; the raw SDDMM (dα) and three SpMMs (dQ, dK,
+    dVf) backward."""
+    if model == "gat":
+        return {"paramspmm": 4 * n_layers, "sddmm_softmax": n_layers,
+                "sddmm": n_layers}
+    return {"paramspmm": 2 * n_layers - 1, "sddmm_softmax": 0, "sddmm": 0}
+
+
+def eval_launches(model, n_layers):
+    """Launches of the evaluation forward after the last step."""
+    return {"paramspmm": n_layers,
+            "sddmm_softmax": n_layers if model == "gat" else 0, "sddmm": 0}
+
+
+def _kernel_family(name):
+    for k in ("paramspmm_kernel", "sddmm_softmax_kernel", "sddmm_kernel"):
+        if k in name:
+            return k[:-len("_kernel")]
+    return "other"
+
+
+def _train_counted(task, name, device, steps, on_step=None):
+    """One run of the training main path: the launch counts set to 0 just
+    before ``train_gnn``, read just after, and checked against the
+    model's structure.  Returns the result and the measured counts.
+    ``name`` is a model, or ``gat_mh`` for GAT with 4 heads."""
+    model, heads = name.split("_")[0], TRAIN_HEADS.get(name, 1)
+    hidden, layers = TRAIN_SHAPES[model]
+    per_step = launches_per_step(model, layers)
+    _reset_counts()
+    res = train_gnn(task, model=model, hidden=hidden, n_layers=layers,
+                    steps=steps, seed=0, heads=heads, device=device,
+                    on_step=on_step)
+    counts = _counts()
+    want = {k: steps * per_step[k] + eval_launches(model, layers)[k]
+            for k in KERNELS}
+    check(counts == want, f"{name}: launches {counts}, the model's "
+          f"structure gives {want} ({per_step} per step × {steps} + eval)")
+    return res, counts
+
+
+def train_on_card(task, name, device, steps):
+    """Two runs of the training main path on the card.  The first, under
+    ``obs.tracing`` only, gives ms per step, the losses, val_acc and the
+    host spans.  The second runs its steady steps (1..) under
+    ``torch.profiler`` (CUDA activity only) for the device time per step
+    by kernel family; its ms per step shows what the profiler costs.
+    Returns (first result, launches per step, device ms per step by
+    family, host spans in ms, profiled ms per step, measured launches of
+    both runs)."""
+    from torch.profiler import ProfilerActivity, profile, schedule
+    model = name.split("_")[0]
+    per_step = launches_per_step(model, TRAIN_SHAPES[model][1])
+    with obs.tracing():
+        res, counts = _train_counted(task, name, device, steps)
+        spans: dict = {}
+        for e in obs.trace_events():
+            spans[e["name"]] = spans.get(e["name"], 0.0) + e["dur"] / 1e3
+    # step 0 is the profiler's warm-up: CUPTI is on but nothing is kept;
+    # steps 1.. are recorded, once
+    saved = []
+    with profile(activities=[ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=steps - 1,
+                                   repeat=1),
+                 on_trace_ready=lambda p: saved.append(
+                     p.key_averages())) as prof:
+        res_p, counts_p = _train_counted(task, name, device, steps,
+                                         on_step=lambda _: prof.step())
+    check(len(saved) == 1, f"{name}: {len(saved)} profiler windows")
+    # device ms per steady step by kernel family: our kernels as the
+    # profiler's mean time per launch × the launches a step makes (the
+    # wrappers' counts, checked above), the rest summed over the window
+    total = {"paramspmm": 0.0, "sddmm_softmax": 0.0, "sddmm": 0.0,
+             "other": 0.0}
+    seen = dict.fromkeys(KERNELS, 0)
+    for e in saved[0]:
+        t = getattr(e, "device_time_total", None)
+        if t is None:
+            t = getattr(e, "cuda_time_total", 0.0)
+        if t <= 0:
+            continue
+        fam = _kernel_family(e.key)
+        total[fam] += t / 1e3
+        if fam in seen:
+            seen[fam] += e.count
+    check(all(seen[k] > 0 for k in KERNELS if per_step[k]),
+          f"{name}: the profiler saw no launch of {seen} (device time "
+          "not measured)")
+    dev = {k: total[k] / seen[k] * per_step[k] if seen[k] else 0.0
+           for k in KERNELS}
+    dev["other"] = total["other"] / (steps - 1)
+    if any(seen[k] != (steps - 1) * per_step[k] for k in KERNELS):
+        print(f"[profile] {name}: the profiler recorded {seen} launches "
+              f"of ours in {steps - 1} steps, the wrappers "
+              f"{ {k: (steps - 1) * v for k, v in per_step.items()} }")
+    launches = {k: counts[k] + counts_p[k] for k in KERNELS}
+    return (res, per_step, dev, spans, res_p.seconds_per_step * 1e3,
+            launches)
+
+
+def _train_line(tag, model, task, res, per_step, dev, spans, prof_ms):
+    ms = res.seconds_per_step * 1e3
+    kern = sum(dev[k] for k in KERNELS)
+    busy = kern + dev["other"]
+    print(f"[{tag}] {model}: {task.csr.n_rows} nodes, config "
+          f"{res.config.astuple()}; launches per step {per_step}; "
+          f"{ms:.3f} ms/step (run without the profiler); val_acc "
+          f"{res.val_acc:.4f}; losses {res.losses[0]:.5f} → "
+          f"{res.losses[-1]:.5f}")
+    print(f"[{tag}] {model}: host spans (ms, summed): "
+          + ", ".join(f"{k} {v:.2f}" for k, v in spans.items()))
+    print(f"[{tag}] {model}: device ms per step (second run, under "
+          "torch.profiler): "
+          + ", ".join(f"{k} {v:.4f}" for k, v in dev.items())
+          + f"; {prof_ms:.3f} ms/step under the profiler; over the "
+          f"unprofiled step: hand-written kernels {kern:.4f} ms = "
+          f"{kern / ms:.1%}, device busy {busy / ms:.1%}, idle "
+          f"{1 - busy / ms:.1%}")
+    return {"model": model, "nodes": task.csr.n_rows,
+            "config": list(res.config.astuple()), "ms_per_step": ms,
+            "ms_per_step_profiled": prof_ms, "host_spans_ms": spans,
+            "launches_per_step": per_step, "device_ms_per_step": dev,
+            "kernel_share": kern / ms, "device_busy_share": busy / ms,
+            "val_acc": res.val_acc, "losses": res.losses}
+
+
+def phase_train(device, *, steps=10):
+    """Phase 5: GCN, GIN (5 × 64) and GAT (3 × 64, one head, and 4 heads
+    as GAT_MH) on ``community_task()`` for ``steps`` steps on the card and
+    on the CPU (the kernels' plain versions): the loss trajectories must
+    agree within ``TRAIN_RTOL`` (GAT_MH's within ``TRAIN_RTOL`` over its
+    first ``MH_HELD_STEPS`` and within ``MH_RTOL`` over all), with the
+    same config and val_acc."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CUDA]):   # CUPTI start-up,
+        torch.ones(1, device=device).add_(1)            # outside any step
+        torch.cuda.synchronize()
+    task = community_task()
+    rows, launches = [], dict.fromkeys(KERNELS, 0)
+    for name in ("gcn", "gin", "gat", "gat_mh"):
+        model, heads = name.split("_")[0], TRAIN_HEADS.get(name, 1)
+        hidden, layers = TRAIN_SHAPES[model]
+        cpu = train_gnn(task, model=model, hidden=hidden, n_layers=layers,
+                        steps=steps, seed=0, heads=heads, device="cpu")
+        res, per_step, dev, spans, prof_ms, ran = train_on_card(
+            task, name, device, steps)
+        for k in KERNELS:
+            launches[k] += ran[k]
+        check(res.config == cpu.config, f"{name}: configs differ")
+        check(np.isfinite(res.losses).all(), f"{name}: loss not finite")
+        held = MH_HELD_STEPS if name == "gat_mh" else steps
+        np.testing.assert_allclose(res.losses[:held], cpu.losses[:held],
+                                   rtol=TRAIN_RTOL, atol=0,
+                                   err_msg=f"{name} losses")
+        if name == "gat_mh":
+            np.testing.assert_allclose(res.losses, cpu.losses, rtol=MH_RTOL,
+                                       atol=0, err_msg=f"{name} losses")
+        rel = np.abs(np.array(res.losses) - cpu.losses) / np.abs(cpu.losses)
+        check(res.val_acc == cpu.val_acc, f"{name}: val_acc "
+              f"{res.val_acc} on the card, {cpu.val_acc} on the CPU")
+        row = _train_line("train", name, task, res, per_step, dev, spans,
+                          prof_ms)
+        row["max_rel_loss_diff_vs_cpu"] = float(rel.max())
+        row["rel_loss_diff_vs_cpu_per_step"] = rel.tolist()
+        held_by = (f"rtol={TRAIN_RTOL} over {held} steps and rtol={MH_RTOL} "
+                   f"over {steps}" if name == "gat_mh" else
+                   f"rtol={TRAIN_RTOL} over {steps} steps")
+        print(f"[train] {name}: loss trajectory within {held_by} of the "
+              f"CPU's (max relative difference {rel[:held].max():.3e} over "
+              f"{held} steps, {rel.max():.3e} over {steps}; per step "
+              f"{np.array2string(rel, precision=2)}), val_acc equal")
+        rows.append(row)
+    return rows, launches
+
+
+def phase_train_large(device, *, steps=5):
+    """Phase 6: the same three models for ``steps`` steps on a real-size
+    graph, ``community_task(n_blocks=16, block_size=8192, p_in=0.0025)``
+    (131,072 nodes, 2,811,270 nonzeros, 16 classes): losses finite and the
+    last below the first; ms per step and the kernels' share of it."""
+    t0 = time.perf_counter()
+    task = community_task(n_blocks=16, block_size=8192, p_in=0.0025)
+    print(f"[train large] task: {task.csr.n_rows} nodes, {task.csr.nnz} "
+          f"nonzeros, max degree {int(task.csr.degrees.max())}, "
+          f"{task.n_classes} classes ({time.perf_counter() - t0:.1f} s)")
+    rows, launches = [], dict.fromkeys(KERNELS, 0)
+    for model in ("gcn", "gin", "gat"):
+        t0 = time.perf_counter()
+        res, per_step, dev, spans, prof_ms, ran = train_on_card(
+            task, model, device, steps)
+        for k in KERNELS:
+            launches[k] += ran[k]
+        check(np.isfinite(res.losses).all(), f"{model}: loss not finite")
+        check(res.losses[-1] < res.losses[0],
+              f"{model}: loss did not fall ({res.losses})")
+        rows.append(_train_line("train large", model, task, res, per_step,
+                                dev, spans, prof_ms))
+        print(f"[train large] {model}: {time.perf_counter() - t0:.1f} s "
+              "for both runs, packs included")
+    return rows, launches
+
+
 # -------------------------------------------------------------- timing
 def cuda_ms(fn, reps=50, warmup=5):
     for _ in range(warmup):
@@ -659,6 +1077,53 @@ def time_gat(label, csr, p, dim, device):
     return sd, pro
 
 
+def time_sddmm(label, csr, p, dim, device):
+    """The raw SDDMM kernel beside its plain version, cuSPARSE's SDDMM
+    (``torch.sparse.sampled_addmm``, the same function: raw scores on the
+    pattern) and its bound, on the same inputs."""
+    rng = np.random.default_rng(7)
+    cfg = p.config
+    steer = ops.device_steering(p, device)
+    draw = lambda n: torch.from_numpy(rng.standard_normal(
+        (n, dim)).astype(np.float32)).to(device)
+    Q, K = draw(p.n_rows), draw(p.n_cols)
+    check(bool(np.all(csr.data != 0)), f"{label}: stored zeros")
+    indptr = np.concatenate([csr.indptr, np.full(p.n_rows - csr.n_rows,
+                                                 csr.indptr[-1])])
+    A = _csr_tensor(indptr, csr.indices, csr.data, (p.n_rows, p.n_cols),
+                    device)
+    Kt = K.t().contiguous()
+    lib = lambda: torch.sparse.sampled_addmm(A, Q, Kt, beta=0.0)
+    E = sddmm_ops.sddmm(p, Q, K)
+    rows, cols, flat = pcsr_slot_coords(p)
+    order = np.lexsort((cols, rows))          # the CSR's (row, col) order
+    torch.testing.assert_close(
+        E.reshape(-1)[torch.as_tensor(flat[order], device=device)],
+        lib().values(), rtol=RTOL, atol=ATOL)
+    row = {"at": label, "kernel": "sddmm", "config": list(cfg.astuple()),
+           "dim": dim, "nnz": p.nnz,
+           "ms": cuda_ms(lambda: sddmm_ops.sddmm(p, Q, K)),
+           "plain_ms": cuda_ms(lambda: sddmm_ops.sddmm_plain(
+               steer, Q[None], K[None], V=cfg.V, R=cfg.R, K=p.K,
+               n_rows=p.n_rows)),
+           "library_ms": cuda_ms(lib),
+           "library": "torch.sparse.sampled_addmm (cuSPARSE SDDMM)"}
+    # what the function must move, in any format: the graph's rows of Q
+    # and K read once, its pattern as CSR (row pointer, column per
+    # nonzero) read once, and one score per nonzero written
+    nbytes = 4 * (csr.n_rows * dim + csr.n_cols * dim + csr.n_rows + 1
+                  + 2 * csr.nnz)
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    t_ops = 2.0 * p.nnz * dim / F32_FLOP_PER_S
+    row["bound_ms"] = max(t_bytes, t_ops) * 1e3
+    row["bound_by"] = "bytes" if t_bytes >= t_ops else "operations"
+    print(f"[time] {label} {cfg.astuple()} dim {dim} sddmm: kernel "
+          f"{row['ms']:.4f} ms, plain {row['plain_ms']:.4f} ms, library "
+          f"{row['library_ms']:.4f} ms ({row['library']}), bound "
+          f"{row['bound_ms']:.4f} ms ({row['bound_by']})")
+    return row
+
+
 def phase_timing(device):
     rows = []
     g = rmat(13, 8, seed=31)
@@ -688,11 +1153,13 @@ def phase_timing(device):
     cfg = SteeringPackCache(dim=64, op="gat").get(bucket, union).config
     p = pack_subgraph(union, PackGeom.from_bucket(bucket, cfg))
     gat_rows += time_gat(f"serve batch {bucket.key}", union, p, 64, device)
+    sd_rows = []
     for label, g in (("rmat17", g17), ("kreg150k", gk)):
         p = build_pcsr(g.indptr, g.indices, g.data, g.n_rows, g.n_cols,
                        pick_config(g, 64, op="gat"))
         gat_rows += time_gat(label, g, p, 64, device)
-    return rows, gat_rows
+        sd_rows.append(time_sddmm(label, g, p, 64, device))
+    return rows, gat_rows, sd_rows
 
 
 def main() -> int:
@@ -726,6 +1193,13 @@ def main() -> int:
     gat_cases, err_logits, err_prologue = phase_gat_grid(device)
     print(f"[gat grid] {gat_cases} kernel-vs-plain cases (each: SDDMM "
           f"kernel and prologue SpMM) in {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    sd_cases, err_sddmm = phase_sddmm_grid(device)
+    print(f"[sddmm grid] {sd_cases} cases in "
+          f"{time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    err_autograd = phase_autograd(device)
+    print(f"[autograd] in {time.perf_counter() - t0:.1f} s")
 
     t0 = time.perf_counter()
     launches = sum(phase_serve(m, device) for m in ("gcn", "gin"))
@@ -735,9 +1209,23 @@ def main() -> int:
           f"sddmm_softmax launches on the serving paths in "
           f"{time.perf_counter() - t0:.1f} s")
 
-    rows, gat_rows = phase_timing(device)
+    t0 = time.perf_counter()
+    train_rows, train_launches = phase_train(device)
+    print(f"[train] {train_launches} launches on the training paths in "
+          f"{time.perf_counter() - t0:.1f} s")
+    rows, gat_rows, sd_rows = phase_timing(device)
+    t0 = time.perf_counter()
+    large_rows, large_launches = phase_train_large(device)
+    print(f"[train large] {large_launches} launches in "
+          f"{time.perf_counter() - t0:.1f} s")
+    print("[train json] " + json.dumps(train_rows + large_rows))
+    launches = {k: train_launches[k] + large_launches[k] for k in KERNELS}
+    launches["paramspmm"] += spmm_launches
+    launches["sddmm_softmax"] += gat_launches[1]
+
     main_row = rows[2]                       # rmat17, A·B, dim 64
-    sd_row = gat_rows[2]                     # rmat17, SDDMM, dim 64
+    sm_row = gat_rows[2]                     # rmat17, SDDMM → stats, dim 64
+    raw_row = sd_rows[0]                     # rmat17, raw SDDMM, dim 64
     print(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(f"[device] nvidia-smi: {smi}")
     at = lambda row: (f"{row['at']} dim {row['dim']} "
@@ -746,8 +1234,11 @@ def main() -> int:
         "name": "paramspmm", "route": "cuda",
         "source": "src/repro_torch/csrc/paramspmm.cu",
         "replaces": "src/repro/kernels/paramspmm/kernel.py:122",
-        "launches": spmm_launches,
-        "max_abs_err": max(max_err, err_prologue),
+        "launches": launches["paramspmm"],
+        "launches_by_path": {"serving": spmm_launches,
+                             "training": train_launches["paramspmm"]
+                             + large_launches["paramspmm"]},
+        "max_abs_err": max(max_err, err_prologue, err_autograd),
         "ms": main_row["ms"], "plain_ms": main_row["plain_ms"],
         "bound_ms": main_row["bound_ms"], "bound_by": main_row["bound_by"],
         "library_ms": main_row["library_ms"], "at": at(main_row),
@@ -756,12 +1247,26 @@ def main() -> int:
         "name": "sddmm_softmax", "route": "cuda",
         "source": "src/repro_torch/csrc/sddmm_softmax.cu",
         "replaces": "src/repro/kernels/sddmm/kernel.py:111",
-        "launches": gat_launches[1], "max_abs_err": err_logits,
-        "ms": sd_row["ms"], "plain_ms": sd_row["plain_ms"],
-        "bound_ms": sd_row["bound_ms"], "bound_by": sd_row["bound_by"],
-        "library_ms": sd_row["library_ms"], "at": at(sd_row),
+        "launches": launches["sddmm_softmax"],
+        "launches_by_path": {"serving": gat_launches[1],
+                             "training": train_launches["sddmm_softmax"]
+                             + large_launches["sddmm_softmax"]},
+        "max_abs_err": err_logits,
+        "ms": sm_row["ms"], "plain_ms": sm_row["plain_ms"],
+        "bound_ms": sm_row["bound_ms"], "bound_by": sm_row["bound_by"],
+        "library_ms": sm_row["library_ms"], "at": at(sm_row),
         "timings": [r for r in gat_rows
-                    if r["kernel"] == "sddmm_softmax"]}]}))
+                    if r["kernel"] == "sddmm_softmax"]}, {
+        "name": "sddmm", "route": "cuda",
+        "source": "src/repro_torch/csrc/sddmm.cu",
+        "replaces": "src/repro/kernels/sddmm/kernel.py:176",
+        "launches": launches["sddmm"],
+        "launches_by_path": {"training": launches["sddmm"]},
+        "max_abs_err": err_sddmm,
+        "ms": raw_row["ms"], "plain_ms": raw_row["plain_ms"],
+        "bound_ms": raw_row["bound_ms"], "bound_by": raw_row["bound_by"],
+        "library_ms": raw_row["library_ms"], "at": at(raw_row),
+        "timings": sd_rows}]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}))

@@ -1,0 +1,207 @@
+"""GNN training (paper §6.5): GCN, GIN and GAT on a node-classification
+task, with ParamSpMM as the aggregation in the forward and the backward.
+
+    PYTHONPATH=src python -m repro_torch.apps.gnn --model gcn --steps 20
+    PYTHONPATH=src python -m repro_torch.apps.gnn --device cpu --model gat
+
+Every aggregation runs in a hand-written CUDA kernel on the card: GCN and
+GIN layers are one ParamSpMM launch forward (epilogue fused) and one on
+the transpose PCSR backward; a GAT layer is the fused SDDMM → softmax
+stats and the ParamSpMM prologue forward, and the raw SDDMM plus three
+ParamSpMM launches backward (``core.engine``).  On ``--device cpu`` the
+kernels' plain versions run instead.  Runs on CUDA unless told otherwise
+and raises without a card.
+
+Spans (``repro_torch.obs``): ``gnn.pack`` (reorder, config pick, PCSR of
+A and Aᵀ), ``gnn.first_step`` (step 0: kernel build and load, allocator
+growth), ``gnn.step`` per later step, ``gnn.eval``.
+"""
+from __future__ import annotations
+
+import argparse
+import time
+from dataclasses import dataclass, field
+
+import numpy as np
+import torch
+
+from repro_torch.core.pcsr import SpMMConfig
+from repro_torch.data.tasks import NodeTask
+from repro_torch.device import resolve_device
+from repro_torch.models.gnn import (accuracy, gat_forward, gcn_forward,
+                                    gin_forward, init_gat, init_gcn,
+                                    init_gin, node_ce_loss)
+from repro_torch.obs import span
+from repro_torch.optim import AdamWConfig, adamw_init, adamw_update
+from repro_torch.pipeline import ParamSpMM
+
+
+@dataclass
+class GNNTrainResult:
+    losses: list = field(default_factory=list)
+    val_acc: float = 0.0
+    seconds_per_step: float = 0.0      # mean over steps 1.. (step 0 builds
+                                       # the kernels), on_step excluded
+    config: SpMMConfig | None = None
+
+
+def build_spmm(task: NodeTask, dim: int, mode: str = "paramspmm", *,
+               partitions: int = 0, **kw):
+    """SpMM operator over Â (the GCN-normalized adjacency): returns
+    ``(op, perm, config)``.  Only ``mode="paramspmm"`` on one device is
+    ported."""
+    if partitions:
+        raise NotImplementedError(
+            "partitioned training is not ported yet (ROADMAP Queue 1 "
+            "item 8)")
+    if mode in ("cusparse", "gespmm"):
+        raise NotImplementedError(
+            f"the {mode} baseline is not ported yet (ROADMAP Queue 1 "
+            "item 5)")
+    if mode != "paramspmm":
+        raise ValueError(f"unknown spmm mode {mode!r}")
+    p = ParamSpMM(task.csr.gcn_normalize(), dim, **kw)
+    return p, p.perm, p.config
+
+
+def _init_params(model, dims, heads, seed, device):
+    gen = torch.Generator().manual_seed(seed)
+    if model == "gcn":
+        return init_gcn(dims, generator=gen, device=device)
+    if model == "gin":
+        return init_gin(dims, generator=gen, device=device)
+    return init_gat(dims, generator=gen, device=device, heads=heads)
+
+
+def _sync(device):
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def train_gnn(task: NodeTask, *, model: str = "gcn", hidden: int = 64,
+              n_layers: int = 5, steps: int = 100, lr: float = 5e-3,
+              spmm_mode: str = "paramspmm", seed: int = 0, heads: int = 1,
+              partitions: int = 0, fused: bool = True,
+              spmm_kwargs: dict | None = None, params=None,
+              device=None, on_step=None) -> GNNTrainResult:
+    """Train ``model`` on ``task`` with AdamW(``lr``) for ``steps`` full
+    batch steps on ``device`` (default CUDA).
+
+    ``params`` are the initial parameters (a list of dicts of tensors,
+    e.g. ``convert.params_to_torch`` of another package's); by default
+    they are drawn from a ``torch.Generator`` seeded with ``seed``.
+    ``fused=True`` lets GCN layers hand bias + ReLU, and GIN layers their
+    ``(1+ε)h`` term, to the SpMM's fused epilogue; ``fused=False`` keeps
+    ``spmm(h) @ W + b``.  GAT picks its config for the SDDMM + SpMM pair
+    at ``heads`` heads and always packs the transpose PCSR for its
+    backward.  ``spmm_kwargs`` go to ``ParamSpMM`` (``config=``,
+    ``reorder=``, ``hardware=``, ...).  ``on_step(step)`` is called after
+    each step (e.g. a profiler's ``step``)."""
+    device = resolve_device(device)
+    if model not in ("gcn", "gin", "gat"):
+        raise ValueError(f"unknown model {model!r}")
+    kw = dict(spmm_kwargs or {})
+    kw["device"] = device
+    if model == "gat":
+        if spmm_mode != "paramspmm":
+            raise ValueError("gat needs the PCSR message fn "
+                             "(spmm_mode='paramspmm')")
+        kw.setdefault("op", "gat")
+        kw.setdefault("heads", heads)
+        kw["build_transpose"] = True
+    with span("gnn.pack", model=model, mode=spmm_mode):
+        spmm, perm, cfg = build_spmm(task, hidden, spmm_mode,
+                                     partitions=partitions, **kw)
+    if not fused and model != "gat":
+        op = spmm                 # hide the fusion surface: plain closure
+        spmm = lambda B: op(B)    # → gcn/gin take the unfused branch
+
+    as_t = lambda a: torch.as_tensor(a, device=device)
+    X, labels = as_t(task.features), as_t(task.labels).long()
+    tmask, vmask = as_t(task.train_mask), as_t(task.val_mask)
+    if perm is not None:   # graph was reordered → permute node-aligned data
+        inv = np.empty_like(perm)
+        inv[perm] = np.arange(len(perm))
+        inv = as_t(inv)
+        X, labels, tmask, vmask = X[inv], labels[inv], tmask[inv], vmask[inv]
+
+    dims = [X.shape[1]] + [hidden] * (n_layers - 1) + [task.n_classes]
+    if params is None:
+        params = _init_params(model, dims, heads, seed, device)
+    params = [{k: v.detach().to(device=device, dtype=torch.float32)
+               .requires_grad_() for k, v in layer.items()}
+              for layer in params]
+    if model == "gcn":
+        fwd = gcn_forward
+    elif model == "gin":
+        fwd = gin_forward
+    else:
+        from repro_torch.core.engine import make_gat_message_fn
+        spmm = make_gat_message_fn(spmm.op.pcsr, spmm.op.pcsr_t)
+        fwd = lambda p, x, msg: gat_forward(p, x, msg, heads=heads)
+
+    opt_cfg = AdamWConfig(lr=lr)
+    opt = adamw_init(params)
+    res = GNNTrainResult(config=cfg)
+    elapsed = 0.0
+    for step in range(steps):
+        t0 = time.perf_counter()
+        with span("gnn.first_step" if step == 0 else "gnn.step", step=step):
+            loss = node_ce_loss(fwd(params, X, spmm), labels, tmask)
+            grads = torch.autograd.grad(loss, [v for layer in params
+                                               for v in layer.values()])
+            it = iter(grads)
+            grads = [{k: next(it) for k in layer} for layer in params]
+            params, opt = adamw_update(params, grads, opt, opt_cfg)
+            params = [{k: v.requires_grad_() for k, v in layer.items()}
+                      for layer in params]
+            res.losses.append(float(loss.detach()))
+            _sync(device)
+        if step > 0:       # step 0 builds and loads the kernels
+            elapsed += time.perf_counter() - t0
+        if on_step is not None:        # outside the timed step
+            on_step(step)
+    if steps > 1:
+        res.seconds_per_step = elapsed / (steps - 1)
+    with span("gnn.eval"), torch.no_grad():
+        res.val_acc = float(accuracy(fwd(params, X, spmm), labels, vmask))
+    return res
+
+
+def main(argv=None):
+    from repro_torch.data.tasks import community_task
+
+    ap = argparse.ArgumentParser(description="GNN training on a synthetic "
+                                 "node-classification task")
+    ap.add_argument("--device", default="cuda",
+                    help="torch device to train on (cuda or cpu)")
+    ap.add_argument("--model", default="gcn", choices=["gcn", "gin", "gat"])
+    ap.add_argument("--hidden", type=int, default=64)
+    ap.add_argument("--layers", type=int, default=3)
+    ap.add_argument("--steps", type=int, default=20)
+    ap.add_argument("--heads", type=int, default=1)
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--mutate", type=int, default=0, metavar="N",
+                    help="dynamic-graph churn after training (not ported)")
+    args = ap.parse_args(argv)
+    if args.mutate:
+        raise NotImplementedError(
+            "dynamic graphs (--mutate) are not ported yet (ROADMAP Queue 1 "
+            "item 9)")
+
+    device = resolve_device(args.device)
+    task = community_task(seed=args.seed)
+    res = train_gnn(task, model=args.model, hidden=args.hidden,
+                    n_layers=args.layers, steps=args.steps,
+                    heads=args.heads, seed=args.seed, device=device)
+    print(f"losses: {res.losses[0]:.4f} → {res.losses[-1]:.4f} over "
+          f"{len(res.losses)} steps")
+    print(f"val_acc={res.val_acc:.3f} "
+          f"ms_per_step={res.seconds_per_step * 1e3:.1f} ({device})")
+    w, f, v, s, b = res.config.astuple()
+    print(f"config: W={w} F={f} V={v} S={s} B={b}")
+    return res
+
+
+if __name__ == "__main__":
+    main()

@@ -1,22 +1,43 @@
-"""ParamSpMM computing engine (paper Alg. 2) in plain PyTorch, forward only.
+"""ParamSpMM computing engine (paper Alg. 2) and its differentiable
+operators.
 
-The same PCSR traversal as the CUDA kernels, expressed as gather +
+``_engine`` / ``engine_spmm`` are the PCSR traversal as gather +
 ``index_add_``: the kernels' plain versions (``kernels.paramspmm.ops.
 paramspmm_plain`` is this engine plus ``apply_epilogue``) and the
 semantics every backend is held to.  ``_engine_sddmm`` / ``edge_softmax``
-/ ``attend_scores`` are the attention step's plain semantics;
-``make_gat_message_fn`` is the two-kernel GAT message (fused SDDMM →
-softmax stats, then the ParamSpMM softmax prologue).  The differentiable
-operators come with the training slice of the port.
+/ ``attend_scores`` are the attention step's plain semantics.
+
+The operators GNN training runs are ``torch.autograd.Function``s whose
+forward and backward are kernel launches (their plain versions on CPU
+tensors), as the paper's PyTorch extension runs forward and backward
+SpMM:
+
+* ``make_spmm_fn(pcsr, pcsr_t)``: ``C = A·B``, backward ``dB =
+  SpMM(pcsrᵀ, dC)`` on the transpose PCSR;
+* ``make_fused_spmm_fn(pcsr, pcsr_t)``: ``act(scale ⊙ (A·B) + bias +
+  residual)`` in one launch, backward ``dpre = dOut ⊙ act'(out)``,
+  ``dbias = Σ_rows dpre``, ``dresidual = dpre``, ``dB = SpMM(pcsrᵀ,
+  scale ⊙ dpre)`` (``scale`` is graph data, a constant);
+* ``make_gat_message_fn(pcsr, pcsr_t)``: the two-kernel GAT message
+  (fused SDDMM → softmax stats, then the ParamSpMM softmax prologue) with
+  the flash-recompute backward of ``gat_message``.
+
+Each backward skips the launches whose gradient no input needs
+(``ctx.needs_input_grad``).  ``ParamSpMMOperator`` holds the forward and
+transpose PCSR of one matrix and both SpMM operators.
 """
 from __future__ import annotations
 
 import functools
+from dataclasses import dataclass
+from typing import Callable, Optional
 
 import numpy as np
 import torch
 
-from .pcsr import PCSR
+from .pcsr import PCSR, SpMMConfig, build_pcsr, slot_transfer_map, \
+    transpose_pcsr
+from .sparse import CSRMatrix
 
 
 def _engine(colidx, lrow, trow, vals, B, *, V, R, K, n_blocks, n_rows):
@@ -125,49 +146,312 @@ def attend_scores(scores, mask, rows, n_segments: int, *, dim_k: int,
     return edge_softmax(scaled, mask, rows, n_segments)
 
 
+@dataclass(frozen=True)
+class TransposeSide:
+    """What the GAT backward needs beyond A's steering, on one device:
+    the covered steering and geometry of Aᵀ's PCSR (``pcsr_t``) and the
+    slot transfer map, as flat indices into the *covered* layouts (their
+    first entries are the uncovered ones ``slot_transfer_map`` indexes)."""
+
+    steer: object               # kernels.paramspmm.ops.Steering of Aᵀ
+    geo: dict                   # n_blocks, R, V, K, dblk, n_rows of Aᵀ
+    shape: tuple                # covered slot shape (C_t, V, K_t)
+    f_idx: torch.Tensor         # (nnz,) int64 into A's slots
+    t_idx: torch.Tensor         # (nnz,) int64 into Aᵀ's slots
+
+    @staticmethod
+    def build(pcsr: PCSR, pcsr_t: PCSR, device) -> "TransposeSide":
+        from repro_torch.kernels.paramspmm.ops import device_steering
+        f_idx, t_idx = slot_transfer_map(pcsr, pcsr_t)
+        cfg = pcsr_t.config
+        return TransposeSide(
+            steer=device_steering(pcsr_t, device),
+            geo=dict(n_blocks=pcsr_t.n_blocks, R=cfg.R, V=cfg.V, K=pcsr_t.K,
+                     dblk=cfg.dblk, n_rows=pcsr_t.n_rows),
+            shape=(pcsr_t.covered_num_chunks, cfg.V, pcsr_t.K),
+            f_idx=torch.as_tensor(f_idx, dtype=torch.int64, device=device),
+            t_idx=torch.as_tensor(t_idx, dtype=torch.int64, device=device))
+
+    def to_transpose(self, x):
+        """Re-lay a ``(..., C, V, K)`` slot tensor of A onto Aᵀ's covered
+        slots; every slot that holds no edge is 0."""
+        lead = x.shape[:-3]
+        n = self.shape[0] * self.shape[1] * self.shape[2]
+        out = x.new_zeros(lead + (n,))
+        out[..., self.t_idx] = x.reshape(lead + (-1,))[..., self.f_idx]
+        return out.reshape(lead + self.shape)
+
+
+def _row_sum(x, rows, n_segments: int):
+    """Per-slot broadcast of Σ over each destination row's slots:
+    ``x`` is ``(..., C, V, K)``, ``rows`` its ``(C, V, K)`` slot rows."""
+    lead = x.shape[:-3]
+    flat = x.reshape(-1, rows.numel())                       # (H, S)
+    H = flat.shape[0]
+    seg = (torch.arange(H, device=x.device)[:, None] * n_segments
+           + rows.reshape(1, -1))
+    s = flat.new_zeros(H * n_segments).index_add_(0, seg.reshape(-1),
+                                                  flat.reshape(-1))
+    return s[seg].reshape(lead + tuple(rows.shape))
+
+
+def _pad_rows(x, n: int):
+    """``x`` with zero rows appended (second-to-last axis) up to ``n``."""
+    extra = n - x.shape[-2]
+    if extra <= 0:
+        return x
+    return torch.cat([x, x.new_zeros(x.shape[:-2] + (extra, x.shape[-1]))],
+                     dim=-2)
+
+
+@dataclass(frozen=True)
+class _GATSpec:
+    steer: object                       # A's covered Steering
+    geo: dict                           # n_blocks, R, V, K, dblk, n_rows
+    slope: float
+    transpose: Optional[Callable]       # device → TransposeSide, or None
+
+
+class _GATMessage(torch.autograd.Function):
+    """The GAT message over one covered steering, forward and backward.
+
+    Forward: the fused SDDMM → softmax-stats kernel, then the ParamSpMM
+    kernel with its softmax prologue; α is never written out, and the
+    residuals are the logits and the two row stats.  Backward, flash
+    style (the reference's ``f_bwd``)::
+
+        α   = exp(logits − rowmax)/rowsum        (recomputed)
+        dα  = SDDMM(pcsr, dOut, Vf)               (raw SDDMM kernel)
+        dx  = α ⊙ (dα − Σ_row α·dα)               (softmax vjp)
+        de  = dx · scale · LeakyReLU'(x)          (sign of the logits)
+        dQ  = SpMM(pcsr,  de, K)                  (ParamSpMM, vals given)
+        dK  = SpMM(pcsrᵀ, T(de), Q)
+        dVf = SpMM(pcsrᵀ, T(α), dOut)
+
+    ``T`` re-lays slot tensors onto Aᵀ's covered slots
+    (``TransposeSide.to_transpose``).  Masked, padding and coverage slots
+    carry logit −inf, so α = 0 there, and the raw SDDMM writes 0 there, so
+    they add exact zeros."""
+
+    @staticmethod
+    def forward(ctx, Q, K_mat, Vf, spec: _GATSpec):
+        from repro_torch.kernels.paramspmm import ops as spmm_ops
+        from repro_torch.kernels.sddmm import ops as sddmm_ops
+        g = spec.geo
+        logits, rowmax, rowsum = sddmm_ops._stats_call(
+            spec.steer, Q, K_mat, n_blocks=g["n_blocks"], R=g["R"], V=g["V"],
+            K=g["K"], n_rows=g["n_rows"],
+            scale=float(1.0 / np.sqrt(Q.shape[-1])), slope=spec.slope)
+        out = spmm_ops._call(spec.steer, Vf, vals=logits, rowmax=rowmax,
+                             rowsum=rowsum, **g)
+        ctx.save_for_backward(Q, K_mat, Vf, logits, rowmax, rowsum)
+        ctx.spec = spec
+        return out
+
+    @staticmethod
+    def backward(ctx, dOut):
+        from repro_torch.kernels.paramspmm import ops as spmm_ops
+        from repro_torch.kernels.sddmm import ops as sddmm_ops
+        Q, K_mat, Vf, logits, rowmax, rowsum = ctx.saved_tensors
+        spec, (need_q, need_k, need_v) = ctx.spec, ctx.needs_input_grad[:3]
+        if spec.transpose is None:
+            raise ValueError("the GAT message backward needs the transpose "
+                             "PCSR: build it with make_gat_message_fn(pcsr, "
+                             "pcsr_t)")
+        t = spec.transpose(dOut.device)
+        g, steer = spec.geo, spec.steer
+        R, V, K = g["R"], g["V"], g["K"]
+        dOut = dOut.contiguous()
+        alpha = normalize_from_stats(logits, rowmax, rowsum, steer.lrow,
+                                     steer.trow, R=R, V=V, K=K)
+        dQ = dK = dVf = None
+        if need_q or need_k:
+            # 1/√d in float32, as the reference computes it
+            scale = (1.0 / torch.sqrt(torch.tensor(
+                float(Q.shape[-1]), dtype=torch.float32))).item()
+            dalpha = sddmm_ops._call(steer, dOut, Vf, n_blocks=g["n_blocks"],
+                                     R=R, V=V, K=K, n_rows=g["n_rows"])
+            rows = _slot_rows(steer.lrow, steer.trow, V=V, R=R, K=K)
+            dx = alpha * (dalpha - _row_sum(alpha * dalpha, rows,
+                                            g["n_blocks"] * R))
+            # LeakyReLU' from the saved logits: LeakyReLU keeps the sign,
+            # and masked slots (−inf) have dx = 0, so their branch is inert
+            de = dx * scale * torch.where(logits >= 0, 1.0, spec.slope)
+            if need_q:
+                dQ = _pad_rows(spmm_ops._call(steer, K_mat, vals=de, **g),
+                               Q.shape[-2])
+            if need_k:
+                dK = _pad_rows(spmm_ops._call(t.steer, Q,
+                                              vals=t.to_transpose(de),
+                                              **t.geo), K_mat.shape[-2])
+        if need_v:
+            dVf = _pad_rows(spmm_ops._call(t.steer, dOut,
+                                           vals=t.to_transpose(alpha),
+                                           **t.geo), Vf.shape[-2])
+        return dQ, dK, dVf, None
+
+
 def gat_message(steer, Q, K_mat, Vf, *, n_blocks, R, V, K, dblk, n_rows,
-                slope: float = 0.2):
+                slope: float = 0.2, transpose: Optional[Callable] = None):
     """The GAT message over one covered steering: the fused SDDMM →
     softmax-stats kernel, then the ParamSpMM kernel with its softmax
     prologue — two launches on CUDA tensors, their plain versions on CPU
     tensors, α never materialised.  ``(n, d)`` operands return
     ``(n_rows, dv)``; ``(H, n, d)`` ones run every head in the same two
-    launches and return ``(H, n_rows, dv)``.  Forward only: raises if an
-    input requires grad (the backward comes with the training slice)."""
-    from repro_torch.kernels.paramspmm import ops as spmm_ops
-    from repro_torch.kernels.sddmm import ops as sddmm_ops
-    if any(t.requires_grad for t in (Q, K_mat, Vf)):
-        raise NotImplementedError(
-            "the GAT message has no backward yet (training slice, ROADMAP "
-            "Queue 1 item 2): call it under torch.no_grad()")
-    logits, rowmax, rowsum = sddmm_ops._call(
-        steer, Q, K_mat, n_blocks=n_blocks, R=R, V=V, K=K, n_rows=n_rows,
-        scale=float(1.0 / np.sqrt(Q.shape[-1])), slope=slope)
-    return spmm_ops._call(steer, Vf, vals=logits, rowmax=rowmax,
-                          rowsum=rowsum, n_blocks=n_blocks, R=R, V=V, K=K,
-                          dblk=dblk, n_rows=n_rows)
+    launches and return ``(H, n_rows, dv)``.  Differentiable in ``Q``,
+    ``K_mat`` and ``Vf`` when ``transpose`` (device → ``TransposeSide``)
+    is given; the backward raises without it."""
+    spec = _GATSpec(steer, dict(n_blocks=n_blocks, R=R, V=V, K=K, dblk=dblk,
+                                n_rows=n_rows), float(slope), transpose)
+    return _GATMessage.apply(Q, K_mat, Vf, spec)
 
 
-def gat_message_fn(steer, geo, *, slope: float = 0.2):
+def gat_message_fn(steer, geo, *, slope: float = 0.2,
+                   transpose: Optional[Callable] = None):
     """``f(Q, K, Vf)``: ``gat_message`` over ``steer`` with the geometry
     of ``geo`` — a ``PCSR`` or a serving bucket's ``PackGeom``, both of
     which carry ``config``, ``n_blocks``, ``n_rows`` and ``K``."""
     cfg = geo.config
     return functools.partial(gat_message, steer, n_blocks=geo.n_blocks,
                              R=cfg.R, V=cfg.V, K=geo.K, dblk=cfg.dblk,
-                             n_rows=geo.n_rows, slope=slope)
+                             n_rows=geo.n_rows, slope=slope,
+                             transpose=transpose)
 
 
-def make_gat_message_fn(pcsr: PCSR, *, slope: float = 0.2):
-    """GAT message ``f(Q, K, Vf)`` over one PCSR: SDDMM → scale 1/√d →
-    LeakyReLU(slope) → edge softmax → SpMM, as two kernel launches
-    (``gat_message``) on the inputs' device."""
+def make_gat_message_fn(pcsr: PCSR, pcsr_t: PCSR | None = None, *,
+                        slope: float = 0.2):
+    """Differentiable GAT message ``f(Q, K, Vf)`` over one PCSR: SDDMM →
+    scale 1/√d → LeakyReLU(slope) → edge softmax → SpMM, as two kernel
+    launches (``gat_message``) on the inputs' device, with the
+    flash-recompute backward (``_GATMessage``).  ``pcsr_t`` is Aᵀ's PCSR
+    (``ParamSpMMOperator.pcsr_t``); without it the transpose is packed at
+    the first backward."""
     from repro_torch.kernels.paramspmm.ops import device_steering
+    sides: dict = {}
+
+    def transpose(device):
+        nonlocal pcsr_t
+        key = str(torch.device(device))
+        if key not in sides:
+            if pcsr_t is None:
+                pcsr_t = transpose_pcsr(pcsr)
+            sides[key] = TransposeSide.build(pcsr, pcsr_t, device)
+        return sides[key]
 
     def f(Q, K_mat, Vf):
         steer = device_steering(pcsr, Q.device)
-        return gat_message_fn(steer, pcsr, slope=slope)(Q, K_mat, Vf)
+        return gat_message_fn(steer, pcsr, slope=slope,
+                              transpose=transpose)(Q, K_mat, Vf)
     return f
+
+
+def _transpose_spmm(pcsr_t, dC, n_rows: int):
+    """``dB = SpMM(pcsrᵀ, dC)``, padded to ``n_rows`` rows."""
+    from repro_torch.kernels.paramspmm.ops import paramspmm
+    if pcsr_t is None:
+        raise ValueError("the SpMM backward needs the transpose PCSR: build "
+                         "the operator with build_transpose=True")
+    return _pad_rows(paramspmm(pcsr_t, dC.contiguous()), n_rows)
+
+
+class _SpMM(torch.autograd.Function):
+    """``C = A·B``; backward ``dB = SpMM(pcsrᵀ, dC)``, one launch."""
+
+    @staticmethod
+    def forward(ctx, B, pcsr, pcsr_t):
+        from repro_torch.kernels.paramspmm.ops import paramspmm
+        ctx.pcsr_t, ctx.b_rows = pcsr_t, B.shape[0]
+        return paramspmm(pcsr, B)
+
+    @staticmethod
+    def backward(ctx, dC):
+        dB = None
+        if ctx.needs_input_grad[0]:
+            dB = _transpose_spmm(ctx.pcsr_t, dC, ctx.b_rows)
+        return dB, None, None
+
+
+class _FusedSpMM(torch.autograd.Function):
+    """``act(scale ⊙ (A·B) + bias + residual)`` in one launch; backward
+    from the output (relu and leaky_relu keep the sign, so act' is
+    recoverable from it): ``dpre = epilogue_grad(out, dOut)``, ``dbias =
+    Σ_rows dpre``, ``dresidual = dpre``, ``dB = SpMM(pcsrᵀ, scale ⊙
+    dpre)``.  ``scale`` (degree norms, graph data) gets no gradient."""
+
+    @staticmethod
+    def forward(ctx, B, scale, bias, residual, activation, pcsr, pcsr_t):
+        from repro_torch.kernels.paramspmm.ops import paramspmm
+        out = paramspmm(pcsr, B, scale=scale, bias=bias, residual=residual,
+                        activation=activation)
+        ctx.save_for_backward(out, scale)
+        ctx.activation, ctx.pcsr_t, ctx.b_rows = activation, pcsr_t, \
+            B.shape[0]
+        return out
+
+    @staticmethod
+    def backward(ctx, dOut):
+        out, scale = ctx.saved_tensors
+        need_b, _, need_bias, need_res = ctx.needs_input_grad[:4]
+        dpre = epilogue_grad(out, dOut, ctx.activation)
+        dbias = dpre.sum(dim=0) if need_bias else None
+        dres = dpre if need_res else None
+        dB = None
+        if need_b:
+            dcb = dpre if scale is None else dpre * scale[:, None]
+            dB = _transpose_spmm(ctx.pcsr_t, dcb, ctx.b_rows)
+        return dB, None, dbias, dres, None, None, None
+
+
+def make_spmm_fn(pcsr: PCSR, pcsr_t: PCSR | None = None):
+    """Differentiable ``f(B) = A·B`` over ``pcsr``: one ParamSpMM launch
+    forward, and backward one launch on Aᵀ's PCSR ``pcsr_t`` (required
+    for gradients: the backward raises without it)."""
+    def f(B):
+        return _SpMM.apply(B, pcsr, pcsr_t)
+    return f
+
+
+def make_fused_spmm_fn(pcsr: PCSR, pcsr_t: PCSR | None = None):
+    """The epilogue-fused aggregation ``fused(B, scale=None, bias=None,
+    activation="none", residual=None)`` = ``act(scale ⊙ (A·B) + bias +
+    residual)``: one launch forward, differentiable in ``B``, ``bias``
+    and ``residual`` (GIN's ``(1+ε)h``, whose ε then gets its gradient
+    through autograd), backward on ``pcsr_t`` (``_FusedSpMM``)."""
+    def fused(B, scale=None, bias=None, activation: str = "none",
+              residual=None):
+        return _FusedSpMM.apply(B, scale, bias, residual, activation, pcsr,
+                                pcsr_t)
+    return fused
+
+
+class ParamSpMMOperator:
+    """The operator of one sparse matrix under one ⟨W,F,V,S⟩ config: the
+    forward PCSR and (``build_transpose``) Aᵀ's, packed once on the host.
+    ``op(B)`` is the differentiable SpMM, ``op.fused(B, scale=, bias=,
+    activation=, residual=)`` the epilogue-fused one.  ``device`` stages
+    both steerings there up front (otherwise at first use)."""
+
+    def __init__(self, csr: CSRMatrix, config: SpMMConfig, *,
+                 build_transpose: bool = True, device=None):
+        self.csr = csr
+        self.config = config
+        self.pcsr = build_pcsr(csr.indptr, csr.indices, csr.data,
+                               csr.n_rows, csr.n_cols, config)
+        self.pcsr_t = None
+        if build_transpose:
+            t = csr.transpose()
+            self.pcsr_t = build_pcsr(t.indptr, t.indices, t.data,
+                                     t.n_rows, t.n_cols, config)
+        if device is not None:
+            from repro_torch.kernels.paramspmm.ops import device_steering
+            for p in (self.pcsr, self.pcsr_t):
+                if p is not None:
+                    device_steering(p, device)
+        self._fn = make_spmm_fn(self.pcsr, self.pcsr_t)
+        self.fused = make_fused_spmm_fn(self.pcsr, self.pcsr_t)
+
+    def __call__(self, B):
+        return self._fn(B)
 
 
 def apply_epilogue(out, scale=None, bias=None, activation: str = "none",
@@ -188,3 +472,23 @@ def apply_epilogue(out, scale=None, bias=None, activation: str = "none",
     elif activation != "none":
         raise ValueError(f"unknown epilogue activation {activation!r}")
     return out
+
+
+def epilogue_grad(out, dOut, activation: str = "none", slope: float = 0.2):
+    """d(pre-activation) of the fused epilogue from its *output*: relu and
+    leaky_relu keep the sign, so act' is recoverable from ``out`` alone."""
+    if activation == "relu":
+        return torch.where(out > 0, dOut, 0.0)
+    if activation == "leaky_relu":
+        return torch.where(out >= 0, dOut, slope * dOut)
+    if activation != "none":
+        raise ValueError(f"unknown epilogue activation {activation!r}")
+    return dOut
+
+
+def engine_spmm_fused(pcsr: PCSR, B, *, scale=None, bias=None,
+                      residual=None, activation: str = "none"):
+    """act(scale ⊙ (A·B) + bias + residual) on the plain engine — the
+    fused kernel's semantics, differentiable through autograd."""
+    return apply_epilogue(engine_spmm(pcsr, B), scale, bias, activation,
+                          residual=residual)

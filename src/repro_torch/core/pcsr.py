@@ -445,11 +445,72 @@ def pcsr_stats(indptr, indices, n_rows, n_cols, V: int, W: int) -> PCSRStats:
         return PCSRStats(n_rows, n_cols, 0, V, W, 0, n_blocks, 0, 0, 0.0,
                          np.zeros(0, np.int64))
     rows = np.repeat(np.arange(n_rows, dtype=np.int64), np.diff(indptr))
-    key = (rows // V) * n_cols + indices
-    ukey = np.unique(key)
+    key = np.sort((rows // V) * n_cols + indices)
+    # np.unique(key) by sorting: numpy ≥ 2.3 takes a hash-table path for
+    # a bare np.unique that is ~20× slower on multi-million-key arrays
+    ukey = key[np.concatenate(([True], key[1:] != key[:-1]))]
     bid = (ukey // n_cols) // W
     counts = np.bincount(bid, minlength=n_blocks)
     ne = counts[counts > 0]
     return PCSRStats(n_rows, n_cols, nnz, V, W, int(ukey.shape[0]), n_blocks,
                      int(ne.shape[0]), int(ne.max()), float(ne.mean()),
                      ne.astype(np.int64))
+
+
+def transpose_csr(indptr, indices, data, n_rows, n_cols):
+    """CSR of Aᵀ (for the backward SpMM dB = Aᵀ·dC)."""
+    indptr = np.asarray(indptr, np.int64)
+    indices = np.asarray(indices, np.int64)
+    data = np.asarray(data)
+    rows = np.repeat(np.arange(n_rows, dtype=np.int64), np.diff(indptr))
+    order = np.argsort(indices, kind="stable")
+    t_counts = np.bincount(indices, minlength=n_cols)
+    t_indptr = np.concatenate([[0], np.cumsum(t_counts)]).astype(np.int64)
+    return t_indptr, rows[order], data[order], n_cols, n_rows
+
+
+def pcsr_slot_coords(p: PCSR):
+    """Dense coordinates of every *real* slot entry (stored value ≠ 0):
+    ``(rows, cols, flat)`` — the (row, col) of each edge and its flat
+    index into ``vals.reshape(-1)``, the (C, V, K) slot order."""
+    c, v, k = np.nonzero(p.vals)
+    ck = c * p.K + k
+    rows = (p.trow[c].astype(np.int64) * p.config.R
+            + p.lrow[ck].astype(np.int64) * p.config.V + v)
+    cols = p.colidx[ck].astype(np.int64)
+    flat = (c * p.config.V + v) * p.K + k
+    return rows, cols, flat
+
+
+def pcsr_to_coo(p: PCSR):
+    """The (rows, cols, vals) edge list packed into a PCSR."""
+    rows, cols, flat = pcsr_slot_coords(p)
+    return rows, cols, p.vals.reshape(-1)[flat]
+
+
+def transpose_pcsr(p: PCSR) -> PCSR:
+    """PCSR of Aᵀ under the forward PCSR's configuration, built from its
+    own edge list; every backward SpMM runs on it."""
+    rows, cols, vals = pcsr_to_coo(p)
+    order = np.lexsort((rows, cols))           # CSR of Aᵀ: sort by (col, row)
+    t_indptr = np.concatenate(
+        [[0], np.cumsum(np.bincount(cols, minlength=p.n_cols))]).astype(
+            np.int64)
+    return build_pcsr(t_indptr, rows[order], vals[order],
+                      p.n_cols, p.n_rows, p.config)
+
+
+def slot_transfer_map(p: PCSR, p_t: PCSR):
+    """Flat-index pair moving per-edge slot values A-layout → Aᵀ-layout:
+    for each edge (i, j) of A, ``f_idx`` is its flat position in ``p``'s
+    (C, V, K) slot tensor and ``t_idx`` its flat position in ``p_t``'s.
+    Both index the uncovered layouts, which are the first entries of the
+    covered ones; padding slots are in neither."""
+    rows, cols, f_flat = pcsr_slot_coords(p)
+    t_rows, t_cols, t_flat = pcsr_slot_coords(p_t)
+    key_f = rows * p.n_cols + cols
+    key_t = t_cols * p.n_cols + t_rows        # Aᵀ edge (j, i) ↔ A edge (i, j)
+    of, ot = np.argsort(key_f), np.argsort(key_t)
+    if not np.array_equal(key_f[of], key_t[ot]):
+        raise ValueError("PCSR pair does not pack the same edge set")
+    return f_flat[of].astype(np.int32), t_flat[ot].astype(np.int32)

@@ -69,6 +69,12 @@ class CSRMatrix:
         out[rows, self.indices] = self.data
         return out
 
+    def transpose(self) -> "CSRMatrix":
+        from .pcsr import transpose_csr
+        ip, ix, d, nr, nc = transpose_csr(self.indptr, self.indices,
+                                          self.data, self.n_rows, self.n_cols)
+        return CSRMatrix(ip, ix, d, nr, nc)
+
     def permute(self, perm: np.ndarray) -> "CSRMatrix":
         """Symmetric permutation A' = P A Pᵀ: node i → position perm[i]."""
         if self.n_rows != self.n_cols:

@@ -102,11 +102,15 @@ class Steering:
 
 
 def device_steering(pcsr: PCSR, device) -> Steering:
-    """``Steering.from_pcsr`` cached on the PCSR per device."""
+    """``Steering.from_pcsr`` cached on the PCSR per device ("cuda" and
+    the current "cuda:N" share one copy)."""
     cache = pcsr.__dict__.setdefault("_device_steering", {})
-    key = str(torch.device(device))
+    dev = torch.device(device)
+    if dev.type == "cuda" and dev.index is None:
+        dev = torch.device("cuda", torch.cuda.current_device())
+    key = str(dev)
     if key not in cache:
-        cache[key] = Steering.from_pcsr(pcsr, device)
+        cache[key] = Steering.from_pcsr(pcsr, dev)
     return cache[key]
 
 

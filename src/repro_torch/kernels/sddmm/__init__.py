@@ -1,2 +1,2 @@
-"""Fused SDDMM → edge-softmax stats: the CUDA kernel's wrapper, plain
-version and oracle."""
+"""SDDMM: the fused SDDMM → edge-softmax stats kernel and the raw SDDMM
+kernel — their wrappers, plain versions and oracles."""

@@ -1,5 +1,5 @@
-"""Fused SDDMM → edge-softmax stats on tensors: the CUDA kernel's wrapper,
-its plain version, and the GAT attention entry points.
+"""SDDMM on tensors: the two CUDA kernels' wrappers, their plain
+versions, and the GAT attention entry points.
 
 ``sddmm_softmax_stats(pcsr, Q, K)`` is the front half of the GAT forward:
 one pass returning the raw post-LeakyReLU logits in slot layout (masked
@@ -9,18 +9,23 @@ and padding slots −inf) and the per-row softmax stats ``rowmax`` /
 ``sddmm_softmax`` materialises α from them (``normalize_from_stats``, from
 ``core.engine``, where both kernels' plain versions take it).
 
-Layouts.  Logits are ``(C, V, K)`` over the *covered* steering (its first
-``pcsr.num_chunks`` chunks are the uncovered ones; coverage chunks hold
-−inf), or ``(H, C, V, K)`` for ``(H, n, d)`` operands: heads are a grid
-axis over the single-head steering.  Stats are dense float32
-``(n_blocks·R,)`` per head — ``(H, n_blocks·R)`` for a head batch — and
-every row has them: ``−inf`` / ``0`` for a row without a real edge.
+``sddmm(pcsr, Q, K)`` is the raw SDDMM, ``E = (A≠0) ⊙ (Q·Kᵀ)`` in slot
+layout: the GAT backward's ``dα = SDDMM(pcsr, dOut, Vf)``.  Slots without
+a stored nonzero (padding, coverage chunks, explicit zeros) are exactly 0.
 
-``_call`` picks the implementation by the device of ``Q``: on a CPU
-tensor the plain version (``sddmm_softmax_plain``: gather + dot,
-``scatter_reduce`` amax, ``index_add_`` of the exps in float64), on a
-CUDA tensor the kernel in ``repro_torch/csrc/sddmm_softmax.cu`` or an
-error.  Each kernel launch adds one to ``launch_count()``.
+Layouts.  Slot tensors are ``(C, V, K)`` over the *covered* steering (its
+first ``pcsr.num_chunks`` chunks are the uncovered ones), or ``(H, C, V,
+K)`` for ``(H, n, d)`` operands: heads are a grid axis over the
+single-head steering.  Stats are dense float32 ``(n_blocks·R,)`` per head
+— ``(H, n_blocks·R)`` for a head batch — and every row has them: ``−inf``
+/ ``0`` for a row without a real edge.
+
+``_stats_call`` and ``_call`` pick the implementation by the device of
+``Q``: on a CPU tensor the plain version (``sddmm_softmax_plain``: gather
++ dot, ``scatter_reduce`` amax, ``index_add_`` of the exps in float64;
+``sddmm_plain``: gather + dot on the real slots), on a CUDA tensor the
+kernel in ``repro_torch/csrc/sddmm_softmax.cu`` or ``csrc/sddmm.cu``, or
+an error.  Each kernel launch adds one to its ``launch_count(name)``.
 """
 from __future__ import annotations
 
@@ -35,17 +40,41 @@ from repro_torch.kernels.paramspmm.ops import Steering, device_steering
 
 MAX_R = 32            # one warp's lanes hold a block's row stats
 
-_launches = 0
+KERNELS = ("sddmm_softmax", "sddmm")
+_launches = dict.fromkeys(KERNELS, 0)
 
 
-def launch_count() -> int:
-    """Kernel launches since the last ``reset_launch_count()``."""
-    return _launches
+def launch_count(name: str = "sddmm_softmax") -> int:
+    """Launches of kernel ``name`` (``"sddmm_softmax"`` or ``"sddmm"``)
+    since the last ``reset_launch_count()``."""
+    return _launches[name]
 
 
 def reset_launch_count() -> None:
-    global _launches
-    _launches = 0
+    for name in KERNELS:
+        _launches[name] = 0
+
+
+def sddmm_plain(steer: Steering, Q, K_mat, *, V, R, K, n_rows):
+    """The raw SDDMM kernel's plain PyTorch version, on any device:
+    gather and dot on the real slots only.  ``Q`` is ``(H, n_rows, d)``,
+    ``K_mat`` ``(H, ≥n_cols, d)``; returns ``(H, C, V, K)`` with every
+    slot that holds no stored nonzero exactly 0."""
+    H = Q.shape[0]
+    C = steer.trow.shape[0]
+    real = (steer.vals != 0).transpose(1, 2).reshape(C * K, V)
+    idx = real.any(dim=1).nonzero()[:, 0]
+    base = (steer.trow.long().repeat_interleave(K)[idx] * R
+            + steer.lrow.long()[idx] * V)
+    gathered = K_mat.index_select(1, steer.colidx.long()[idx])  # (H, S, d)
+    x = Q.new_zeros((H, C * K, V))
+    for v in range(V):                                        # V ≤ 2
+        row = base + v
+        inside = row < n_rows          # a real slot's row always is
+        xv = (Q.index_select(1, torch.where(inside, row, 0))
+              * gathered).sum(-1)
+        x[:, idx, v] = torch.where(real[idx, v] & inside, xv, 0.0)
+    return x.reshape(H, C, K, V).transpose(2, 3).contiguous()
 
 
 def sddmm_softmax_plain(steer: Steering, Q, K_mat, *, V, R, K, n_blocks,
@@ -53,23 +82,11 @@ def sddmm_softmax_plain(steer: Steering, Q, K_mat, *, V, R, K, n_blocks,
     """The kernel's plain PyTorch version, on any device.  ``Q`` is
     ``(H, n_rows, d)``, ``K_mat`` ``(H, ≥n_cols, d)``; returns logits
     ``(H, C, V, K)`` and stats ``(H, n_blocks·R)``."""
-    H, _, d = Q.shape
-    C = steer.trow.shape[0]
-    Qp = Q.new_zeros((H, n_blocks * R, d))     # padding rows read as zero
-    Qp[:, :n_rows] = Q
-    # gather and dot only the slots holding a stored value: padding slots
-    # (most of an unbalanced pack) are −inf whatever Q and K hold
-    real = (steer.vals != 0).transpose(1, 2).reshape(C * K, V)
-    idx = real.any(dim=1).nonzero()[:, 0]
-    base = (steer.trow.long().repeat_interleave(K)[idx] * R
-            + steer.lrow.long()[idx] * V)
-    gathered = K_mat.index_select(1, steer.colidx.long()[idx])  # (H, S, d)
-    x = Q.new_full((H, C * K, V), -torch.inf)
-    for v in range(V):                                        # V ≤ 2
-        xv = (Qp.index_select(1, base + v) * gathered).sum(-1) * scale
-        xv = torch.where(xv >= 0, xv, slope * xv)             # LeakyReLU
-        x[:, idx, v] = torch.where(real[idx, v], xv, -torch.inf)
-    logits = x.reshape(H, C, K, V).transpose(2, 3).contiguous()
+    H = Q.shape[0]
+    x = sddmm_plain(steer, Q, K_mat, V=V, R=R, K=K, n_rows=n_rows) * scale
+    x = torch.where(x >= 0, x, slope * x)                     # LeakyReLU
+    # masked and padding slots are −inf whatever Q and K hold
+    logits = torch.where(steer.vals != 0, x, -torch.inf)
     rows = _slot_rows(steer.lrow, steer.trow, V=V, R=R, K=K).reshape(-1)
     flat = logits.reshape(H, -1)
     rowmax = torch.full((H, n_blocks * R), -torch.inf, dtype=Q.dtype,
@@ -108,32 +125,38 @@ def _check_operands(steer, Q, K_mat, *, V, R, K, n_blocks, n_rows):
         raise ValueError(f"operands on several devices: {devices}")
 
 
-_LIB = None
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_ENTRY = {           # kernel → (C entry point, its argument types)
+    "sddmm_softmax": ("repro_sddmm_softmax_f32",
+                      [_P] * 5 + [_I, _I, _P, _I, _P] + [_I] * 6
+                      + [_F, _F] + [_P] * 4),
+    "sddmm": ("repro_sddmm_f32",
+              [_P] * 4 + [_I, _P, _I, _P] + [_I] * 6 + [_P, _P]),
+}
+_LIBS: dict = {}
 
 
-def _lib():
-    global _LIB
-    if _LIB is None:
+def _lib(name: str):
+    """The shared library of kernel ``name``, built and bound on first
+    use."""
+    if name not in _LIBS:
         from repro_torch.kernels import build
-        lib = build.load("sddmm_softmax")
-        p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        lib.repro_sddmm_softmax_f32.argtypes = [
-            p, p, p, p, p, i, i, p, i, p, i, i, i, i, i, i, f, f, p, p, p,
-            p]
-        lib.repro_sddmm_softmax_f32.restype = i
-        lib.repro_cuda_error_string.argtypes = [i]
+        lib = build.load(name)
+        fn_name, argtypes = _ENTRY[name]
+        fn = getattr(lib, fn_name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+        lib.repro_cuda_error_string.argtypes = [ctypes.c_int]
         lib.repro_cuda_error_string.restype = ctypes.c_char_p
-        _LIB = lib
-    return _LIB
+        _LIBS[name] = lib
+    return _LIBS[name]
 
 
-def _launch(steer: Steering, Q, K_mat, *, V, R, K, n_blocks, n_rows,
-            scale, slope):
-    """Launch the CUDA kernel; raises on anything it does not take."""
-    global _launches
+def _check_launch(kernel: str, steer: Steering, Q, K_mat, *, V, R):
+    """Raise on anything the CUDA kernels do not take."""
     if V not in (1, 2) or R > MAX_R:
-        raise ValueError(f"CUDA sddmm_softmax takes V ∈ {{1,2}}, R ≤ "
-                         f"{MAX_R}; got V={V}, R={R}")
+        raise ValueError(f"CUDA {kernel} takes V ∈ {{1,2}}, R ≤ {MAX_R}; "
+                         f"got V={V}, R={R}")
     for name, t, dtype in (
             ("colidx", steer.colidx, torch.int32),
             ("lrow", steer.lrow, torch.int32),
@@ -142,10 +165,16 @@ def _launch(steer: Steering, Q, K_mat, *, V, R, K, n_blocks, n_rows,
             ("vals", steer.vals, torch.float32), ("Q", Q, torch.float32),
             ("K", K_mat, torch.float32)):
         if t.dtype != dtype:
-            raise TypeError(f"CUDA sddmm_softmax takes {name} as {dtype}, "
-                            f"got {t.dtype}")
+            raise TypeError(f"CUDA {kernel} takes {name} as {dtype}, got "
+                            f"{t.dtype}")
         if not t.is_contiguous():
-            raise ValueError(f"CUDA sddmm_softmax needs a contiguous {name}")
+            raise ValueError(f"CUDA {kernel} needs a contiguous {name}")
+
+
+def _stats_launch(steer: Steering, Q, K_mat, *, V, R, K, n_blocks, n_rows,
+                  scale, slope):
+    """Launch the fused SDDMM → softmax-stats kernel."""
+    _check_launch("sddmm_softmax", steer, Q, K_mat, V=V, R=R)
     lead, d = tuple(Q.shape[:-2]), Q.shape[-1]
     H = Q.shape[0] if lead else 1
     C = int(steer.trow.shape[0])
@@ -156,7 +185,7 @@ def _launch(steer: Steering, Q, K_mat, *, V, R, K, n_blocks, n_rows,
     rowsum = torch.empty_like(rowmax)
     if H == 0:
         return logits, rowmax, rowsum
-    lib = _lib()
+    lib = _lib("sddmm_softmax")
     ptr = lambda t: t.data_ptr()
     with torch.cuda.device(Q.device):
         stream = torch.cuda.current_stream(Q.device).cuda_stream
@@ -168,12 +197,12 @@ def _launch(steer: Steering, Q, K_mat, *, V, R, K, n_blocks, n_rows,
     if err != 0:
         raise RuntimeError("sddmm_softmax kernel launch failed: "
                            + lib.repro_cuda_error_string(err).decode())
-    _launches += 1
+    _launches["sddmm_softmax"] += 1
     return logits, rowmax, rowsum
 
 
-def _call(steer: Steering, Q, K_mat, *, n_blocks, R, V, K, n_rows,
-          scale: float, slope: float = 0.2):
+def _stats_call(steer: Steering, Q, K_mat, *, n_blocks, R, V, K, n_rows,
+                scale: float, slope: float = 0.2):
     """Logits ``([H,] C, V, K)`` and stats ``([H,] n_blocks·R)`` for
     ``Q`` ``([H,] n_rows, d)`` and ``K_mat`` ``([H,] ≥n_cols, d)`` on
     pre-packed covered steering.  The plain version for a CPU ``Q``, the
@@ -190,7 +219,7 @@ def _call(steer: Steering, Q, K_mat, *, n_blocks, R, V, K, n_rows,
     if Q.device.type != "cuda":
         raise ValueError(f"sddmm_softmax runs on cpu or cuda, not "
                          f"{Q.device}")
-    return _launch(steer, Q, K_mat, **kw)
+    return _stats_launch(steer, Q, K_mat, **kw)
 
 
 def sddmm_softmax_stats(pcsr: PCSR, Q, K, *, scale: float | None = None,
@@ -204,9 +233,9 @@ def sddmm_softmax_stats(pcsr: PCSR, Q, K, *, scale: float | None = None,
     if scale is None:
         scale = float(1.0 / np.sqrt(Q.shape[-1]))
     cfg = pcsr.config
-    return _call(device_steering(pcsr, Q.device), Q, K,
-                 n_blocks=pcsr.n_blocks, R=cfg.R, V=cfg.V, K=pcsr.K,
-                 n_rows=pcsr.n_rows, scale=scale, slope=slope)
+    return _stats_call(device_steering(pcsr, Q.device), Q, K,
+                       n_blocks=pcsr.n_blocks, R=cfg.R, V=cfg.V, K=pcsr.K,
+                       n_rows=pcsr.n_rows, scale=scale, slope=slope)
 
 
 def sddmm_softmax(pcsr: PCSR, Q, K, *, scale: float | None = None,
@@ -221,3 +250,54 @@ def sddmm_softmax(pcsr: PCSR, Q, K, *, scale: float | None = None,
     cfg = pcsr.config
     return normalize_from_stats(logits, rowmax, rowsum, steer.lrow,
                                 steer.trow, R=cfg.R, V=cfg.V, K=pcsr.K)
+
+
+def _launch(steer: Steering, Q, K_mat, *, V, R, K, n_rows):
+    """Launch the raw SDDMM kernel."""
+    _check_launch("sddmm", steer, Q, K_mat, V=V, R=R)
+    lead, d = tuple(Q.shape[:-2]), Q.shape[-1]
+    H = Q.shape[0] if lead else 1
+    C = int(steer.trow.shape[0])
+    out = torch.empty(lead + (C, V, K), dtype=torch.float32,
+                      device=Q.device)
+    if H == 0:
+        return out
+    lib = _lib("sddmm")
+    ptr = lambda t: t.data_ptr()
+    with torch.cuda.device(Q.device):
+        stream = torch.cuda.current_stream(Q.device).cuda_stream
+        err = lib.repro_sddmm_f32(
+            ptr(steer.colidx), ptr(steer.lrow), ptr(steer.trow),
+            ptr(steer.vals), C, ptr(Q), n_rows, ptr(K_mat),
+            K_mat.shape[-2], d, H, V, R, K, ptr(out), stream)
+    if err != 0:
+        raise RuntimeError("sddmm kernel launch failed: "
+                           + lib.repro_cuda_error_string(err).decode())
+    _launches["sddmm"] += 1
+    return out
+
+
+def _call(steer: Steering, Q, K_mat, *, n_blocks, R, V, K, n_rows):
+    """Raw scores ``([H,] C, V, K)`` for ``Q`` ``([H,] n_rows, d)`` and
+    ``K_mat`` ``([H,] ≥n_cols, d)`` on pre-packed covered steering.  The
+    plain version for a CPU ``Q``, the CUDA kernel for a CUDA ``Q``."""
+    _check_operands(steer, Q, K_mat, V=V, R=R, K=K, n_blocks=n_blocks,
+                    n_rows=n_rows)
+    kw = dict(V=V, R=R, K=K, n_rows=n_rows)
+    if Q.device.type == "cpu":
+        if Q.ndim == 2:
+            return sddmm_plain(steer, Q[None], K_mat[None], **kw)[0]
+        return sddmm_plain(steer, Q, K_mat, **kw)
+    if Q.device.type != "cuda":
+        raise ValueError(f"sddmm runs on cpu or cuda, not {Q.device}")
+    return _launch(steer, Q, K_mat, **kw)
+
+
+def sddmm(pcsr: PCSR, Q, K):
+    """E = (A≠0) ⊙ (Q·Kᵀ) in covered slot layout: ``(n, d)`` operands
+    give ``(C, V, K)``, ``(H, n, d)`` ones ``(H, C, V, K)``, every head in
+    one launch.  ``Q`` has exactly ``pcsr.n_rows`` rows."""
+    cfg = pcsr.config
+    return _call(device_steering(pcsr, Q.device), Q, K,
+                 n_blocks=pcsr.n_blocks, R=cfg.R, V=cfg.V, K=pcsr.K,
+                 n_rows=pcsr.n_rows)

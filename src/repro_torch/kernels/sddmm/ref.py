@@ -1,6 +1,7 @@
-"""Oracle for the SDDMM kernel: the PCSR slot accounting replayed in a
-plain loop, so the packed ``(C, V, K)`` score tensor can be checked slot
-for slot."""
+"""Oracles for the SDDMM kernels: ``sddmm_dense_ref`` is the definition
+``(A≠0) ⊙ (Q·Kᵀ)``; ``sddmm_slots_ref`` replays the PCSR slot accounting
+in a plain loop, so the packed ``(C, V, K)`` score tensor can be checked
+slot for slot."""
 from __future__ import annotations
 
 import torch
@@ -25,3 +26,11 @@ def sddmm_slots_ref(pcsr, Q: torch.Tensor, K: torch.Tensor) -> torch.Tensor:
                 if pcsr.vals[c, v, k] != 0 and row < pcsr.n_rows:
                     out[c, v, k] = Q[row] @ K[col]
     return out
+
+
+def sddmm_dense_ref(A_dense, Q: torch.Tensor, K: torch.Tensor) -> torch.Tensor:
+    """The definition ``(A≠0) ⊙ (Q·Kᵀ)`` on dense tensors: E[i, j] =
+    Q[i]·K[j] where A[i, j] ≠ 0, else 0."""
+    A = torch.as_tensor(A_dense)
+    scores = Q.to(torch.float32) @ K.to(torch.float32).T
+    return torch.where(A != 0, scores, 0.0)

@@ -1,5 +1,5 @@
-"""GCN, GIN and GAT (paper §6.5) with pluggable sparse aggregation,
-forward only.
+"""GCN, GIN and GAT (paper §6.5) with pluggable sparse aggregation, and
+the node-classification loss they train on.
 
 The forwards take an ``spmm: (n, d) -> (n, d)`` closure over the graph.
 Closures that also expose ``.fused(B, scale=, bias=, activation=,
@@ -7,8 +7,10 @@ residual=)`` get each GCN layer's bias + ReLU, and each GIN layer's
 ``(1+ε)h`` term, handed to the SpMM's fused epilogue — one kernel per
 aggregation.  The fuse rules are the JAX package's, so the port launches
 the same kernels in the same order.  GAT takes a ``gat_msg(Q, K, Vf)``
-closure instead (two kernel launches per layer).  Parameters are lists of dicts of
-tensors; ``repro_torch.convert`` carries them over from numpy.
+closure instead (two kernel launches per layer).  Parameters are lists
+of dicts of tensors; ``repro_torch.convert`` carries them over from numpy.
+With differentiable closures (``core.engine``) the forwards train:
+autograd runs every aggregation's backward in the kernels too.
 """
 from __future__ import annotations
 
@@ -143,3 +145,18 @@ def gat_forward(params, X, gat_msg, heads: int = 1):
         if i < L - 1:
             h = torch.relu(h)
     return h
+
+
+# ------------------------------------------------------------------- loss
+def node_ce_loss(logits, labels, mask):
+    """Mean cross-entropy over the nodes where ``mask`` is 1."""
+    logp = torch.log_softmax(logits, dim=-1)
+    ll = logp.gather(-1, labels[:, None].long())[:, 0]
+    return -(ll * mask).sum() / torch.clamp_min(mask.sum(), 1.0)
+
+
+def accuracy(logits, labels, mask):
+    """Share of the nodes where ``mask`` is 1 whose argmax is the label."""
+    pred = logits.argmax(-1)
+    return ((pred == labels).to(mask.dtype) * mask).sum() / \
+        torch.clamp_min(mask.sum(), 1.0)

@@ -76,14 +76,26 @@ def test_entry_points_default_to_cuda(monkeypatch):
     params = init_gat([8, 8, 4], generator=torch.Generator().manual_seed(0))
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         GNNService(g, np.ones((50, 8), np.float32), params, model="gat")
+    from repro_torch.apps import gnn as gnn_app
+    from repro_torch.data.tasks import community_task
+    from repro_torch.pipeline import ParamSpMM
+    task = community_task(n_blocks=2, block_size=16)
+    for model in ("gcn", "gat"):
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            gnn_app.train_gnn(task, model=model, steps=1)
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            gnn_app.main(["--model", model, "--steps", "1"])
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        ParamSpMM(task.csr, 16)
 
 
 def test_kernel_sources_build_targets_hopper():
     from repro_torch.kernels import build
-    assert build.sources() == ["paramspmm", "sddmm_softmax"]
+    assert build.sources() == ["paramspmm", "sddmm", "sddmm_softmax"]
     assert "-gencode=arch=compute_90a,code=sm_90a" in build.NVCC_FLAGS
     assert "--use_fast_math" not in build.NVCC_FLAGS
     for name, tpu in (("paramspmm", "paramspmm/kernel.py"),
+                      ("sddmm", "sddmm/kernel.py::sddmm_kernel"),
                       ("sddmm_softmax", "sddmm/kernel.py")):
         src = (build.CSRC_DIR / f"{name}.cu").read_text()
         assert "torch/extension.h" not in src
@@ -125,3 +137,11 @@ def test_plain_path_is_taken_only_for_cpu_tensors():
     assert torch.equal(ops.paramspmm_with_vals(p, lg, B, stats=(rm, rs)), B)
     with pytest.raises(ValueError, match="cpu or cuda"):
         sddmm_ops.sddmm_softmax_stats(p, B.to("meta"), B.to("meta"))
+    # the raw SDDMM: one edge per row, so each row's score is B[i]·B[i]
+    launches = sddmm_ops.launch_count("sddmm")
+    E = sddmm_ops.sddmm(p, B, B)
+    assert sddmm_ops.launch_count("sddmm") == launches
+    assert torch.equal(E.flatten().sort().values,
+                       (B * B).sum(-1).sort().values)
+    with pytest.raises(ValueError, match="cpu or cuda"):
+        sddmm_ops.sddmm(p, B.to("meta"), B.to("meta"))

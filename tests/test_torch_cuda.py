@@ -11,14 +11,22 @@ rtol=1e-5`` with float operands (the sums run in another order).  Fused
 SDDMM → softmax stats: logits bit-exact with integer-valued Q/K, stats
 and α within ``rtol=1e-5, atol=1e-6``.  ParamSpMM with the softmax
 prologue: ``rtol=1e-5, atol=1e-4``.  GAT serving on the card matches the
-CPU within ``rtol=1e-4, atol=1e-4``.
+CPU within ``rtol=1e-4, atol=1e-4``.  Raw SDDMM: bit-exact with
+integer-valued Q/K, ``rtol=1e-5, atol=1e-5`` with float ones, and every
+slot without a stored nonzero exactly 0.  The training operators'
+gradients on the card match the port on the CPU (bit-exact with integer
+operands for the SpMMs, ``rtol=1e-5, atol=1e-4`` otherwise), and a short
+``train_gnn`` on the card follows the CPU's losses within ``rtol=1e-4``.
 """
 import numpy as np
 import pytest
 import torch
 
-from repro_torch.core.pcsr import SpMMConfig, build_pcsr
+from repro_torch.apps.gnn import train_gnn
+from repro_torch.core import engine
+from repro_torch.core.pcsr import SpMMConfig, build_pcsr, transpose_pcsr
 from repro_torch.core.sparse import CSRMatrix
+from repro_torch.data.tasks import community_task
 from repro_torch.data.graphs import rmat
 from repro_torch.kernels.paramspmm import ops
 from repro_torch.kernels.sddmm import ops as sddmm_ops
@@ -40,15 +48,20 @@ def cuda_device():
     return torch.device("cuda")
 
 
-def _pack(cfg, integer, seed=0):
-    """A skewed graph with empty row blocks, integer or float edges."""
+def _pack(cfg, integer, seed=0, explicit_zeros=False):
+    """A skewed graph with empty row blocks, integer or float edges;
+    ``explicit_zeros`` stores every 5th edge with value 0 (masked)."""
     rng = np.random.default_rng(seed)
     A = (rng.random((90, 90)) < 0.05).astype(np.float32)
     A[rng.integers(0, 90, 4)] = (rng.random((4, 90)) < 0.5)
     A[20:52] = 0.0
     A = A * (rng.integers(-2, 3, A.shape) if integer
              else rng.standard_normal(A.shape))
-    c = CSRMatrix.from_dense(A.astype(np.float32))
+    rows, cols = np.nonzero(A)
+    vals = A[rows, cols].astype(np.float32)
+    if explicit_zeros:
+        vals[::5] = 0.0
+    c = CSRMatrix.from_coo(rows, cols, vals, 90, 90, sum_duplicates=False)
     return build_pcsr(c.indptr, c.indices, c.data, 90, 90, cfg)
 
 
@@ -174,3 +187,115 @@ def test_gat_service_on_card_matches_cpu(cuda_device):
         assert a.rid == b.rid
         np.testing.assert_allclose(b.outputs, a.outputs, rtol=1e-4,
                                    atol=1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cfg", CONFIGS, ids=lambda c: str(c.astuple()))
+@pytest.mark.parametrize("H", [1, 4])
+def test_raw_sddmm_matches_plain(cuda_device, cfg, H):
+    for integer in (True, False):
+        p = _pack(cfg, integer, explicit_zeros=True)
+        steer = ops.device_steering(p, cuda_device)
+        for d in (16, 64):
+            Q, K, _ = _sddmm_case(p, cuda_device, d, H, integer)
+            before = sddmm_ops.launch_count("sddmm")
+            got = sddmm_ops.sddmm(p, Q[0], K[0])[None] if H == 1 else \
+                sddmm_ops.sddmm(p, Q, K)
+            torch.cuda.synchronize()
+            assert sddmm_ops.launch_count("sddmm") == before + 1
+            want = sddmm_ops.sddmm_plain(steer, Q, K, V=cfg.V, R=cfg.R,
+                                         K=p.K, n_rows=p.n_rows)
+            assert (got[:, steer.vals == 0] == 0).all()
+            if integer:
+                assert torch.equal(got, want)
+            else:
+                torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+
+
+def _grads(fn, args, dOut):
+    """(output, grads) of ``fn(*args)`` against the cotangent ``dOut``."""
+    args = [a.clone().requires_grad_() for a in args]
+    out = fn(*args)
+    return [out.detach()] + list(torch.autograd.grad(out, args, dOut))
+
+
+def _assert_close(got, want, integer):
+    for a, b in zip(got, want):
+        assert a.device.type == "cuda" and bool(torch.isfinite(a).all())
+        if integer:
+            assert torch.equal(a.cpu(), b)
+        else:
+            torch.testing.assert_close(a.cpu(), b, rtol=1e-5, atol=1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cfg", CONFIGS[::3], ids=lambda c: str(c.astuple()))
+@pytest.mark.parametrize("activation", ["none", "relu", "leaky_relu"])
+def test_spmm_operator_grads_on_card_match_cpu(cuda_device, cfg,
+                                               activation):
+    for integer in (True, False):
+        p = _pack(cfg, integer)
+        p_t = transpose_pcsr(p)
+        rng = np.random.default_rng(7)
+        draw = ((lambda *s: rng.integers(-3, 4, s) * 5.0) if integer
+                else (lambda *s: rng.standard_normal(s)))
+        cpu = [torch.tensor(draw(*s), dtype=torch.float32)
+               for s in ((90, 32), (90,), (32,), (90, 32), (90, 32))]
+        B, scale, bias, resid, dOut = cpu
+        spmm = engine.make_spmm_fn(p, p_t)
+        fused = engine.make_fused_spmm_fn(p, p_t)
+        f = lambda B_, b_, r_, s_=None: fused(B_, scale=s_, bias=b_,
+                                              residual=r_,
+                                              activation=activation)
+        for fn, args in ((spmm, [B]), (f, [B, bias, resid])):
+            want = _grads(fn, args, dOut)
+            before = ops.launch_count()
+            got = _grads(fn, [a.to(cuda_device) for a in args],
+                         dOut.to(cuda_device))
+            torch.cuda.synchronize()
+            assert ops.launch_count() == before + 2    # forward + dB
+            _assert_close(got, want, integer)
+        # scale: graph data, a constant of the backward
+        g = lambda B_, b_, r_: f(B_, b_, r_, scale.to(B_.device))
+        want = _grads(g, [B, bias, resid], dOut)
+        got = _grads(g, [a.to(cuda_device) for a in (B, bias, resid)],
+                     dOut.to(cuda_device))
+        _assert_close(got, want, integer)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cfg", CONFIGS[::3], ids=lambda c: str(c.astuple()))
+@pytest.mark.parametrize("H", [1, 4])
+def test_gat_message_grads_on_card_match_cpu(cuda_device, cfg, H):
+    p = _pack(cfg, False, explicit_zeros=True)
+    p_t = transpose_pcsr(p)
+    rng = np.random.default_rng(8)
+    lead = (H,) if H > 1 else ()
+    cpu = [torch.tensor(rng.standard_normal(lead + (90, 16)),
+                        dtype=torch.float32) for _ in range(4)]
+    cpu[0][..., 60, :] = 0.0                     # a row of zero logits
+    f = engine.make_gat_message_fn(p, p_t)
+    want = _grads(f, cpu[:3], cpu[3])
+    before = (ops.launch_count(), sddmm_ops.launch_count("sddmm_softmax"),
+              sddmm_ops.launch_count("sddmm"))
+    got = _grads(f, [a.to(cuda_device) for a in cpu[:3]],
+                 cpu[3].to(cuda_device))
+    torch.cuda.synchronize()
+    after = (ops.launch_count(), sddmm_ops.launch_count("sddmm_softmax"),
+             sddmm_ops.launch_count("sddmm"))
+    assert tuple(a - b for a, b in zip(after, before)) == (4, 1, 1)
+    _assert_close(got, want, False)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("model", ["gcn", "gin", "gat"])
+def test_train_gnn_on_card_matches_cpu(cuda_device, model):
+    task = community_task(n_blocks=4, block_size=64)
+    kw = dict(model=model, hidden=32, n_layers=3, steps=3, seed=1)
+    cpu = train_gnn(task, device="cpu", **kw)
+    before = ops.launch_count()
+    card = train_gnn(task, device=cuda_device, **kw)
+    assert ops.launch_count() > before
+    assert card.config == cpu.config
+    np.testing.assert_allclose(card.losses, cpu.losses, rtol=1e-4, atol=0)
+    assert card.losses[-1] < card.losses[0]

@@ -77,14 +77,22 @@ def test_gat_forward_matches_reference(heads, backend):
 
 
 def test_message_fn_is_forward_only():
+    """The serving closure (``gat_message_fn`` without a transpose) is
+    forward only: its backward raises.  ``make_gat_message_fn`` has the
+    backward (held against the reference in ``test_torch_autograd.py``),
+    and under ``no_grad`` records nothing."""
+    from repro_torch.core.engine import gat_message_fn
     cfg = tp.SpMMConfig(V=1, S=True, W=8)
     csr = _graph(0)
     _, t = _pair(csr, cfg)
-    f = make_gat_message_fn(t)
     Q = torch.ones((csr.n_rows, 4))
-    f(Q, Q, Q)
-    with pytest.raises(NotImplementedError, match="backward"):
-        f(Q.clone().requires_grad_(), Q, Q)
+    serve = gat_message_fn(pops.device_steering(t, "cpu"), t)
+    Qg = Q.clone().requires_grad_()
+    with pytest.raises(ValueError, match="backward needs the transpose"):
+        serve(Qg, Q, Q).sum().backward()
+    f = make_gat_message_fn(t)
+    f(Qg, Q, Q).sum().backward()
+    assert Qg.grad is not None and bool(torch.isfinite(Qg.grad).all())
     with torch.no_grad():
         w = torch.ones((4, 4), requires_grad=True)
         assert not f(Q @ w, Q, Q).requires_grad
