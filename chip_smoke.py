@@ -8,7 +8,8 @@ Runs from the root of a checkout and drives ``src/repro_torch`` only
 
 1. device — the card's name, count, and ``nvidia-smi`` name + power limit;
 2. build  — every CUDA kernel from ``src/repro_torch/csrc`` with ``nvcc``
-   (``paramspmm.cu``, ``sddmm.cu`` and ``sddmm_softmax.cu``, in parallel);
+   (``paramspmm.cu``, ``sddmm.cu``, ``sddmm_softmax.cu`` and
+   ``selective_scan.cu``, in parallel);
 3. kernel vs plain — each kernel against its plain PyTorch version on the
    same CUDA tensors.  ParamSpMM: every V/S/B combination, F ∈ {1, 2},
    R ∈ {8, 16, 32}, dims 16/64/200 and every epilogue variant, on
@@ -59,9 +60,31 @@ Runs from the root of a checkout and drives ``src/repro_torch`` only
    card could take (bytes of each input read once and each output written
    once over the data-sheet HBM rate, vs the real MACs over the float32
    peak).
+8. scan grid — the selective-scan kernel against its plain version over
+   B ∈ {1, 2, 4} × S ∈ {1, 33, 100, 1024} × N ∈ {2, 4, 16} × Di ∈ {64,
+   130, 3200}, Hymba's (2, 2048, 16, 3200) and an impulse at t = 0 that
+   must reach step 1023: ``atol = rtol = 1e-5``;
+9. LM prefill — Hymba-1.5B at its full config (``configs/hymba_1p5b.py``:
+   32 layers, d_model 1600, 25 heads / 5 KV, Di 3200, N 16, window 1024)
+   from ``lm.init_params`` on the card: ``prefill`` at B = 2, S = 2048,
+   one scan launch per layer; its logits within ``atol=0.2, rtol=0.05``
+   of the same model with the plain scan, same argmax (the bf16 model's
+   noise floor, scan outputs × (1 + 2^-20), printed beside), and every
+   layer's scan within 1e-5 × max |y| of the plain one; then B = 1,
+   S = 32768 timed (ms, tokens/s, peak memory) and profiled once;
+10. LM decode — ``launch/serve.py::generate`` at full config with the
+    reference CLI's defaults (batch 4, prompt 16, gen 32, greedy): ms per
+    decode step, no scan launch;
+11. LM consistency — full width, 4 layers (3 SWA + 1 global), S = 1100:
+    teacher-forced ``decode_step`` logits vs ``forward_hidden`` within the
+    reference's ``atol=0.2, rtol=0.05``;
+12. scan timing — the kernel and its plain version at (2, 2048, 16, 3200)
+    and (1, 32768, 16, 3200) beside the bytes bound (no PyTorch call
+    computes the scan: ``library_ms`` is null).
 
-Each main path (serving per model, training per model) runs with the
-launch counts set to 0 just before it and read just after.
+Each main path (serving per model, training per model, LM prefill,
+decode and the consistency forward) runs with the launch counts set to 0
+just before it and read just after.
 
 Any failure raises and exits non-zero.  The last two lines are the
 kernels' JSON summary and ``{"ok": true, "device": {...}}``.
@@ -90,7 +113,16 @@ from repro_torch.core.sparse import CSRMatrix  # noqa: E402
 from repro_torch.data.tasks import community_task  # noqa: E402
 from repro_torch.data.graphs import (extract_subgraph,  # noqa: E402
                                      kregular, rmat, sample_khop)
+from repro_torch.configs import get_config  # noqa: E402
+from repro_torch.configs.base import ShapeCell  # noqa: E402
 from repro_torch.kernels import build  # noqa: E402
+from repro_torch.kernels import selective_scan as scan  # noqa: E402
+from repro_torch.kernels.selective_scan import (  # noqa: E402
+    selective_scan_plain)
+from repro_torch.launch.serve import generate  # noqa: E402
+from repro_torch.models import lm  # noqa: E402
+from repro_torch.models import ssm as ssm_model  # noqa: E402
+from repro_torch.models.transformer import logits_for  # noqa: E402
 from repro_torch import obs  # noqa: E402
 from repro_torch.kernels.paramspmm import ops  # noqa: E402
 from repro_torch.kernels.sddmm import ops as sddmm_ops  # noqa: E402
@@ -628,6 +660,7 @@ def _counts():
 def _reset_counts():
     ops.reset_launch_count()
     sddmm_ops.reset_launch_count()
+    scan.reset_launch_count()
 
 
 def phase_autograd(device):
@@ -1162,6 +1195,392 @@ def phase_timing(device):
     return rows, gat_rows, sd_rows
 
 
+# ------------------------------------------------------------ LM (Hymba)
+SCAN_ATOL, SCAN_RTOL = 1e-5, 1e-5   # kernel vs plain: FMA, other Σ_n order
+HYMBA_SHAPE = (2, 2048, 16, 3200)   # (B, S, N, Di) of a B=2, S=2048 prefill
+# two computations of one bf16 model's logits (kernel vs plain scan,
+# decode vs forward): tests/test_models_lm.py's
+# test_hymba_ring_buffer_beyond_window tolerance, held at up to 8 layers:
+# deeper, the live model's bf16 error alone exceeds it (phase_lm_prefill)
+LOGITS_ATOL, LOGITS_RTOL = 0.2, 0.05
+PREFILL_LONG = 32768                # prefill_32k's length, its batch cut to 1
+
+
+def _scan_operands(shape, device, seed):
+    """Operands in the regime Mamba produces: decays in (0.2, 0.99),
+    bounded inputs (the reference test's draws)."""
+    g = torch.Generator(device=device).manual_seed(seed)
+    B, S, N, Di = shape
+    dA = torch.rand((B, S, N, Di), generator=g, device=device) * 0.79 + 0.2
+    dBx = torch.randn((B, S, N, Di), generator=g, device=device) * 0.1
+    C = torch.randn((B, S, N), generator=g, device=device)
+    return dA, dBx, C
+
+
+def _scan_errors(got, want):
+    """Max abs error, and max relative error over the outputs with
+    |want| ≥ 1e-3 (a relative error of a value near 0 says nothing)."""
+    d = (got - want).abs()
+    big = want.abs() >= 1e-3
+    rel = float((d[big] / want.abs()[big]).max()) if bool(big.any()) else 0.0
+    return float(d.max()), rel
+
+
+def phase_scan_grid(device):
+    """[scan grid]: the selective-scan kernel against its plain version on
+    the card, over B ∈ {1, 2, 4} × S ∈ {1, 33, 100, 1024} × N ∈ {2, 4, 16}
+    × Di ∈ {64, 130, 3200}, Hymba's (2, 2048, 16, 3200), and an impulse at
+    t = 0 that must reach the last of 1024 steps; ``atol = rtol = 1e-5``."""
+    import itertools
+    shapes = list(itertools.product((1, 2, 4), (1, 33, 100, 1024),
+                                    (2, 4, 16), (64, 130, 3200)))
+    shapes.append(HYMBA_SHAPE)
+    abs_err = rel_err = 0.0
+    for i, shape in enumerate(shapes):
+        dA, dBx, C = _scan_operands(shape, device, seed=i)
+        got = scan.selective_scan(dA, dBx, C)
+        torch.cuda.synchronize()
+        want = selective_scan_plain(dA, dBx, C)
+        check(got.shape == want.shape and bool(torch.isfinite(got).all()),
+              f"scan {shape}: bad output {tuple(got.shape)}")
+        torch.testing.assert_close(got, want, atol=SCAN_ATOL, rtol=SCAN_RTOL,
+                                   msg=lambda m: f"scan {shape}: {m}")
+        a, r = _scan_errors(got, want)
+        abs_err, rel_err = max(abs_err, a), max(rel_err, r)
+    B, S, N, Di = 1, 1024, 2, 130
+    dA = torch.full((B, S, N, Di), 0.999, device=device)
+    dBx = torch.zeros((B, S, N, Di), device=device)
+    dBx[:, 0] = 1.0
+    y = scan.selective_scan(dA, dBx, torch.ones((B, S, N), device=device))
+    torch.cuda.synchronize()
+    last = y[0, -1].double().cpu()
+    want_last = 2 * 0.999 ** (S - 1)
+    check(bool(((last - want_last).abs() <= 1e-4 * want_last).all()),
+          f"scan impulse: last step {float(last[0])}, want {want_last}")
+    print(f"[scan grid] {len(shapes)} kernel-vs-plain cases within "
+          f"atol=rtol={SCAN_ATOL} (max abs err {abs_err:.3e}, max rel err "
+          f"{rel_err:.3e} where |y| ≥ 1e-3) + impulse at t=0 reaching step "
+          f"{S - 1} ({float(last[0]):.6f}, want {want_last:.6f})")
+    return len(shapes) + 1, abs_err, rel_err
+
+
+# the mamba weights' standard deviations at which the branch carries an
+# O(1) signal (tests/test_torch_lm.py::_live_mamba_layer): 1/sqrt(fan-in)
+# for the matrices, else these.  At the N(0, 0.02) init the branch carries
+# almost nothing (max |y| ~6e-4), so a scan that returned zeros would leave
+# the logits within tolerance.
+_LIVE_STD = {"conv_w": 0.5, "dt_b": 0.5, "d_skip": 1.0}
+_MAMBA = ("in_proj", "conv_w", "dt_a", "dt_proj", "dt_b", "bc_w", "d_skip",
+          "out_proj")
+
+
+def _hymba_params(cfg, device, seed):
+    """``init_params`` on the card from a seeded generator, with every
+    mamba weight but ``a_log`` redrawn at a live scale (``_LIVE_STD``;
+    the reference's init rule also zeroes ``bc_w`` and ``d_skip``, which
+    would leave the scan's dBx at 0)."""
+    g = torch.Generator(device=device).manual_seed(seed)
+    params = lm.init_params(cfg, generator=g, device=device)
+    for stack in ("layers", "glayers"):
+        for name in _MAMBA:
+            p = params[stack][name]
+            std = _LIVE_STD.get(name, p.shape[1] ** -0.5)
+            params[stack][name] = (torch.randn(p.shape, generator=g,
+                                               device=device)
+                                   * std).to(p.dtype)
+    return params
+
+
+def _with_scan(fn, run):
+    """``run()`` with every mamba branch's scan replaced by ``fn``."""
+    ssm_model.selective_scan = fn
+    try:
+        return run()
+    finally:
+        ssm_model.selective_scan = scan.selective_scan
+
+
+def _tokens(cfg, B, S, device, seed):
+    g = torch.Generator(device=device).manual_seed(seed)
+    return torch.randint(0, cfg.vocab, (B, S), generator=g, device=device)
+
+
+def _main_path(fn):
+    """Run one main path with every launch count set to 0 just before and
+    read just after; the GNN kernels must not launch.  Returns (result,
+    selective-scan launches)."""
+    _reset_counts()
+    out = fn()
+    torch.cuda.synchronize()
+    gnn = _counts()
+    check(not any(gnn.values()), f"an LM path launched GNN kernels {gnn}")
+    return out, scan.launch_count()
+
+
+def _profile_prefill(params, cfg, batch):
+    """One prefill under ``torch.profiler`` (CUDA): device ms by family
+    (the scan kernel, matmuls, softmax, the rest) and the five costliest
+    kernels."""
+    from torch.profiler import ProfilerActivity, profile
+    fams = {"selective_scan": 0.0, "matmul": 0.0, "softmax": 0.0,
+            "other": 0.0}
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        lm.prefill(params, cfg, batch)
+        torch.cuda.synchronize()
+    top = []
+    for e in prof.key_averages():
+        t = getattr(e, "device_time_total", None)
+        if t is None:
+            t = getattr(e, "cuda_time_total", 0.0)
+        if t <= 0:
+            continue
+        k = e.key.lower()
+        fam = ("selective_scan" if "selective_scan" in k else
+               "matmul" if any(s in k for s in ("gemm", "nvjet", "xmma",
+                                                "cutlass", "cublas"))
+               else "softmax" if "softmax" in k else "other")
+        fams[fam] += t / 1e3
+        top.append((t / 1e3, e.key[:60], e.count))
+    check(fams["selective_scan"] > 0, "the profiler saw no scan launch "
+          "(device time not measured)")
+    return fams, sorted(top, reverse=True)[:5]
+
+
+def _logits_vs_scans(params, cfg, batch, logits):
+    """Last-token logits of ``cfg`` with the plain scan, with every scan
+    output × (1 + 2^-20) (the bf16 model's own noise) and with two wrong
+    scans (zeros; no state carried), each against ``logits`` (the
+    kernel's): max abs difference and whether it is within
+    ``LOGITS_ATOL`` / ``LOGITS_RTOL``."""
+    V = cfg.vocab
+    ref = logits[..., :V]
+    prefill = lambda: lm.prefill(params, cfg, batch)[..., :V]
+    scans = {"plain": selective_scan_plain,
+             "noise": lambda *a: scan.selective_scan(*a) * (1 + 2 ** -20),
+             "zeros": lambda dA, dBx, C: dA.new_zeros(
+                 dA.shape[:2] + dA.shape[3:]),
+             "no state": lambda dA, dBx, C: (dBx * C[..., None]).sum(2)}
+    out = {}
+    for name, fn in scans.items():
+        got = _with_scan(fn, prefill)
+        out[name] = {
+            "max_abs_diff": float((got - ref).abs().max()),
+            "within": bool(torch.isclose(got, ref, atol=LOGITS_ATOL,
+                                         rtol=LOGITS_RTOL).all()),
+            "same_argmax": bool(torch.equal(got.argmax(-1),
+                                            ref.argmax(-1)))}
+    return out
+
+
+def _fmt_scans(res):
+    return ", ".join(f"{k} {v['max_abs_diff']:.3e}"
+                     + ("" if v["within"] else " (outside)")
+                     for k, v in res.items())
+
+
+def phase_lm_prefill(device):
+    """[lm prefill]: Hymba-1.5B at its full config (32 layers, 29 SWA + 3
+    global) from ``init_params`` on the card, its mamba weights at a live
+    scale (``_hymba_params``).  The main path: ``prefill`` at B = 2,
+    S = 2048 (past the 1024 window, two attention chunks), one kernel
+    launch per layer; every layer's scan output, kernel vs plain on the
+    model's own dA/dBx/C, within ``SCAN_RTOL`` × max |y|.
+    End to end, the last-token logits against the same model with the
+    plain scan, beside the bf16 noise and two wrong scans: at full depth
+    the bf16 error of the live model exceeds the reference's tolerance, so
+    there they are printed; at full width and 8 layers (7 SWA + 1 global)
+    they are held: the plain scan within ``LOGITS_ATOL`` / ``LOGITS_RTOL``
+    with the same argmax, a scan of zeros and one that carries no state
+    outside.
+    Then ``prefill`` at B = 1, S = 32768 (the prefill_32k length, its
+    batch of 32 cut to 1 for one card), timed twice after a warm-up, and
+    profiled once."""
+    cfg = get_config("hymba-1.5b")
+    params = _hymba_params(cfg, device, seed=0)
+    batch = {"tokens": _tokens(cfg, 2, 2048, device, seed=1)}
+    logits, launched = _main_path(lambda: lm.prefill(params, cfg, batch))
+    check(launched == cfg.n_layers, f"prefill launched the scan kernel "
+          f"{launched} times, want one per layer ({cfg.n_layers})")
+    check(tuple(logits.shape) == (2, 1, cfg.vocab_padded)
+          and bool(torch.isfinite(logits[..., :cfg.vocab]).all()),
+          f"prefill logits {tuple(logits.shape)} not finite")
+    # every layer's scan, kernel vs plain, on the model's own operands
+    layer_err = []
+
+    def checked(dA, dBx, C):
+        got = scan.selective_scan(dA, dBx, C)
+        want = selective_scan_plain(dA, dBx, C)
+        top = float(want.abs().max())
+        err = float((got - want).abs().max())
+        check(err <= SCAN_RTOL * top, f"layer {len(layer_err)}: scan "
+              f"kernel vs plain {err:.3e} > {SCAN_RTOL} × max |y| {top:.3e}")
+        layer_err.append((err, err / top if top else 0.0, top))
+        return got
+
+    _with_scan(checked, lambda: lm.prefill(params, cfg, batch))
+    check(len(layer_err) == cfg.n_layers, f"{len(layer_err)} scans checked")
+    full = _logits_vs_scans(params, cfg, batch, logits)
+    cut = cfg.replace(n_layers=8, n_global_layers=1)
+    cut_params = _hymba_params(cut, device, seed=5)
+    held = _logits_vs_scans(cut_params, cut, batch,
+                            lm.prefill(cut_params, cut, batch))
+    del cut_params
+    check(held["plain"]["within"] and held["plain"]["same_argmax"],
+          f"8 layers: kernel vs plain-scan logits {held['plain']}")
+    for name in ("zeros", "no state"):
+        check(not held[name]["within"], f"8 layers: a scan of {name} leaves "
+              "the logits within tolerance: the check cannot see the kernel")
+    print(f"[lm prefill] {cfg.name} ({cfg.n_layers} layers, d "
+          f"{cfg.d_model}, Di {cfg.ssm_expand * cfg.d_model}, N "
+          f"{cfg.ssm_state}), B=2 S=2048: {launched} scan launches; "
+          f"per-layer scan kernel vs plain: max abs err "
+          f"{max(e[0] for e in layer_err):.3e}, max err / max |y| "
+          f"{max(e[1] for e in layer_err):.3e} (held at {SCAN_RTOL}), "
+          f"max |y| {max(e[2] for e in layer_err):.3e}")
+    print(f"[lm prefill] last-token logits against the kernel's, max abs "
+          f"diff; {cfg.n_layers} layers (not held): {_fmt_scans(full)}")
+    print(f"[lm prefill] 8 layers (held at atol={LOGITS_ATOL}, "
+          f"rtol={LOGITS_RTOL}; plain within with the same argmax, wrong "
+          f"scans outside): {_fmt_scans(held)}")
+
+    rows = {"launches": launched, "logits_vs_scans_full_depth": full,
+            "logits_vs_scans_8_layers": held,
+            "layer_scan_max_abs_err": max(e[0] for e in layer_err),
+            "layer_scan_max_normwise_err": max(e[1] for e in layer_err)}
+    S = PREFILL_LONG
+    while True:
+        try:
+            long_batch = {"tokens": _tokens(cfg, 1, S, device, seed=2)}
+            lm.prefill(params, cfg, long_batch)          # warm-up
+            torch.cuda.synchronize()
+            break
+        except torch.cuda.OutOfMemoryError:
+            torch.cuda.empty_cache()
+            print(f"[lm prefill] S={S} does not fit; halving")
+            S //= 2
+    times = []
+    for _ in range(2):
+        torch.cuda.reset_peak_memory_stats(device)
+        t0 = time.perf_counter()
+        out, n = _main_path(lambda: lm.prefill(params, cfg, long_batch))
+        times.append((time.perf_counter() - t0) * 1e3)
+        check(n == cfg.n_layers and bool(torch.isfinite(
+            out[..., :cfg.vocab]).all()), f"32k prefill: {n} launches")
+        launched += n
+    peak = torch.cuda.max_memory_allocated(device)
+    ms = float(np.mean(times))
+    fams, top = _profile_prefill(params, cfg, long_batch)
+    busy = sum(fams.values())
+    print(f"[lm prefill] B=1 S={S}: {times[0]:.1f} / {times[1]:.1f} ms "
+          f"({S / ms * 1e3:.1f} tokens/s), peak memory "
+          f"{peak / 2**30:.2f} GiB; device ms (profiled run): "
+          + ", ".join(f"{k} {v:.1f}" for k, v in fams.items())
+          + f"; busy {busy:.1f} ms = {busy / ms:.4f} × the unprofiled "
+          f"prefill's {ms:.1f} ms")
+    for t, name, count in top:
+        print(f"[lm prefill]   {t:9.1f} ms  {count:5d}×  {name}")
+    rows.update({"long_seq_len": S, "long_ms": times,
+                 "long_tokens_per_s": S / ms * 1e3, "long_peak_bytes": peak,
+                 "long_device_ms": fams, "long_device_busy_ms": busy,
+                 "long_busy_over_wall": busy / ms,
+                 "long_top_kernels": top})
+    return rows, launched
+
+
+def phase_lm_decode(device, *, batch=4, prompt_len=16, gen=32):
+    """[lm decode]: ``generate`` at full depth and width with the
+    reference CLI's defaults (batch 4, prompt 16, gen 32, greedy): a
+    warm-up run, then a timed one; no scan launch (decode is a state
+    update).  Prints ms per decode step."""
+    cfg = get_config("hymba-1.5b")
+    params = _hymba_params(cfg, device, seed=0)
+    prompt = np.random.default_rng(0).integers(0, cfg.vocab,
+                                               (batch, prompt_len))
+    run = lambda: generate(cfg, params, prompt, prompt_len + gen, gen,
+                           device=device)
+    run()
+    t0 = time.perf_counter()
+    seq, launched = _main_path(run)
+    wall = (time.perf_counter() - t0) * 1e3
+    steps = prompt_len + gen - 1
+    check(launched == 0, f"decode launched the scan kernel {launched} times")
+    check(tuple(seq.shape) == (batch, prompt_len + gen)
+          and int(seq.max()) < cfg.vocab and int(seq.min()) >= 0,
+          f"generate gave {tuple(seq.shape)}")
+    check(torch.equal(seq[:, :prompt_len].cpu(), torch.as_tensor(prompt)),
+          "generate changed the prompt")
+    print(f"[lm decode] {cfg.name}, {cfg.n_layers} layers, batch {batch}, "
+          f"prompt {prompt_len}, gen {gen}, greedy: {wall:.1f} ms for "
+          f"{steps} decode steps, {wall / steps:.2f} ms per step "
+          f"({batch * steps / wall * 1e3:.1f} tokens/s)")
+    return {"ms_per_step": wall / steps, "steps": steps, "batch": batch,
+            "wall_ms": wall, "launches": launched}
+
+
+def phase_lm_consistency(device, *, S=1100):
+    """[lm consistency]: full width, depth 4 (3 SWA + 1 global), S = 1100
+    past the 1024 window: teacher-forced ``decode_step`` logits against
+    ``forward_hidden`` + ``logits_for`` (the kernel's prefill) within the
+    reference's ``atol=0.2, rtol=0.05`` — the ring-buffer caches and the
+    SSM decode state against the kernel."""
+    cfg = get_config("hymba-1.5b").replace(n_layers=4, n_global_layers=1)
+    params = _hymba_params(cfg, device, seed=3)
+    tokens = _tokens(cfg, 1, S, device, seed=4)
+    (want, launched) = _main_path(lambda: logits_for(lm.forward_hidden(
+        params, cfg, {"tokens": tokens}, chunk=S), params, cfg))
+    check(launched == cfg.n_layers, f"forward launched {launched} scans")
+    cache = lm.init_cache(cfg, ShapeCell("d", S, 1, "decode"), device=device)
+    outs = []
+    for t in range(S):
+        logits, cache = lm.decode_step(params, cfg, tokens[:, t:t + 1],
+                                       cache, t)
+        outs.append(logits[:, 0])
+    got = torch.stack(outs, dim=1)
+    real = slice(0, cfg.vocab)
+    diff = float((got - want)[..., real].abs().max())
+    torch.testing.assert_close(got[..., real], want[..., real],
+                               atol=LOGITS_ATOL, rtol=LOGITS_RTOL)
+    print(f"[lm consistency] full width, 4 layers (3 SWA + 1 global), "
+          f"S={S}: teacher-forced decode vs forward within "
+          f"atol={LOGITS_ATOL}, rtol={LOGITS_RTOL} (max abs diff "
+          f"{diff:.3e}, max |logit| {float(want[..., real].abs().max()):.3f})")
+    return diff, launched
+
+
+def _scan_bound(shape):
+    """Least time for the scan: dA, dBx and C read once and y written once
+    over the HBM rate (2 FLOPs per state element and step are far below
+    any peak)."""
+    B, S, N, Di = shape
+    nbytes = 4 * (2 * B * S * N * Di + B * S * N + B * S * Di)
+    return nbytes / HBM_BYTES_PER_S * 1e3, "bytes"
+
+
+def time_scan(device):
+    """[timing]: the scan kernel and its plain version with CUDA events
+    at (2, 2048, 16, 3200) and (1, 32768, 16, 3200).  ``library_ms`` is
+    null: no single PyTorch call computes the scan."""
+    rows = []
+    for shape, reps in ((HYMBA_SHAPE, (50, 5)), ((1, PREFILL_LONG, 16, 3200),
+                                                 (20, 2))):
+        dA, dBx, C = _scan_operands(shape, device, seed=9)
+        row = {"at": f"{shape}", "shape": list(shape),
+               "ms": cuda_ms(lambda: scan.selective_scan(dA, dBx, C),
+                             reps=reps[0]),
+               "plain_ms": cuda_ms(lambda: selective_scan_plain(dA, dBx, C),
+                                   reps=reps[1], warmup=1),
+               "library_ms": None}
+        row["bound_ms"], row["bound_by"] = _scan_bound(shape)
+        print(f"[time] selective_scan {shape}: kernel {row['ms']:.4f} ms, "
+              f"plain {row['plain_ms']:.2f} ms, library none (no PyTorch "
+              f"call computes the scan), bound {row['bound_ms']:.4f} ms "
+              f"({row['bound_by']})")
+        rows.append(row)
+        del dA, dBx, C
+    return rows
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script needs an "
@@ -1219,6 +1638,26 @@ def main() -> int:
     print(f"[train large] {large_launches} launches in "
           f"{time.perf_counter() - t0:.1f} s")
     print("[train json] " + json.dumps(train_rows + large_rows))
+
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    scan_cases, scan_abs, scan_rel = phase_scan_grid(device)
+    print(f"[scan grid] {scan_cases} cases in "
+          f"{time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    prefill_row, prefill_launches = phase_lm_prefill(device)
+    print(f"[lm prefill] in {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    decode_row = phase_lm_decode(device)
+    print(f"[lm decode] in {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    consist_diff, consist_launches = phase_lm_consistency(device)
+    print(f"[lm consistency] in {time.perf_counter() - t0:.1f} s")
+    scan_rows = time_scan(device)
+    print("[lm json] " + json.dumps({"prefill": prefill_row,
+                                     "decode": decode_row,
+                                     "consistency_max_abs_diff":
+                                         consist_diff}))
     launches = {k: train_launches[k] + large_launches[k] for k in KERNELS}
     launches["paramspmm"] += spmm_launches
     launches["sddmm_softmax"] += gat_launches[1]
@@ -1226,6 +1665,7 @@ def main() -> int:
     main_row = rows[2]                       # rmat17, A·B, dim 64
     sm_row = gat_rows[2]                     # rmat17, SDDMM → stats, dim 64
     raw_row = sd_rows[0]                     # rmat17, raw SDDMM, dim 64
+    scan_row = scan_rows[0]                  # (2, 2048, 16, 3200)
     print(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(f"[device] nvidia-smi: {smi}")
     at = lambda row: (f"{row['at']} dim {row['dim']} "
@@ -1266,7 +1706,22 @@ def main() -> int:
         "ms": raw_row["ms"], "plain_ms": raw_row["plain_ms"],
         "bound_ms": raw_row["bound_ms"], "bound_by": raw_row["bound_by"],
         "library_ms": raw_row["library_ms"], "at": at(raw_row),
-        "timings": sd_rows}]}))
+        "timings": sd_rows}, {
+        "name": "selective_scan", "route": "cuda",
+        "source": "src/repro_torch/csrc/selective_scan.cu",
+        "replaces": "src/repro/kernels/selective_scan/kernel.py:46",
+        "launches": prefill_launches + consist_launches
+        + decode_row["launches"],
+        "launches_by_path": {"prefill": prefill_launches,
+                             "consistency_forward": consist_launches,
+                             "decode": decode_row["launches"]},
+        "max_abs_err": max(scan_abs, prefill_row["layer_scan_max_abs_err"]),
+        "max_rel_err": scan_rel,
+        "ms": scan_row["ms"], "plain_ms": scan_row["plain_ms"],
+        "bound_ms": scan_row["bound_ms"], "bound_by": scan_row["bound_by"],
+        "library_ms": None,
+        "library_note": "no single PyTorch call computes the scan",
+        "at": scan_row["at"], "timings": scan_rows}]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}))

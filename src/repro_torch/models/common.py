@@ -1,0 +1,70 @@
+"""Shared transformer building blocks of the LM side (bf16 activations
+with float32 islands, as the JAX package computes them).
+
+Not ported: the JAX package's cost mode and ``scan_layers`` (the port
+loops over layers in Python) and its perf-option registry: none of its
+options has a counterpart here (``ssm_backend``: the device picks the
+scan kernel or its plain version, see ``models/ssm.py``).
+"""
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+NEG_INF = -2.0e38          # f32-safe mask value
+
+
+def rms_norm(x, w, eps=1e-6, plus_one=False):
+    """RMSNorm computed in float32, cast back to ``x``'s dtype."""
+    x32 = x.float()
+    var = (x32 * x32).mean(-1, keepdim=True)
+    y = x32 * torch.rsqrt(var + eps)
+    scale = (1.0 + w.float()) if plus_one else w.float()
+    return (y * scale).to(x.dtype)
+
+
+def layer_norm(x, w, b, eps=1e-5):
+    x32 = x.float()
+    mu = x32.mean(-1, keepdim=True)
+    var = x32.var(-1, keepdim=True, unbiased=False)
+    y = (x32 - mu) * torch.rsqrt(var + eps)
+    return (y * w.float() + b.float()).to(x.dtype)
+
+
+def apply_norm(x, p, kind="rmsnorm", plus_one=False):
+    if kind == "layernorm":
+        return layer_norm(x, p["w"], p["b"])
+    return rms_norm(x, p["w"], plus_one=plus_one)
+
+
+# -------------------------------------------------------------------- RoPE
+def rope_tables(positions, head_dim: int, fraction: float = 1.0,
+                base: float = 10000.0):
+    """cos/sin tables (..., rot/2) for neox-style rotate-half RoPE, in
+    float32.  ``fraction < 1`` = partial rotary."""
+    rot = int(head_dim * fraction)
+    rot -= rot % 2
+    exps = torch.arange(0, rot, 2, dtype=torch.float32,
+                        device=positions.device) / rot
+    inv = 1.0 / (base ** exps)
+    ang = positions.float()[..., None] * inv                 # (..., rot/2)
+    return torch.cos(ang), torch.sin(ang), rot
+
+
+def apply_rope(x, cos, sin, rot: int):
+    """x (B, S, H, hd); cos/sin (B?, S, rot/2) broadcast over heads, cast
+    to the activation dtype first."""
+    if rot == 0:
+        return x
+    xr, xp = x[..., :rot], x[..., rot:]
+    x1, x2 = xr[..., : rot // 2], xr[..., rot // 2:]
+    c = cos[..., None, :].to(x.dtype)        # (B, S, 1, rot/2)
+    s = sin[..., None, :].to(x.dtype)
+    out = torch.cat([x1 * c - x2 * s, x2 * c + x1 * s], dim=-1)
+    return torch.cat([out, xp], dim=-1)
+
+
+# --------------------------------------------------------------------- MLP
+def gated_mlp(x, wg, wu, wd, act="silu"):
+    a = F.silu if act == "silu" else (lambda t: F.gelu(t, approximate="tanh"))
+    return (a(x @ wg) * (x @ wu)) @ wd

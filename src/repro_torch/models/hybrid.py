@@ -1,0 +1,149 @@
+"""Hymba-style hybrid layer: attention heads and a mamba SSM branch run in
+PARALLEL on the same normed input, their outputs fused by learned
+per-branch gains.  The stack is heterogeneous: the first ``L - n_global``
+layers use sliding-window attention (a ring-buffer KV cache at decode),
+the last ``n_global_layers`` attend globally (a full KV cache).
+
+The JAX package pins shardings inside the layer (``sharding_ctx``'s
+``constrain_*``); without a mesh those are the identity, so the port
+leaves them out.  Parameters are dicts of stacked ``(L, …)`` tensors and
+the layers run in a Python loop.
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+
+from .common import NEG_INF, apply_norm, apply_rope, gated_mlp, rope_tables
+from .ssm import mamba_branch, mamba_defs
+from .transformer import _repeat_kv, chunked_attention
+
+
+def _branch_defs(cfg, L: int) -> dict:
+    D = cfg.d_model
+    sub = cfg.replace(n_layers=L)
+    defs = {
+        "ln1": {"w": ((L, D), "rep")},
+        "ln2": {"w": ((L, D), "rep")},
+        "wq": ((L, D, cfg.q_dim), "col"),
+        "wk": ((L, D, cfg.kv_dim), "col"),
+        "wv": ((L, D, cfg.kv_dim), "col"),
+        "wo": ((L, cfg.q_dim, D), "row"),
+        "attn_gain": ((L, D), "rep"),
+        "ssm_gain": ((L, D), "rep"),
+        "wg": ((L, D, cfg.d_ff), "col"),
+        "wu": ((L, D, cfg.d_ff), "col"),
+        "wd": ((L, cfg.d_ff, D), "row"),
+    }
+    defs.update(mamba_defs(sub))
+    return defs
+
+
+def hybrid_model_defs(cfg) -> dict:
+    n_swa = cfg.n_layers - cfg.n_global_layers
+    return {
+        "embed": ((cfg.vocab_padded, cfg.d_model), "embed"),
+        "final_norm": {"w": ((cfg.d_model,), "rep")},
+        "layers": _branch_defs(cfg, n_swa),        # sliding-window stack
+        "glayers": _branch_defs(cfg, cfg.n_global_layers),
+    }
+
+
+def layer_params(stack: dict, i: int) -> dict:
+    """Layer ``i``'s parameters: a view of each stacked ``(L, …)`` leaf."""
+    return {k: layer_params(v, i) if isinstance(v, dict) else v[i]
+            for k, v in stack.items()}
+
+
+def decode_attn(q, ck, cv, valid_upto: int):
+    """Ring/flat decode attention: all cache slots ≤ valid_upto are live
+    (slot order is irrelevant to the softmax sum)."""
+    H, hd = q.shape[2], q.shape[3]
+    Sk = ck.shape[1]
+    ck, cv = _repeat_kv(ck, H), _repeat_kv(cv, H)
+    scores = (q.transpose(1, 2) @ ck.permute(0, 2, 3, 1)).float()
+    scores = scores / math.sqrt(hd)
+    dead = torch.arange(Sk, device=q.device) > valid_upto
+    scores = scores.masked_fill(dead, NEG_INF)
+    probs = torch.softmax(scores, dim=-1).to(q.dtype)
+    return (probs @ cv.transpose(1, 2)).transpose(1, 2)
+
+
+def hybrid_layer(x, lp, cfg, *, cos, sin, rot, window, cache=None,
+                 pos=None, write=None, chunk=1024):
+    """window=0 → global layer.  cache=(k, v, conv, ssm) → decode (S=1):
+    this layer's K/V cache slices are written in place at ``write`` and
+    ``(x, (new_conv, new_ssm))`` is returned; else ``(x, None)``."""
+    B, Sq, _ = x.shape
+    h = apply_norm(x, lp["ln1"], cfg.norm)
+    q = (h @ lp["wq"]).reshape(B, Sq, cfg.n_heads, cfg.head_dim)
+    k = (h @ lp["wk"]).reshape(B, Sq, cfg.n_kv, cfg.head_dim)
+    v = (h @ lp["wv"]).reshape(B, Sq, cfg.n_kv, cfg.head_dim)
+    q = apply_rope(q, cos, sin, rot)
+    k = apply_rope(k, cos, sin, rot)
+    new_state = None
+    if cache is not None:
+        ck, cv, conv_s, ssm_s = cache
+        ck[:, write] = k[:, 0]
+        cv[:, write] = v[:, 0]
+        attn = decode_attn(q, ck, cv, min(pos, ck.shape[1] - 1))
+    else:
+        attn = chunked_attention(q, k, v, window=window, chunk=chunk)
+    attn = attn.reshape(B, Sq, cfg.q_dim) @ lp["wo"]
+
+    if cache is not None:
+        ssm, new_conv, new_ssm = mamba_branch(h, lp, cfg, conv_state=conv_s,
+                                              ssm_state=ssm_s)
+        new_state = (new_conv, new_ssm)
+    else:
+        ssm = mamba_branch(h, lp, cfg)
+
+    x = x + attn * lp["attn_gain"] + ssm * lp["ssm_gain"]
+    h2 = apply_norm(x, lp["ln2"], cfg.norm)
+    return x + gated_mlp(h2, lp["wg"], lp["wu"], lp["wd"], cfg.act), new_state
+
+
+def _run_stack(x, stack, cfg, *, cos, sin, rot, window, chunk):
+    for i in range(stack["wq"].shape[0]):
+        x = hybrid_layer(x, layer_params(stack, i), cfg, cos=cos, sin=sin,
+                         rot=rot, window=window, chunk=chunk)[0]
+    return x
+
+
+def hybrid_forward(params, cfg, embeds, *, chunk=1024):
+    S = embeds.shape[1]
+    positions = torch.arange(S, device=embeds.device)[None, :]
+    cos, sin, rot = rope_tables(positions, cfg.head_dim, cfg.rope_fraction,
+                                cfg.rope_base)
+    x = _run_stack(embeds, params["layers"], cfg, cos=cos, sin=sin, rot=rot,
+                   window=cfg.sliding_window, chunk=chunk)
+    x = _run_stack(x, params["glayers"], cfg, cos=cos, sin=sin, rot=rot,
+                   window=0, chunk=chunk)
+    return apply_norm(x, params["final_norm"], cfg.norm)
+
+
+def hybrid_decode_step(params, cfg, token_embed, cache, pos: int):
+    """cache: SWA ring stacks ("k", "v" (Lswa, B, W, KV, hd), "conv",
+    "ssm") + global stacks ("gk", "gv" (Lg, B, S, KV, hd), "gconv",
+    "gssm").  Updated in place (JAX returns a new cache; here the old
+    one is not kept, which saves a copy of every stack per token) and
+    returned."""
+    positions = torch.tensor([[pos]], device=token_embed.device)
+    cos, sin, rot = rope_tables(positions, cfg.head_dim, cfg.rope_fraction,
+                                cfg.rope_base)
+    x = token_embed
+    for stack, (kk, vk, ck, sk), ring in (
+            (params["layers"], ("k", "v", "conv", "ssm"), True),
+            (params["glayers"], ("gk", "gv", "gconv", "gssm"), False)):
+        for i in range(stack["wq"].shape[0]):
+            kc, vc = cache[kk][i], cache[vk][i]
+            write = pos % kc.shape[1] if ring else pos
+            x, (conv, ssm) = hybrid_layer(
+                x, layer_params(stack, i), cfg, cos=cos, sin=sin, rot=rot,
+                window=0, cache=(kc, vc, cache[ck][i], cache[sk][i]),
+                pos=pos, write=write)
+            cache[ck][i] = conv
+            cache[sk][i] = ssm
+    x = apply_norm(x, params["final_norm"], cfg.norm)
+    return x, cache

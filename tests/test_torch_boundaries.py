@@ -55,7 +55,7 @@ def test_every_module_imports_without_jax():
                               "PATH": "/usr/bin:/bin"},
                          capture_output=True, text=True, timeout=120)
     assert res.returncode == 0, res.stderr
-    assert int(res.stdout.split()[-1]) >= 20
+    assert int(res.stdout.split()[-1]) >= 49
 
 
 def test_entry_points_default_to_cuda(monkeypatch):
@@ -87,16 +87,30 @@ def test_entry_points_default_to_cuda(monkeypatch):
             gnn_app.main(["--model", model, "--steps", "1"])
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         ParamSpMM(task.csr, 16)
+    from repro_torch.configs import get_reduced
+    from repro_torch.launch import serve
+    from repro_torch.models import lm
+    cfg = get_reduced("hymba-1.5b")
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        serve.main(["--reduced", "--gen", "1"])
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        lm.init_params(cfg, generator=torch.Generator())
+    params = lm.init_params(cfg, generator=torch.Generator(), device="cpu")
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        serve.generate(cfg, params, np.zeros((1, 2), np.int64), 3, 1)
 
 
 def test_kernel_sources_build_targets_hopper():
     from repro_torch.kernels import build
-    assert build.sources() == ["paramspmm", "sddmm", "sddmm_softmax"]
+    assert build.sources() == ["paramspmm", "sddmm", "sddmm_softmax",
+                               "selective_scan"]
     assert "-gencode=arch=compute_90a,code=sm_90a" in build.NVCC_FLAGS
     assert "--use_fast_math" not in build.NVCC_FLAGS
     for name, tpu in (("paramspmm", "paramspmm/kernel.py"),
                       ("sddmm", "sddmm/kernel.py::sddmm_kernel"),
-                      ("sddmm_softmax", "sddmm/kernel.py")):
+                      ("sddmm_softmax", "sddmm/kernel.py"),
+                      ("selective_scan", "selective_scan/kernel.py::"
+                                         "selective_scan_kernel")):
         src = (build.CSRC_DIR / f"{name}.cu").read_text()
         assert "torch/extension.h" not in src
         assert f"src/repro/kernels/{tpu}" in src
@@ -145,3 +159,13 @@ def test_plain_path_is_taken_only_for_cpu_tensors():
                        (B * B).sum(-1).sort().values)
     with pytest.raises(ValueError, match="cpu or cuda"):
         sddmm_ops.sddmm(p, B.to("meta"), B.to("meta"))
+    # the selective scan: one step with dA = 0 gives y = Σ_n dBx·C
+    from repro_torch.kernels import selective_scan as scan
+    launches = scan.launch_count()
+    dBx = torch.arange(12, dtype=torch.float32).reshape(1, 1, 3, 4)
+    y = scan.selective_scan(torch.zeros_like(dBx), dBx, torch.ones(1, 1, 3))
+    assert scan.launch_count() == launches
+    assert torch.equal(y, dBx.sum(2))
+    with pytest.raises(ValueError, match="cpu or cuda"):
+        scan.selective_scan(*(t.to("meta") for t in (dBx, dBx,
+                                                     torch.ones(1, 1, 3))))

@@ -17,6 +17,11 @@ slot without a stored nonzero exactly 0.  The training operators'
 gradients on the card match the port on the CPU (bit-exact with integer
 operands for the SpMMs, ``rtol=1e-5, atol=1e-4`` otherwise), and a short
 ``train_gnn`` on the card follows the CPU's losses within ``rtol=1e-4``.
+Selective scan: the kernel within ``atol = rtol = 1e-5`` of its plain
+version (an FMA and another Σ_n order), an impulse at t = 0 reaching the
+last of 1024 steps, and a CUDA tensor never reaching the plain version;
+the reduced Hymba's prefill (one launch per layer) and decode on the card
+within ``atol = rtol = 5e-2`` of the port on the CPU (bf16).
 """
 import numpy as np
 import pytest
@@ -299,3 +304,120 @@ def test_train_gnn_on_card_matches_cpu(cuda_device, model):
     assert card.config == cpu.config
     np.testing.assert_allclose(card.losses, cpu.losses, rtol=1e-4, atol=0)
     assert card.losses[-1] < card.losses[0]
+
+
+# ------------------------------------------------------ selective scan (LM)
+SCAN_GRID = [(1, 1, 2, 64), (1, 33, 4, 130), (2, 100, 16, 200),
+             (4, 1024, 2, 64), (2, 33, 16, 3200), (1, 1024, 16, 130),
+             (4, 100, 4, 3200), (2, 1, 16, 130), (1, 100, 2, 3200),
+             (4, 33, 16, 64), (2, 1024, 4, 200), (1, 37, 32, 48)]
+SCAN_TOL = dict(atol=1e-5, rtol=1e-5)   # FMA and the Σ_n order differ
+
+
+def _scan_operands(shape, device, seed=0):
+    g = torch.Generator(device=device).manual_seed(seed)
+    B, S, N, Di = shape
+    dA = torch.rand((B, S, N, Di), generator=g, device=device) * 0.79 + 0.2
+    dBx = torch.randn((B, S, N, Di), generator=g, device=device) * 0.1
+    C = torch.randn((B, S, N), generator=g, device=device)
+    return dA, dBx, C
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", SCAN_GRID, ids=str)
+def test_selective_scan_kernel_matches_plain(cuda_device, shape):
+    from repro_torch.kernels import selective_scan as scan
+    dA, dBx, C = _scan_operands(shape, cuda_device)
+    before = scan.launch_count()
+    got = scan.selective_scan(dA, dBx, C)
+    torch.cuda.synchronize()
+    assert scan.launch_count() == before + 1
+    torch.testing.assert_close(got, scan.selective_scan_plain(dA, dBx, C),
+                               **SCAN_TOL)
+
+
+@pytest.mark.cuda
+def test_selective_scan_impulse_reaches_last_step(cuda_device):
+    from repro_torch.kernels import selective_scan as scan
+    B, S, N, Di = 1, 1024, 2, 130
+    dA = torch.full((B, S, N, Di), 0.999, device=cuda_device)
+    dBx = torch.zeros((B, S, N, Di), device=cuda_device)
+    dBx[:, 0] = 1.0
+    y = scan.selective_scan(dA, dBx, torch.ones((B, S, N),
+                                                device=cuda_device))
+    torch.cuda.synchronize()
+    want = torch.full((Di,), 2 * 0.999 ** (S - 1), dtype=torch.float64)
+    torch.testing.assert_close(y[0, -1].double().cpu(), want, rtol=1e-4,
+                               atol=0)
+
+
+@pytest.mark.cuda
+def test_selective_scan_on_cuda_never_takes_the_plain_version(cuda_device,
+                                                               monkeypatch):
+    from repro_torch.kernels.selective_scan import ops as scan_ops
+    want = scan_ops.selective_scan_plain(*_scan_operands((2, 40, 4, 96),
+                                                         cuda_device))
+
+    def refuse(*a):
+        raise AssertionError("a CUDA tensor reached the plain version")
+
+    monkeypatch.setattr(scan_ops, "selective_scan_plain", refuse)
+    before = scan_ops.launch_count()
+    got = scan_ops.selective_scan(*_scan_operands((2, 40, 4, 96),
+                                                  cuda_device))
+    torch.cuda.synchronize()
+    assert scan_ops.launch_count() == before + 1
+    torch.testing.assert_close(got, want, **SCAN_TOL)
+    with pytest.raises(ValueError, match="N ≤ 32"):
+        scan_ops.selective_scan(*_scan_operands((1, 4, 33, 8), cuda_device))
+
+
+def _to(tree, device):
+    return {k: _to(v, device) if isinstance(v, dict) else v.to(device)
+            for k, v in tree.items()}
+
+
+@pytest.mark.cuda
+def test_hymba_prefill_and_decode_on_card_match_cpu(cuda_device):
+    """Reduced Hymba: prefill (through the kernel, one launch per layer)
+    and 12 decode steps (none) on the card vs the port on the CPU, bf16
+    within the reference's backend-agreement tolerance 5e-2."""
+    from repro_torch.configs import get_reduced
+    from repro_torch.configs.base import ShapeCell
+    from repro_torch.kernels import selective_scan as scan
+    from repro_torch.launch.serve import generate
+    from repro_torch.models import lm
+    cfg = get_reduced("hymba-1.5b")
+    g = torch.Generator().manual_seed(0)
+    cpu = lm.init_params(cfg, generator=g, device="cpu")
+    for stack in ("layers", "glayers"):
+        for name in ("bc_w", "d_skip"):
+            cpu[stack][name] = (torch.randn(cpu[stack][name].shape,
+                                            generator=g) * 0.02).to(
+                                                torch.bfloat16)
+    card = _to(cpu, cuda_device)
+    tokens = torch.randint(0, cfg.vocab, (2, 40), generator=g)
+    before = scan.launch_count()
+    got = lm.prefill(card, cfg, {"tokens": tokens.to(cuda_device)}, chunk=8)
+    torch.cuda.synchronize()
+    assert scan.launch_count() == before + cfg.n_layers
+    want = lm.prefill(cpu, cfg, {"tokens": tokens}, chunk=8)
+    m = want > -1e30
+    torch.testing.assert_close(got.cpu()[m], want[m], atol=5e-2, rtol=5e-2)
+
+    cache = {d: lm.init_cache(cfg, ShapeCell("d", 12, 2, "decode"),
+                              device=d) for d in ("cpu", cuda_device)}
+    before = scan.launch_count()
+    for t in range(12):
+        tok = tokens[:, t:t + 1]
+        lc, cache["cpu"] = lm.decode_step(cpu, cfg, tok, cache["cpu"], t)
+        lg, cache[cuda_device] = lm.decode_step(card, cfg,
+                                                tok.to(cuda_device),
+                                                cache[cuda_device], t)
+        torch.testing.assert_close(lg.cpu()[m], lc[m], atol=5e-2,
+                                   rtol=5e-2)
+    assert scan.launch_count() == before
+    seq = generate(cfg, card, tokens[:, :6].numpy(), 14, 8,
+                   device=cuda_device)
+    assert seq.shape == (2, 14) and seq.device.type == "cuda"
+    assert int(seq.max()) < cfg.vocab

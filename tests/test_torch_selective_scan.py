@@ -1,0 +1,114 @@
+"""PyTorch port vs JAX reference: the selective scan (Mamba recurrence).
+
+On CPU tensors the port's ``selective_scan`` runs its plain version
+(``selective_scan_plain``, a loop over time).  It is held against the
+reference's Pallas kernel in interpret mode at two shapes (one with S and
+Di that need padding in the reference) and against the reference's
+associative-scan oracle ``selective_scan_ref`` over a seeded sweep of S, N
+and Di, at the reference test's own tolerance ``atol = rtol = 2e-4``.
+The impulse case checks that state carries across the whole sequence.
+"""
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels.selective_scan import selective_scan as r_scan
+from repro.kernels.selective_scan import selective_scan_ref as r_scan_ref
+from _propcheck import integers, propcases, sampled_from
+
+from repro_torch.kernels.selective_scan import (launch_count, selective_scan,
+                                                selective_scan_plain)
+
+TOL = dict(atol=2e-4, rtol=2e-4)        # tests/test_selective_scan.py
+
+
+def _mk(rng, B, S, N, Di):
+    """Decays in (0.2, 0.99), bounded inputs — the regime mamba produces
+    (the reference test's draws), as float32 numpy arrays."""
+    dA = rng.uniform(0.2, 0.99, (B, S, N, Di)).astype(np.float32)
+    dBx = (rng.standard_normal((B, S, N, Di)) * 0.1).astype(np.float32)
+    C = rng.standard_normal((B, S, N)).astype(np.float32)
+    return dA, dBx, C
+
+
+def _port(dA, dBx, C):
+    return selective_scan(*(torch.from_numpy(a) for a in (dA, dBx, C)))
+
+
+@pytest.mark.parametrize("B,S,N,Di,chunk", [
+    (2, 64, 4, 128, 16),
+    (1, 33, 2, 130, 16),           # padding on both S and Di in the reference
+])
+def test_matches_pallas_kernel_interpret(B, S, N, Di, chunk):
+    dA, dBx, C = _mk(np.random.default_rng(0), B, S, N, Di)
+    want = np.asarray(r_scan(jnp.asarray(dA), jnp.asarray(dBx),
+                             jnp.asarray(C), chunk=chunk, tile=128))
+    got = _port(dA, dBx, C)
+    assert got.dtype == torch.float32 and tuple(got.shape) == (B, S, Di)
+    np.testing.assert_allclose(got.numpy(), want, **TOL)
+
+
+@pytest.mark.parametrize("case", propcases(
+    10, S=integers(4, 70), N=sampled_from([2, 4, 8]),
+    Di=sampled_from([32, 130]), seed=integers(0, 99)), ids=str)
+def test_matches_reference_oracle(case):
+    dA, dBx, C = _mk(np.random.default_rng(case.seed), 1, case.S, case.N,
+                     case.Di)
+    want = np.asarray(r_scan_ref(jnp.asarray(dA), jnp.asarray(dBx),
+                                 jnp.asarray(C)))
+    np.testing.assert_allclose(_port(dA, dBx, C).numpy(), want, **TOL)
+
+
+def test_state_carries_across_chunks():
+    """A single impulse at t=0 must still reach the LAST step (the
+    reference runs it in chunks of 16; the port has no chunks on the CPU,
+    the kernel has 8-step ones on the card)."""
+    B, S, N, Di = 1, 64, 2, 128
+    dA = np.full((B, S, N, Di), 0.95, np.float32)
+    dBx = np.zeros((B, S, N, Di), np.float32)
+    dBx[:, 0] = 1.0
+    C = np.ones((B, S, N), np.float32)
+    y = _port(dA, dBx, C).numpy()
+    expect_last = 2 * 0.95 ** (S - 1)          # N=2 summed
+    np.testing.assert_allclose(y[0, -1, 0], expect_last, rtol=1e-3)
+    want = np.asarray(r_scan(jnp.asarray(dA), jnp.asarray(dBx),
+                             jnp.asarray(C), chunk=16))
+    np.testing.assert_allclose(y, want, **TOL)
+
+
+def test_casts_operands_to_float32():
+    """Like the reference wrapper, any float dtype is scanned in float32."""
+    dA, dBx, C = _mk(np.random.default_rng(4), 2, 9, 4, 24)
+    args = [torch.from_numpy(a) for a in (dA, dBx, C)]
+    got = selective_scan(args[0].double(), args[1].to(torch.bfloat16),
+                         args[2].double())
+    want = selective_scan_plain(args[0], args[1].to(torch.bfloat16).float(),
+                                args[2])
+    assert got.dtype == torch.float32
+    assert torch.equal(got, want)
+
+
+def test_rejects_wrong_ranks_shapes_and_devices():
+    dA, dBx, C = (torch.from_numpy(a) for a in
+                  _mk(np.random.default_rng(1), 1, 5, 2, 8))
+    with pytest.raises(ValueError, match=r"\(B, S, N, Di\)"):
+        selective_scan(dA[0], dBx[0], C[0])
+    with pytest.raises(ValueError, match=r"\(B, S, N, Di\)"):
+        selective_scan(dA, dBx[:, :4], C)
+    with pytest.raises(ValueError, match=r"\(B, S, N, Di\)"):
+        selective_scan(dA, dBx, C[..., :1])
+    with pytest.raises(ValueError, match="cpu or cuda"):
+        selective_scan(dA.to("meta"), dBx.to("meta"), C.to("meta"))
+    with pytest.raises(ValueError, match="several devices"):
+        selective_scan(dA, dBx, C.to("meta"))
+
+
+def test_cpu_tensors_take_the_plain_version():
+    """No launch is counted on the CPU."""
+    dA, dBx, C = (torch.from_numpy(a) for a in
+                  _mk(np.random.default_rng(2), 2, 17, 4, 40))
+    before = launch_count()
+    want = selective_scan_plain(dA, dBx, C)
+    assert torch.equal(selective_scan(dA, dBx, C), want)
+    assert launch_count() == before
