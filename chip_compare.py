@@ -2,6 +2,7 @@
 """Comparisons of two versions on one NVIDIA GPU, in one run.
 
     python3 chip_compare.py spmm ROOT [ROOT ...]
+    python3 chip_compare.py serve ROOT [ROOT ...]
     python3 chip_compare.py sddmm-sum
 
 ``spmm`` times the ParamSpMM rows of ``chip_smoke.py``'s timing phase
@@ -9,7 +10,12 @@
 and without it, kreg150k; dim 64) with the ``chip_smoke.py`` and
 ``src/repro_torch`` of each checkout ROOT, each in a process of its own
 and in the order given (give parent, change, change, parent to see the
-drift).  ``sddmm-sum`` builds ``csrc/sddmm_softmax.cu`` a second time with
+drift).  ``serve`` runs the serving phase of each ROOT's
+``chip_smoke.py`` (GCN, GIN and GAT at full width on rmat13, each request
+checked as that phase checks it: its 64-request stream a model, on a
+fresh service ``SERVE_REPEATS`` times a process) and reads each model's
+latency p50 / p99 and its host spans (``serve.sample``, ``serve.pack``,
+``serve.forward``, ``serve.batch``) summed and per batch.  ``sddmm-sum`` builds ``csrc/sddmm_softmax.cu`` a second time with
 a float64 Σexp (``-DREPRO_SDDMM_SUM=double``) and times it against the
 shipped float32 Σexp on the GAT-picked configs of a serving bucket,
 rmat17 (also at 4 heads) and kreg150k, and reads each one's largest
@@ -83,17 +89,25 @@ def spmm_rows(root: Path) -> list:
     return rows
 
 
-def run_spmm(roots: list) -> int:
+def _runs(kind: str, roots: list) -> list:
+    """``kind``'s rows of each root, each root in a process of its own,
+    in the order given."""
     runs = []
     for i, root in enumerate(roots):
-        res = subprocess.run([sys.executable, __file__, "_spmm_rows", root],
-                             capture_output=True, text=True, timeout=900)
+        res = subprocess.run([sys.executable, __file__, f"_{kind}_rows",
+                              root], capture_output=True, text=True,
+                             timeout=900)
         sys.stderr.write(res.stderr[-4000:])
         if res.returncode != 0:
             print(res.stdout[-4000:])
             sys.exit(f"chip_compare: run {i} ({root}) failed")
         runs.append({"run": i, "root": root,
                      "rows": json.loads(res.stdout.strip().splitlines()[-1])})
+    return runs
+
+
+def run_spmm(roots: list) -> int:
+    runs = _runs("spmm", roots)
     print("run | root | at | epilogue | kernel ms | plain ms | library ms")
     for run in runs:
         for r in run["rows"]:
@@ -103,6 +117,68 @@ def run_spmm(roots: list) -> int:
                   f"{'—' if lib is None else f'{lib:.4f}'}")
     OUT.mkdir(parents=True, exist_ok=True)
     (OUT / "compare_spmm.json").write_text(json.dumps(runs, indent=1))
+    return 0
+
+
+# -------------------------------------------------------------- serve
+SERVE_REPEATS = 3           # the phase's stream (64 requests, 8 batches)
+SPANS = ("serve.sample", "serve.pack", "serve.forward", "serve.batch")
+
+
+def serve_rows(root: Path) -> list:
+    """One row per model of ``root``'s serving phase, its checks
+    included: latency p50 / p99 (ms) and the host spans (ms, summed)."""
+    import numpy as np
+    device = _need_card()
+    cs = _smoke(root)
+    cs.build.build()
+    rows, report = [], cs._report
+
+    def keep(model, svc, results, spans, wall):
+        report(model, svc, results, spans, wall)
+        lat = np.array([r.latency_s for r in results]) * 1e3
+        rows.append({"model": model, "requests": len(results),
+                     "batches": len(svc.batch_log),
+                     "p50_ms": float(np.percentile(lat, 50)),
+                     "p99_ms": float(np.percentile(lat, 99)),
+                     "wall_s": wall,
+                     "spans_ms": {k: spans.get(k) for k in SPANS}})
+
+    cs._report = keep
+    for _ in range(SERVE_REPEATS):
+        for model in ("gcn", "gin"):
+            cs.phase_serve(model, device)
+        cs.phase_serve_gat(device)
+    return rows
+
+
+def run_serve(roots: list) -> int:
+    runs = _runs("serve", roots)
+    print("run | root | model | batches | p50 ms | p99 ms | "
+          + " | ".join(f"{k} ms/batch" for k in SPANS))
+    for run in runs:
+        for r in run["rows"]:
+            per = [r["spans_ms"][k] for k in SPANS]
+            print(f"{run['run']} | {run['root']} | {r['model']} | "
+                  f"{r['batches']} | {r['p50_ms']:.3f} | {r['p99_ms']:.3f} | "
+                  + " | ".join("—" if v is None
+                               else f"{v / r['batches']:.4f}" for v in per))
+    import numpy as np
+    print("root | model | rows | median p50 ms (min–max) | median p99 ms "
+          "(min–max) | median serve.pack ms/batch (min–max) | median "
+          "serve.forward ms/batch (min–max)")
+    for root in dict.fromkeys(roots):
+        for model in ("gcn", "gin", "gat"):
+            rows = [r for run in runs if run["root"] == root
+                    for r in run["rows"] if r["model"] == model]
+            cols = [[r["p50_ms"] for r in rows], [r["p99_ms"] for r in rows]]
+            cols += [[r["spans_ms"][k] / r["batches"] for r in rows]
+                     for k in ("serve.pack", "serve.forward")]
+            print(f"{root} | {model} | {len(rows)} | " + " | ".join(
+                f"{np.median(c):.4f} ({min(c):.4f}–{max(c):.4f})"
+                for c in cols))
+    OUT.mkdir(parents=True, exist_ok=True)
+    (OUT / "compare_serve.json").write_text(json.dumps(runs, indent=1))
     return 0
 
 
@@ -198,11 +274,14 @@ def run_sddmm_sum() -> int:
 
 
 def main(argv) -> int:
-    if len(argv) >= 2 and argv[0] == "_spmm_rows":
-        print(json.dumps(spmm_rows(Path(argv[1]))))
+    rows = {"_spmm_rows": spmm_rows, "_serve_rows": serve_rows}
+    if len(argv) == 2 and argv[0] in rows:
+        print(json.dumps(rows[argv[0]](Path(argv[1]))))
         return 0
     if len(argv) >= 2 and argv[0] == "spmm":
         return run_spmm(argv[1:])
+    if len(argv) >= 2 and argv[0] == "serve":
+        return run_serve(argv[1:])
     if argv == ["sddmm-sum"]:
         return run_sddmm_sum()
     sys.exit(__doc__)

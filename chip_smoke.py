@@ -21,7 +21,14 @@ Runs from the root of a checkout and drives ``src/repro_torch`` only
    F grid on bucket packs at d ∈ {16, 64}, rmat17 at d = 64, and 4 heads
    at d = 16: logits bit-exact with integer-valued Q/K, stats and α within
    ``rtol=1e-5, atol=1e-6`` (logits ``atol=1e-5`` with float Q/K), the
-   prologue SpMM within ``rtol=1e-5, atol=1e-4``.  Raw SDDMM: the 12
+   prologue SpMM within ``rtol=1e-5, atol=1e-4``.  Split work units: the
+   two bucket grids again with units of at most ``TINY_CAP`` real slots
+   (every config runs split groups and the merge), and a hub case
+   (``_hub_graph``: a 4,096-node star plus random edges, whose hub group
+   spans many units at the wrapper's cap) for both kernels over V ∈ {1, 2}
+   × S ∈ {False, True} × d ∈ {16, 64, 200}, every epilogue, the prologue
+   at 1 and 4 heads, at the same tolerances; two launches of each on float
+   operands give the same bits.  Raw SDDMM: the 12
    configs of ``tests/test_torch_cuda.py`` × H ∈ {1, 4} × d ∈ {16, 64} on
    a bucket pack with explicit zeros, and rmat17: bit-exact with integer
    Q/K, every masked slot exactly 0.  Autograd: the training operators'
@@ -51,7 +58,9 @@ Runs from the root of a checkout and drives ``src/repro_torch`` only
    nodes): losses finite and falling, ms per step, the kernels' share;
 7. timing — CUDA events after warm-up, at a serving shape, on rmat17 and
    on ``corpus("large")``'s kreg150k (uniform degree), at dim 64: each
-   kernel, its plain version and one PyTorch library call (timed here
+   kernel (and, for ParamSpMM and the SDDMM → softmax, its device time per
+   call from ``torch.profiler``, which leaves out the wrapper's host
+   time), its plain version and one PyTorch library call (timed here
    only: ``torch.sparse.mm``, cuSPARSE SpMM, the paper's baseline; for the
    SDDMM ``torch.sparse.sampled_addmm``, cuSPARSE SDDMM, which gives raw
    scores without the softmax; for the prologue SpMM ``torch.sparse.mm``
@@ -59,7 +68,8 @@ Runs from the root of a checkout and drives ``src/repro_torch`` only
    ``sampled_addmm`` again, the same function), beside the least time the
    card could take (bytes of each input read once and each output written
    once over the data-sheet HBM rate, vs the real MACs over the float32
-   peak).
+   peak), each ParamSpMM and GAT line with its work-unit count, largest
+   unit (real slots) and partials.
 8. scan grid — the selective-scan kernel against its plain version over
    B ∈ {1, 2, 4} × S ∈ {1, 33, 100, 1024} × N ∈ {2, 4, 16} × Di ∈ {64,
    130, 3200}, Hymba's (2, 2048, 16, 3200) and an impulse at t = 0 that
@@ -204,14 +214,31 @@ def _operands(rng, n, dim, spec, integer, device):
     return B, epi
 
 
-def _compare(p, B, epi, integer, device):
-    """Kernel (through the wrapper) vs plain version on one input;
-    returns the max abs difference."""
+def _geo(p):
     cfg = p.config
-    got = ops.paramspmm(p, B, **epi)
-    want = ops.paramspmm_plain(
-        ops.device_steering(p, device), B, V=cfg.V, R=cfg.R, K=p.K,
-        n_blocks=p.n_blocks, n_rows=p.n_rows, **epi)
+    return dict(V=cfg.V, R=cfg.R, K=p.K, n_blocks=p.n_blocks,
+                n_rows=p.n_rows)
+
+
+def _steering(p, device, cap):
+    """The wrapper's steering of ``p`` (``cap=None``), or one whose work
+    units hold at most ``cap`` real slots (the split path)."""
+    if cap is None:
+        return ops.device_steering(p, device)
+    return ops.Steering.from_pcsr(p, device, cap=cap)
+
+
+def _compare(p, B, epi, integer, device, cap=None):
+    """Kernel (through the wrapper; with ``cap``, through ``ops._call`` on
+    a steering cut into units of at most ``cap`` real slots) vs plain
+    version on one input; returns the max abs difference."""
+    cfg = p.config
+    steer = _steering(p, device, cap)
+    if cap is None:
+        got = ops.paramspmm(p, B, **epi)
+    else:
+        got = ops._call(steer, B, dblk=cfg.dblk, **_geo(p), **epi)
+    want = ops.paramspmm_plain(steer, B, **_geo(p), **epi)
     if device.type == "cuda":
         torch.cuda.synchronize()
     check(got.shape == want.shape and bool(torch.isfinite(got).all()),
@@ -241,15 +268,19 @@ def _union(g, n_requests, seed):
                      np.ones(eoff, np.float32), n, n)
 
 
-def phase_kernel_grid(device, *, big=True):
-    """Phase 3: kernel vs plain over the config × dim × epilogue grid."""
+def phase_kernel_grid(device, *, big=True, cap=None):
+    """Phase 3: kernel vs plain over the config × dim × epilogue grid.
+    With ``cap`` (and ``big=False``), the bucket grid again with work units
+    of at most ``cap`` real slots, so every config runs split groups and
+    the merge."""
     rng = np.random.default_rng(0)
     g = rmat(13, 8, seed=31)                   # corpus("serve")'s rmat13
     union = _union(g, 8, seed=5)
     bucket = BucketPolicy.default().pick(union.n_rows, union.nnz)
-    print(f"[grid] serving batch: {union.n_rows} nodes, {union.nnz} edges "
+    tag = "[grid]" if cap is None else f"[grid cap={cap}]"
+    print(f"{tag} serving batch: {union.n_rows} nodes, {union.nnz} edges "
           f"→ bucket {bucket.key}")
-    cases, max_err = 0, 0.0
+    cases, max_err, split = 0, 0.0, 0
     for v in (1, 2):
         for s, b in ((False, False), (True, False), (True, True)):
             for r in (8, 16, 32):
@@ -258,18 +289,25 @@ def phase_kernel_grid(device, *, big=True):
                     geom = PackGeom.from_bucket(bucket, cfg)
                     p_int = pack_subgraph(union, geom)
                     p_flt = pack_subgraph(_normalized(union), geom)
+                    if cap is not None:
+                        steer = _steering(p_int, device, cap)
+                        check(steer.n_partials > 0, f"cap={cap} splits no "
+                              f"group of {cfg.astuple()}")
+                        split += 1
                     for dim in (16, 64, 200):
                         for spec in EPILOGUES.values():
                             for integer, p in ((True, p_int),
                                                (False, p_flt)):
                                 B, epi = _operands(rng, p.n_rows, dim, spec,
                                                    integer, device)
-                                err = _compare(p, B, epi, integer, device)
+                                err = _compare(p, B, epi, integer, device,
+                                               cap)
                                 if not integer:
                                     max_err = max(max_err, err)
                                 cases += 1
-    print(f"[grid] bucket packs: {cases} cases match "
-          f"(max abs err {max_err:.3e} on float operands)")
+    print(f"{tag} bucket packs: {cases} cases match "
+          f"(max abs err {max_err:.3e} on float operands)"
+          + (f"; split groups at all {split} configs" if cap else ""))
     if big:
         g17 = rmat(17, 6, seed=22)             # corpus("large")'s rmat17
         g17n = _normalized(g17)
@@ -298,12 +336,13 @@ def phase_kernel_grid(device, *, big=True):
     return cases, max_err
 
 
-def _gat_compare(p, device, rng, d, H, integer):
+def _gat_compare(p, device, rng, d, H, integer, cap=None):
     """The SDDMM kernel and the prologue SpMM kernel, each against its
-    plain version on the same CUDA tensors.  Returns the max abs
+    plain version on the same CUDA tensors (with ``cap``, on a steering
+    cut into units of at most ``cap`` real slots).  Returns the max abs
     differences (logits, prologue output)."""
     cfg = p.config
-    steer = ops.device_steering(p, device)
+    steer = _steering(p, device, cap)
     draw = ((lambda *s: rng.integers(-3, 4, s).astype(np.float32))
             if integer else
             (lambda *s: rng.standard_normal(s).astype(np.float32)))
@@ -313,7 +352,10 @@ def _gat_compare(p, device, rng, d, H, integer):
         np.float32)).to(device)
     geo = dict(V=cfg.V, R=cfg.R, K=p.K, n_blocks=p.n_blocks,
                n_rows=p.n_rows)
-    if H == 1:        # the single-head entry point, as GAT serving calls it
+    if cap is not None:
+        got = list(sddmm_ops._stats_call(steer, Q, K, scale=float(
+            1.0 / np.sqrt(d)), slope=SLOPE, **geo))
+    elif H == 1:      # the single-head entry point, as GAT serving calls it
         got = [t[None] for t in sddmm_ops.sddmm_softmax_stats(p, Q[0], K[0])]
     else:
         got = list(sddmm_ops.sddmm_softmax_stats(p, Q, K))
@@ -339,7 +381,10 @@ def _gat_compare(p, device, rng, d, H, integer):
     fin = torch.isfinite(want[0])
     err_lg = float((got[0][fin] - want[0][fin]).abs().max()) \
         if bool(fin.any()) else 0.0
-    if H == 1:
+    if cap is not None:
+        out = ops._call(steer, B, vals=got[0], rowmax=got[1], rowsum=got[2],
+                        dblk=cfg.dblk, **geo)
+    elif H == 1:
         out = ops.paramspmm_with_vals(p, got[0][0], B[0],
                                       stats=(got[1][0], got[2][0]))[None]
     else:
@@ -353,19 +398,21 @@ def _gat_compare(p, device, rng, d, H, integer):
     return err_lg, float((out - ref).abs().max())
 
 
-def phase_gat_grid(device):
+def phase_gat_grid(device, *, cap=None):
     """Phase 3, GAT kernels: the fused SDDMM → softmax stats and the
-    prologue SpMM against their plain versions."""
+    prologue SpMM against their plain versions.  With ``cap``, the bucket
+    grid only, with work units of at most ``cap`` real slots."""
     rng = np.random.default_rng(2)
     g = rmat(13, 8, seed=31)
     union = _union(g, 8, seed=5)
     bucket = BucketPolicy.default().pick(union.n_rows, union.nnz)
     cases, err_lg, err_out = 0, 0.0, 0.0
+    tag = "[gat grid]" if cap is None else f"[gat grid cap={cap}]"
 
     def run(p, d, H):
         nonlocal cases, err_lg, err_out
         for integer in (True, False):
-            e_lg, e_out = _gat_compare(p, device, rng, d, H, integer)
+            e_lg, e_out = _gat_compare(p, device, rng, d, H, integer, cap)
             if not integer:
                 err_lg = max(err_lg, e_lg)
             err_out = max(err_out, e_out)
@@ -378,13 +425,18 @@ def phase_gat_grid(device):
                     cfg = SpMMConfig(V=v, S=s, B=b, F=f, W=r // v)
                     p = pack_subgraph(union, PackGeom.from_bucket(bucket,
                                                                   cfg))
+                    check(cap is None
+                          or _steering(p, device, cap).n_partials > 0,
+                          f"cap={cap} splits no group of {cfg.astuple()}")
                     for d in (16, 64):
                         run(p, d, 1)
                     if r == 16 and f == 1:
                         run(p, 16, 4)
-    print(f"[gat grid] bucket packs: {cases} cases match (max abs err: "
+    print(f"{tag} bucket packs: {cases} cases match (max abs err: "
           f"logits {err_lg:.3e} on float Q/K, prologue spmm "
           f"{err_out:.3e})")
+    if cap is not None:
+        return cases, err_lg, err_out
     g17 = rmat(17, 6, seed=22)
     picked = pick_config(g17, 64, op="gat")
     configs = [picked] + [SpMMConfig(V=v, S=s, B=b, W=16 // v)
@@ -567,6 +619,101 @@ def phase_serve_gat(device, *, requests=64, seed=0):
           f"layers × {len(svc.batch_log)} batches each)")
     _report("gat", svc, results, spans, wall)
     return launches, worst
+
+
+# ------------------------------------------------------------ hub case
+HUB_N = 4096                # nodes of the hub graph
+TINY_CAP = 4                # real slots per unit in the split-path grids
+
+
+def _hub_graph(integer):
+    """A star over ``HUB_N`` nodes (node 0's row and column hold every
+    node) plus ~4 random edges a row: the group of node 0's block holds
+    ~4,200 real slots against a mean of ~100, so it spans many units at
+    the wrapper's own cap.  Integer edges (±1, ±2), or the
+    GCN-normalized floats of the same pattern (as the rmat17 grid)."""
+    rng = np.random.default_rng(11)
+    n = HUB_N
+    rows = np.concatenate([rng.integers(0, n, 4 * n), np.zeros(n, np.int64),
+                           np.arange(n)])
+    cols = np.concatenate([rng.integers(0, n, 4 * n), np.arange(n),
+                           np.zeros(n, np.int64)])
+    key = np.unique(rows * n + cols)
+    rows, cols = key // n, key % n
+    vals = rng.choice([-2.0, -1.0, 1.0, 2.0], rows.size).astype(np.float32)
+    csr = CSRMatrix.from_coo(rows, cols, vals, n, n, sum_duplicates=False)
+    return csr if integer else _normalized(csr)
+
+
+def phase_hub(device):
+    """Phase 3, hub case: both redesigned kernels against their plain
+    versions on ``_hub_graph`` at the wrapper's cap, whose hub group spans
+    many units: V ∈ {1, 2} × S ∈ {False, True} × d ∈ {16, 64, 200}
+    (F = 2 at d = 200), every epilogue, the SDDMM → softmax stats and the
+    prologue SpMM at 1 and 4 heads; bit-exact on integer operands, the
+    grids' tolerances on float ones.  Returns (cases, max abs errors)."""
+    rng = np.random.default_rng(12)
+    cases, err_spmm, err_lg, err_out = 0, 0.0, 0.0, 0.0
+    for v in (1, 2):
+        for s in (False, True):
+            for d in (16, 64, 200):
+                cfg = SpMMConfig(V=v, S=s, F=2 if d > 128 else 1,
+                                 W=16 // v)
+                for integer in (True, False):
+                    g = _hub_graph(integer)
+                    p = build_pcsr(g.indptr, g.indices, g.data, g.n_rows,
+                                   g.n_cols, cfg)
+                    steer = ops.device_steering(p, device)
+                    hub = int(torch.bincount(steer.units[:, 2].long()).max())
+                    check(hub >= 8, f"hub group spans {hub} units only "
+                          f"({cfg.astuple()}, cap {steer.cap})")
+                    for spec in EPILOGUES.values():
+                        B, epi = _operands(rng, g.n_rows, d, spec, integer,
+                                           device)
+                        err = _compare(p, B, epi, integer, device)
+                        err_spmm = max(err_spmm, 0.0 if integer else err)
+                        cases += 1
+                    for H in (1, 4):
+                        e_lg, e_out = _gat_compare(p, device, rng, d, H,
+                                                   integer)
+                        if not integer:
+                            err_lg = max(err_lg, e_lg)
+                        err_out = max(err_out, e_out)
+                        cases += 1
+                print(f"[hub] {cfg.astuple()} d={d}: K={p.K}, "
+                      f"{steer.n_units} units for {steer.n_groups} groups, "
+                      f"hub group in {hub} units (cap {steer.cap}): match")
+    print(f"[hub] {cases} cases match (max abs err on float operands: "
+          f"spmm {err_spmm:.3e}, logits {err_lg:.3e}, prologue spmm "
+          f"{err_out:.3e})")
+    return cases, max(err_spmm, err_out), err_lg
+
+
+def phase_determinism(device):
+    """Phase 3: two launches of each redesigned kernel on the same float
+    operands give the same bits (no atomics; every merge in a fixed
+    order), on the hub graph and on rmat17 at the wrapper's cap."""
+    g17 = rmat(17, 6, seed=22)
+    graphs = (("hub", _hub_graph(False), SpMMConfig(V=2, S=True, W=8)),
+              ("rmat17", _normalized(g17), pick_config(g17, 64)))
+    for label, g, cfg in graphs:
+        p = build_pcsr(g.indptr, g.indices, g.data, g.n_rows, g.n_cols, cfg)
+        gen = torch.Generator(device=device).manual_seed(3)
+        B, Q, K = (torch.randn((n, 64), device=device, generator=gen)
+                   for n in (p.n_cols, p.n_rows, p.n_cols))
+        runs = []
+        for _ in range(2):
+            lg, rm, rs = sddmm_ops.sddmm_softmax_stats(p, Q, K)
+            runs.append((ops.paramspmm(p, B, bias=B[0], activation="relu"),
+                         lg, rm, rs,
+                         ops.paramspmm_with_vals(p, lg, B, stats=(rm, rs))))
+        torch.cuda.synchronize()
+        for a, b in zip(*runs):
+            check(torch.equal(a, b), f"{label}: two launches differ")
+        steer = ops.device_steering(p, device)
+        print(f"[determinism] {label} {cfg.astuple()}: {steer.n_units} units "
+              f"({steer.n_partials} partials): paramspmm, sddmm_softmax and "
+              f"the prologue give the same bits on two launches")
 
 
 # -------------------------------------------------- raw SDDMM, autograd
@@ -759,11 +906,21 @@ def eval_launches(model, n_layers):
             "sddmm_softmax": n_layers if model == "gat" else 0, "sddmm": 0}
 
 
+# profiler kernel names → family; a split group's merge kernel is its
+# kernel's family (it runs inside the same wrapper call)
+_FAMILIES = (("paramspmm", ("paramspmm_kernel", "paramspmm_merge_kernel")),
+             ("sddmm_softmax", ("sddmm_softmax_kernel",
+                                "sddmm_softmax_merge_kernel")),
+             ("sddmm", ("sddmm_kernel",)))
+
+
 def _kernel_family(name):
-    for k in ("paramspmm_kernel", "sddmm_softmax_kernel", "sddmm_kernel"):
-        if k in name:
-            return k[:-len("_kernel")]
-    return "other"
+    """(family, whether ``name`` is the family's main kernel)."""
+    for fam, names in _FAMILIES:
+        for k in names:
+            if k + "<" in name or k + "(" in name:
+                return fam, k == names[0]
+    return "other", False
 
 
 def _train_counted(task, name, device, steps, on_step=None):
@@ -815,7 +972,8 @@ def train_on_card(task, name, device, steps):
                                          on_step=lambda _: prof.step())
     check(len(saved) == 1, f"{name}: {len(saved)} profiler windows")
     # device ms per steady step by kernel family: our kernels as the
-    # profiler's mean time per launch × the launches a step makes (the
+    # profiler's time per wrapper launch (main kernel and merge together,
+    # over the main kernel's count) × the launches a step makes (the
     # wrappers' counts, checked above), the rest summed over the window
     total = {"paramspmm": 0.0, "sddmm_softmax": 0.0, "sddmm": 0.0,
              "other": 0.0}
@@ -826,9 +984,9 @@ def train_on_card(task, name, device, steps):
             t = getattr(e, "cuda_time_total", 0.0)
         if t <= 0:
             continue
-        fam = _kernel_family(e.key)
+        fam, main = _kernel_family(e.key)
         total[fam] += t / 1e3
-        if fam in seen:
+        if main:
             seen[fam] += e.count
     check(all(seen[k] > 0 for k in KERNELS if per_step[k]),
           f"{name}: the profiler saw no launch of {seen} (device time "
@@ -948,6 +1106,32 @@ def phase_train_large(device, *, steps=5):
 
 
 # -------------------------------------------------------------- timing
+def device_ms(fn, family, reps=20, warmup=3):
+    """Device time per call of ``fn``'s kernels of ``family`` (a split
+    group's merge included), from ``torch.profiler``: unlike ``cuda_ms``
+    it leaves out the host time of the wrapper, which sets a small
+    input's event time.  None (not measured) if two profiled windows see
+    no such kernel."""
+    from torch.profiler import ProfilerActivity, profile
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    for _ in range(2):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        us = sum(e.device_time_total for e in prof.key_averages()
+                 if _kernel_family(e.key)[0] == family)
+        if us > 0:
+            return us / reps / 1e3
+    return None
+
+
+def _ms(x):
+    return "not measured" if x is None else f"{x:.4f}"
+
+
 def cuda_ms(fn, reps=50, warmup=5):
     for _ in range(warmup):
         fn()
@@ -962,22 +1146,36 @@ def cuda_ms(fn, reps=50, warmup=5):
     return start.elapsed_time(end) / reps
 
 
-def _bound(p, steer, B, out_numel, epi):
-    """Least time for the work: every input read once + the output written
-    once over the HBM rate, vs the real MACs over the float32 peak."""
-    nbytes = (B.numel() * 4 + out_numel * 4
-              + sum(t.numel() * t.element_size()
-                    for t in (steer.colidx, steer.lrow, steer.trow,
-                              steer.vals, steer.groups))
-              + sum(t.numel() * 4 for k, t in epi.items()
-                    if k != "activation"))
-    flops = 2.0 * p.nnz * B.shape[1]
+def _bound(nbytes, flops):
+    """Least time for a function's work: ``nbytes`` (each input read once,
+    each output written once) over the HBM rate, against ``flops`` over
+    the float32 peak.  Returns (ms, what bounds it)."""
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / F32_FLOP_PER_S
     return (max(t_bytes, t_ops) * 1e3,
             "bytes" if t_bytes >= t_ops else "operations")
 
 
-def time_one(label, csr, p, dim, device, epi_spec=None):
+def _csr_bytes(csr, values=True):
+    """What any format must read of A: its pattern as CSR (a row pointer,
+    a column per nonzero) and, with ``values``, a value per nonzero, at 4
+    bytes each.  PCSR's padding, trow and the group, unit and split tables
+    are a format's own traffic, and so is a split group's partial
+    workspace: none is counted."""
+    return 4 * (csr.n_rows + 1 + csr.nnz * (2 if values else 1))
+
+
+def _units(steer):
+    return {"units": steer.n_units, "groups": steer.n_groups,
+            "partials": steer.n_partials, "unit_cap": steer.cap,
+            "largest_unit": steer.most}
+
+
+def _units_text(steer):
+    return (f"[{steer.n_units} units for {steer.n_groups} groups, largest "
+            f"{steer.most} real slots, {steer.n_partials} partials]")
+
+
+def time_one(label, csr, p, dim, device, epi_spec=None, later=None):
     """Kernel, plain version and cuSPARSE on the same inputs."""
     rng = np.random.default_rng(1)
     cfg = p.config
@@ -989,6 +1187,8 @@ def time_one(label, csr, p, dim, device, epi_spec=None):
         n_rows=p.n_rows, **epi)
     row = {"at": label, "config": list(cfg.astuple()), "dim": dim,
            "nnz": p.nnz, "ms": cuda_ms(kernel), "plain_ms": cuda_ms(plain)}
+    if later is not None:
+        later.append((row, kernel, "paramspmm"))
     if not epi_spec:
         indptr = np.concatenate([csr.indptr, np.full(
             p.n_rows - csr.n_rows, csr.indptr[-1])])
@@ -1005,9 +1205,14 @@ def time_one(label, csr, p, dim, device, epi_spec=None):
               f"{label}: cuSPARSE and the kernel disagree")
     else:
         row["library_ms"] = None
-    row["bound_ms"], row["bound_by"] = _bound(p, steer, B,
-                                              p.n_rows * dim, epi)
-    print(f"[time] {label} {cfg.astuple()} dim {dim} "
+    # B read once, the output written once, A as CSR, the epilogue's
+    # operands read once
+    row["bound_ms"], row["bound_by"] = _bound(
+        4 * (csr.n_cols + csr.n_rows) * dim + _csr_bytes(csr)
+        + sum(t.numel() * 4 for k, t in epi.items() if k != "activation"),
+        2.0 * csr.nnz * dim)
+    row.update(_units(steer))
+    print(f"[time] {label} {cfg.astuple()} dim {dim} {_units_text(steer)} "
           f"{'+epilogue ' if epi_spec else ''}kernel {row['ms']:.4f} ms, "
           f"plain {row['plain_ms']:.4f} ms, library "
           f"{row['library_ms'] if row['library_ms'] is None else round(row['library_ms'], 4)} ms, "
@@ -1025,22 +1230,7 @@ def _csr_tensor(indptr, indices, data, shape, device):
             check_invariants=True)
 
 
-def _gat_bound(p, steer, operands, out_numel, dim):
-    """Least time for one GAT kernel's work: its inputs read once and its
-    outputs written once over the HBM rate, vs its 2·nnz·dim MACs over
-    the float32 peak."""
-    nbytes = (sum(t.numel() * t.element_size() for t in operands)
-              + out_numel * 4
-              + sum(t.numel() * t.element_size()
-                    for t in (steer.colidx, steer.lrow, steer.trow,
-                              steer.vals, steer.groups)))
-    flops = 2.0 * p.nnz * dim
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / F32_FLOP_PER_S
-    return (max(t_bytes, t_ops) * 1e3,
-            "bytes" if t_bytes >= t_ops else "operations")
-
-
-def time_gat(label, csr, p, dim, device):
+def time_gat(label, csr, p, dim, device, later):
     """The SDDMM kernel and the prologue SpMM kernel, each beside its plain
     version, a library call and its bound, on the same inputs."""
     rng = np.random.default_rng(3)
@@ -1070,14 +1260,18 @@ def time_gat(label, csr, p, dim, device):
     lib_max = torch.full((p.n_rows,), -torch.inf, device=device
                          ).scatter_reduce(0, rows, x, "amax")
     torch.testing.assert_close(rm[:p.n_rows], lib_max, rtol=RTOL, atol=1e-5)
+    stats = lambda: sddmm_ops.sddmm_softmax_stats(p, Q, K)
     sd = {"at": label, "kernel": "sddmm_softmax", **at,
-          "ms": cuda_ms(lambda: sddmm_ops.sddmm_softmax_stats(p, Q, K)),
+          "ms": cuda_ms(stats),
           "plain_ms": cuda_ms(lambda: sddmm_ops.sddmm_softmax_plain(
               steer, Q[None], K[None], scale=scale, slope=SLOPE, **geo)),
           "library_ms": cuda_ms(lib),
           "library": "torch.sparse.sampled_addmm: raw scores, no softmax"}
-    sd["bound_ms"], sd["bound_by"] = _gat_bound(
-        p, steer, (Q, K), lg.numel() + rm.numel() + rs.numel(), dim)
+    # Q and K read once, the pattern as CSR, a logit per nonzero and two
+    # stats per row written once
+    sd["bound_ms"], sd["bound_by"] = _bound(
+        4 * ((csr.n_rows + csr.n_cols) * dim + csr.nnz + 2 * csr.n_rows)
+        + _csr_bytes(csr, values=False), 2.0 * csr.nnz * dim)
 
     # the prologue SpMM; cuSPARSE SpMM on a CSR that already holds α
     alpha = sddmm_ops.normalize_from_stats(lg, rm, rs, steer.lrow,
@@ -1100,10 +1294,16 @@ def time_gat(label, csr, p, dim, device):
                steer, Vf, vals=lg, rowmax=rm, rowsum=rs, **geo)),
            "library_ms": cuda_ms(lib),
            "library": "torch.sparse.mm on a CSR holding α: α given"}
-    pro["bound_ms"], pro["bound_by"] = _gat_bound(
-        p, steer, (Vf, lg, rm, rs), p.n_rows * dim, dim)
+    # Vf, a logit per nonzero and two stats per row read once, the pattern
+    # as CSR, the output written once
+    pro["bound_ms"], pro["bound_by"] = _bound(
+        4 * ((csr.n_cols + csr.n_rows) * dim + csr.nnz + 2 * csr.n_rows)
+        + _csr_bytes(csr, values=False), 2.0 * csr.nnz * dim)
+    later += [(sd, stats, "sddmm_softmax"), (pro, kernel, "paramspmm")]
     for row in (sd, pro):
-        print(f"[time] {label} {cfg.astuple()} dim {dim} {row['kernel']}: "
+        row.update(_units(steer))
+        print(f"[time] {label} {cfg.astuple()} dim {dim} "
+              f"{_units_text(steer)} {row['kernel']}: "
               f"kernel {row['ms']:.4f} ms, plain {row['plain_ms']:.4f} ms, "
               f"library {row['library_ms']:.4f} ms ({row['library']}), "
               f"bound {row['bound_ms']:.4f} ms ({row['bound_by']})")
@@ -1141,15 +1341,10 @@ def time_sddmm(label, csr, p, dim, device):
                n_rows=p.n_rows)),
            "library_ms": cuda_ms(lib),
            "library": "torch.sparse.sampled_addmm (cuSPARSE SDDMM)"}
-    # what the function must move, in any format: the graph's rows of Q
-    # and K read once, its pattern as CSR (row pointer, column per
-    # nonzero) read once, and one score per nonzero written
-    nbytes = 4 * (csr.n_rows * dim + csr.n_cols * dim + csr.n_rows + 1
-                  + 2 * csr.nnz)
-    t_bytes = nbytes / HBM_BYTES_PER_S
-    t_ops = 2.0 * p.nnz * dim / F32_FLOP_PER_S
-    row["bound_ms"] = max(t_bytes, t_ops) * 1e3
-    row["bound_by"] = "bytes" if t_bytes >= t_ops else "operations"
+    # Q and K read once, the pattern as CSR, a score per nonzero written
+    row["bound_ms"], row["bound_by"] = _bound(
+        4 * ((csr.n_rows + csr.n_cols) * dim + csr.nnz)
+        + _csr_bytes(csr, values=False), 2.0 * csr.nnz * dim)
     print(f"[time] {label} {cfg.astuple()} dim {dim} sddmm: kernel "
           f"{row['ms']:.4f} ms, plain {row['plain_ms']:.4f} ms, library "
           f"{row['library_ms']:.4f} ms ({row['library']}), bound "
@@ -1158,7 +1353,10 @@ def time_sddmm(label, csr, p, dim, device):
 
 
 def phase_timing(device):
-    rows = []
+    """Phase 7.  Every row is timed with CUDA events first; the device times
+    from ``torch.profiler`` are read after all of them, since a profiled
+    window leaves the host slower to launch for the rest of the process."""
+    rows, later = [], []
     g = rmat(13, 8, seed=31)
     union = _union(g, 8, seed=5)
     bucket = BucketPolicy.default().pick(union.n_rows, union.nnz)
@@ -1167,31 +1365,39 @@ def phase_timing(device):
     padded = CSRMatrix(np.concatenate([union.indptr, np.full(
         p.n_rows - union.n_rows, union.indptr[-1])]), union.indices,
         union.data, p.n_rows, p.n_rows)
-    rows.append(time_one(f"serve batch {bucket.key}", padded, p, 64, device))
-    rows.append(time_one(f"serve batch {bucket.key}", padded, p, 64, device,
-                         {"bias": True, "activation": "relu"}))
+    epi = {"bias": True, "activation": "relu"}
     g17 = rmat(17, 6, seed=22)
     p17 = build_pcsr(g17.indptr, g17.indices, g17.data, g17.n_rows,
                      g17.n_cols, pick_config(g17, 64))
-    rows.append(time_one("rmat17", g17, p17, 64, device))
-    rows.append(time_one("rmat17", g17, p17, 64, device,
-                         {"bias": True, "activation": "relu"}))
     # corpus("large")'s kreg150k: uniform degree, no hub group
     gk = kregular(150_000, 6, seed=29)
     pk = build_pcsr(gk.indptr, gk.indices, gk.data, gk.n_rows, gk.n_cols,
                     pick_config(gk, 64))
-    rows.append(time_one("kreg150k", gk, pk, 64, device))
+    for label, csr, pack, spec in (
+            (f"serve batch {bucket.key}", padded, p, None),
+            (f"serve batch {bucket.key}", padded, p, epi),
+            ("rmat17", g17, p17, None), ("rmat17", g17, p17, epi),
+            ("kreg150k", gk, pk, None)):
+        rows.append(time_one(label, csr, pack, 64, device, spec, later))
 
     gat_rows = []
     cfg = SteeringPackCache(dim=64, op="gat").get(bucket, union).config
     p = pack_subgraph(union, PackGeom.from_bucket(bucket, cfg))
-    gat_rows += time_gat(f"serve batch {bucket.key}", union, p, 64, device)
+    gat_rows += time_gat(f"serve batch {bucket.key}", union, p, 64, device,
+                         later)
     sd_rows = []
     for label, g in (("rmat17", g17), ("kreg150k", gk)):
         p = build_pcsr(g.indptr, g.indices, g.data, g.n_rows, g.n_cols,
                        pick_config(g, 64, op="gat"))
-        gat_rows += time_gat(label, g, p, 64, device)
+        gat_rows += time_gat(label, g, p, 64, device, later)
         sd_rows.append(time_sddmm(label, g, p, 64, device))
+    for row, call, family in later:
+        row["device_ms"] = device_ms(call, family)
+        print(f"[time device] {row['at']} {row['config']} dim {row['dim']} "
+              f"{row.get('kernel', 'paramspmm')}"
+              f"{' +epilogue' if row.get('library_ms', 0) is None else ''}"
+              f": {_ms(row['device_ms'])} ms a call on the device (events "
+              f"{row['ms']:.4f} ms)")
     return rows, gat_rows, sd_rows
 
 
@@ -1613,6 +1819,14 @@ def main() -> int:
     print(f"[gat grid] {gat_cases} kernel-vs-plain cases (each: SDDMM "
           f"kernel and prologue SpMM) in {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
+    tiny_cases, err_tiny = phase_kernel_grid(device, big=False, cap=TINY_CAP)
+    gat_tiny, err_tiny_lg, err_tiny_out = phase_gat_grid(device,
+                                                         cap=TINY_CAP)
+    hub_cases, err_hub, err_hub_lg = phase_hub(device)
+    phase_determinism(device)
+    print(f"[split] {tiny_cases} + {gat_tiny} tiny-cap and {hub_cases} hub "
+          f"cases, determinism in {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
     sd_cases, err_sddmm = phase_sddmm_grid(device)
     print(f"[sddmm grid] {sd_cases} cases in "
           f"{time.perf_counter() - t0:.1f} s")
@@ -1678,7 +1892,8 @@ def main() -> int:
         "launches_by_path": {"serving": spmm_launches,
                              "training": train_launches["paramspmm"]
                              + large_launches["paramspmm"]},
-        "max_abs_err": max(max_err, err_prologue, err_autograd),
+        "max_abs_err": max(max_err, err_prologue, err_autograd, err_tiny,
+                           err_tiny_out, err_hub),
         "ms": main_row["ms"], "plain_ms": main_row["plain_ms"],
         "bound_ms": main_row["bound_ms"], "bound_by": main_row["bound_by"],
         "library_ms": main_row["library_ms"], "at": at(main_row),
@@ -1691,7 +1906,7 @@ def main() -> int:
         "launches_by_path": {"serving": gat_launches[1],
                              "training": train_launches["sddmm_softmax"]
                              + large_launches["sddmm_softmax"]},
-        "max_abs_err": err_logits,
+        "max_abs_err": max(err_logits, err_tiny_lg, err_hub_lg),
         "ms": sm_row["ms"], "plain_ms": sm_row["plain_ms"],
         "bound_ms": sm_row["bound_ms"], "bound_by": sm_row["bound_by"],
         "library_ms": sm_row["library_ms"], "at": at(sm_row),

@@ -6,7 +6,8 @@ kernel's wrapper loads with ``ctypes``.  No source includes PyTorch's
 headers, so a build takes seconds rather than minutes.  Builds happen at
 first use, never at import, into ``build/repro_torch/`` at the root of
 the checkout (listed in ``.gitignore``); a library's file name carries a
-hash of its source and flags, so an edited source is rebuilt.
+hash of its source, the shared headers and the flags, so an edited source
+or header is rebuilt.
 """
 from __future__ import annotations
 
@@ -47,7 +48,10 @@ def sources() -> list[str]:
 
 
 def library_path(name: str) -> Path:
-    src = (CSRC_DIR / f"{name}.cu").read_bytes()
+    """The library's path; its name hashes the source, the headers of
+    ``csrc/`` (which any source may include) and the flags."""
+    src = (CSRC_DIR / f"{name}.cu").read_bytes() + b"".join(
+        h.read_bytes() for h in sorted(CSRC_DIR.glob("*.h")))
     tag = hashlib.sha1(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
     return BUILD_DIR / f"lib{name}-{tag}.so"
 

@@ -7,19 +7,24 @@ Dispatch goes through *covered* steering arrays
 included, is one chunk group, so the kernel zeroes it and runs the fused
 epilogue (per-row scale, per-feature bias, dense residual, activation) on
 it.  ``Steering`` carries those arrays on a device together with the
-group table the kernel is launched over.  With softmax stats the kernel
+group table and the *work-unit* table the kernels are launched over
+(``work_units``: contiguous slot ranges of at most ``cap`` real slots
+inside one group, so a hub group spreads over many thread blocks whose
+partial tiles are summed in unit order).  With softmax stats the kernel
 runs the GAT *prologue* instead: the slot values are logits and each slot
-weight is α = exp(logit − rowmax)/rowsum, computed in registers.
+weight is α = exp(logit − rowmax)/rowsum, computed once per slot.
 
 ``_call`` picks the implementation by the device of ``B``: on a CPU
 tensor the plain version (``paramspmm_plain``: the engine's gather +
 ``index_add_`` plus ``apply_epilogue``), on a CUDA tensor the kernel in
-``repro_torch/csrc/paramspmm.cu`` or an error.  Each kernel launch adds
-one to ``launch_count()``.
+``repro_torch/csrc/paramspmm.cu`` or an error.  Each call that launches
+adds one to ``launch_count()`` (the merge of split groups runs inside the
+same C entry point).
 """
 from __future__ import annotations
 
 import ctypes
+import weakref
 from dataclasses import dataclass
 
 import numpy as np
@@ -34,6 +39,7 @@ _ACT_CODE = {"none": 0, "relu": 1, "leaky_relu": 2}
 MAX_R = 32            # (R, Dblk) tile ≤ 32 × 512 float32 = 64 KB smem
 MAX_DBLK = 512        # F ≤ 4
 LEAKY_SLOPE = 0.2     # leaky_relu's negative slope, as in the reference
+UNIT_MIN_CAP = 256    # real slots a work unit may always hold
 
 _launches = 0
 
@@ -72,33 +78,136 @@ def group_table(trow: np.ndarray, init: np.ndarray, fini: np.ndarray,
     return np.concatenate([starts, [C]]).astype(np.int32)
 
 
-@dataclass(frozen=True)
+def unit_cap(real_per_group: np.ndarray) -> int:
+    """The wrapper's cap on real slots per work unit, from the pack: twice
+    the mean real slots of a non-empty chunk group, and at least
+    ``UNIT_MIN_CAP``.  Typical groups stay whole; a hub group (a
+    power-law graph's, tens of times the mean) is cut into many units."""
+    nz = real_per_group[real_per_group > 0]
+    mean = -(-int(nz.sum()) // int(nz.size)) if nz.size else 0
+    return max(UNIT_MIN_CAP, 2 * mean)
+
+
+def work_units(vals: np.ndarray, groups: np.ndarray, K: int,
+               cap: int | None = None):
+    """The work schedule of a covered steering, built on the host.
+
+    A *unit* is a contiguous slot range ``[begin, end)`` (flat slot
+    indices ``c·K + k``) inside one chunk group, holding at most ``cap``
+    real slots (slots whose stored ``vals`` are not all 0).  Units are cut
+    at chunk boundaries, and inside a chunk only where that chunk alone
+    holds more than ``cap`` real slots.  A group with at most ``cap`` real
+    slots is one unit, which the kernels write directly with the epilogue
+    fused.  The units of a *split* group each write a partial into a
+    workspace, at consecutive indices; a merge step sums them in unit
+    order.
+
+    Returns ``(units, splits, n_partials, cap, most, span)``: ``units``
+    ``(U, 4)`` int32 rows ``[begin, end, group, partial]`` in group order
+    (``partial`` −1 for a group that is one unit), ``splits`` ``(S, 3)``
+    int32 rows ``[group, first partial, end partial]`` of the split
+    groups, ``most`` the largest number of real slots in a unit and
+    ``span`` the most slots a unit covers."""
+    C = int(groups[-1])
+    if C * K > np.iinfo(np.int32).max:
+        raise ValueError(f"{C}×{K} slots exceed the int32 unit table")
+    real = (np.asarray(vals) != 0).any(axis=1).reshape(-1)      # (C·K,)
+    cum = np.concatenate([[0], np.cumsum(real, dtype=np.int64)])
+    g_slot = groups.astype(np.int64) * K
+    per_group = cum[g_slot[1:]] - cum[g_slot[:-1]]
+    cap = unit_cap(per_group) if cap is None else int(cap)
+    if cap < 1:
+        raise ValueError(f"unit cap must be ≥ 1, got {cap}")
+    # one unit per group, then each group over the cap replaced by its cuts
+    whole = np.stack([g_slot[:-1], g_slot[1:], np.arange(len(per_group)),
+                      np.full(len(per_group), -1)], axis=1)
+    pieces, splits, n_partials, prev = [], [], 0, 0
+    for g in np.flatnonzero(per_group > cap):
+        b0, b1 = int(g_slot[g]), int(g_slot[g + 1])
+        # cut candidates: chunk starts, plus the slot of every cap-th real
+        # slot inside a chunk that alone holds more than cap
+        cand = [b0]
+        for c in range(int(groups[g]), int(groups[g + 1])):
+            s0 = c * K
+            if s0 > b0:
+                cand.append(s0)
+            if cum[s0 + K] - cum[s0] > cap:
+                pos = s0 + np.flatnonzero(real[s0:s0 + K])
+                cand.extend(int(x) for x in pos[cap::cap])
+        cand.append(b1)
+        cand = np.asarray(cand, np.int64)
+        cr = cum[cand]
+        rows, p0, i = [], n_partials, 0
+        while i < len(cand) - 1:
+            # the farthest candidate within cap real slots of cand[i]
+            j = int(np.searchsorted(cr, cr[i] + cap, side="right")) - 1
+            j = max(j, i + 1)
+            rows.append((cand[i], cand[j], g, n_partials))
+            n_partials += 1
+            i = j
+        pieces += [whole[prev:g], np.asarray(rows, np.int64)]
+        splits.append((g, p0, n_partials))
+        prev = g + 1
+    pieces.append(whole[prev:])
+    rows = np.concatenate(pieces)
+    units = rows.astype(np.int32)
+    most = int((cum[units[:, 1]] - cum[units[:, 0]]).max())
+    span = int((units[:, 1] - units[:, 0]).max())
+    return (units, np.asarray(splits, np.int32).reshape(-1, 3), n_partials,
+            cap, most, span)
+
+
+@dataclass(frozen=True, eq=False)
 class Steering:
     """Covered steering arrays of one PCSR on one device, plus the group
-    table the kernel is launched over (built on the host, once per pack)."""
+    table and the work-unit table the kernels are launched over (both
+    built on the host, once per pack).  Compared by identity: its
+    ``SteeringArgs`` are cached per instance."""
 
     colidx: torch.Tensor   # (C·K,) int32
     lrow: torch.Tensor     # (C·K,) int32
     trow: torch.Tensor     # (C,)   int32
     vals: torch.Tensor     # (C, V, K) float32
     groups: torch.Tensor   # (n_groups + 1,) int32
+    units: torch.Tensor    # (U, 4) int32: begin, end, group, partial
+    splits: torch.Tensor   # (S, 3) int32: output block, first, end partial
+    n_partials: int        # units of split groups
+    cap: int               # real slots per unit at most
+    most: int              # real slots of the fullest unit
+    span: int              # slots of the longest unit
     n_cols: int            # colidx < n_cols (checked on the host)
 
     @property
     def n_groups(self) -> int:
         return int(self.groups.shape[0]) - 1
 
+    @property
+    def n_units(self) -> int:
+        return int(self.units.shape[0])
+
     @staticmethod
-    def from_pcsr(pcsr: PCSR, device) -> "Steering":
+    def from_pcsr(pcsr: PCSR, device, *, cap: int | None = None
+                  ) -> "Steering":
+        """``cap`` overrides ``unit_cap`` (tests force the split path)."""
         st = pcsr.steering(covered=True)
         if st["colidx"].size and int(st["colidx"].max()) >= pcsr.n_cols:
             raise ValueError("colidx out of range of the packed matrix")
         groups = group_table(st["trow"], st["init"], st["fini"],
                              pcsr.n_blocks)
+        units, splits, n_partials, cap, most, span = work_units(
+            st["vals"], groups, pcsr.K, cap)
+        # the merges write a split group's output block: name it, so the
+        # kernels need neither the group table nor trow to find it
+        splits = splits.copy()
+        splits[:, 0] = st["trow"][groups[splits[:, 0]]]
         dev = {k: torch.as_tensor(st[k], device=device)
                for k in ("colidx", "lrow", "trow", "vals")}
         return Steering(groups=torch.as_tensor(groups, device=device),
-                        n_cols=pcsr.n_cols, **dev)
+                        units=torch.as_tensor(units, device=device),
+                        splits=torch.as_tensor(splits, device=device),
+                        n_partials=n_partials, cap=cap, most=most,
+                        span=span, n_cols=pcsr.n_cols,
+                        **dev)
 
 
 def device_steering(pcsr: PCSR, device) -> Steering:
@@ -136,10 +245,9 @@ def paramspmm_plain(steer: Steering, B, *, V, R, K, n_blocks, n_rows,
                           LEAKY_SLOPE, residual)
 
 
-def _check_operands(steer, B, vals, rowmax, rowsum, scale, bias, residual,
-                    *, V, R, K, n_blocks, n_rows, activation):
-    if activation not in ACTIVATIONS:
-        raise ValueError(f"activation {activation!r} not in {ACTIVATIONS}")
+def check_steering(steer: Steering, *, V, R, K, n_blocks, n_rows):
+    """Raise unless ``steer`` has the geometry's shapes: one chunk group
+    per output block, and a unit table that tiles every slot."""
     C = int(steer.trow.shape[0])
     if (tuple(steer.vals.shape) != (C, V, K)
             or steer.colidx.shape[0] != C * K or steer.n_groups != n_blocks
@@ -147,6 +255,84 @@ def _check_operands(steer, B, vals, rowmax, rowsum, scale, bias, residual,
         raise ValueError("steering arrays do not match the geometry "
                          f"(C={C}, V={V}, K={K}, n_blocks={n_blocks}, "
                          f"R={R}, n_rows={n_rows})")
+    n_splits = int(steer.splits.shape[0])
+    if (tuple(steer.units.shape[1:]) != (4,)
+            or tuple(steer.splits.shape[1:]) != (3,)
+            or steer.n_units != steer.n_groups - n_splits + steer.n_partials):
+        raise ValueError(f"unit table ({steer.n_units} units, "
+                         f"{steer.n_partials} partials) does not match "
+                         f"{steer.n_groups} chunk groups")
+
+
+def vector_width(dim: int, *tensors) -> int:
+    """The widest load (4, 2 or 1 floats) that ``dim`` and the addresses
+    of ``tensors`` allow."""
+    for w in (4, 2):
+        if dim % w == 0 and all(t.data_ptr() % (4 * w) == 0
+                                for t in tensors):
+            return w
+    return 1
+
+
+class SteeringArgs(ctypes.Structure):
+    """A steering's device arrays and sizes as the C entry points of
+    ``csrc/paramspmm.cu`` and ``csrc/sddmm_softmax.cu`` take them
+    (``csrc/steering.h``, the same fields in order): one pointer a call in
+    place of thirteen arguments."""
+
+    _fields_ = [(name, ctypes.c_void_p) for name in (
+        "colidx", "lrow", "trow", "vals", "units", "splits")] + [
+        (name, ctypes.c_int) for name in (
+            "n_blocks", "n_chunks", "n_units", "n_splits", "n_partials",
+            "most", "span")]
+
+
+def check_steering_args(lib, kernel: str) -> None:
+    """Raise unless ``lib``'s ``SteeringArgs`` has the ctypes struct's
+    size (a field added or dropped on one side only)."""
+    lib.repro_steering_args_size.argtypes = []
+    lib.repro_steering_args_size.restype = ctypes.c_int
+    size = lib.repro_steering_args_size()
+    if size != ctypes.sizeof(SteeringArgs):
+        raise RuntimeError(f"{kernel}: csrc/steering.h's SteeringArgs is "
+                           f"{size} bytes, ops.SteeringArgs "
+                           f"{ctypes.sizeof(SteeringArgs)}")
+
+
+_STEERING_ARGS: "weakref.WeakKeyDictionary[Steering, SteeringArgs]" = \
+    weakref.WeakKeyDictionary()
+
+
+def steering_args(steer: Steering, kernel: str) -> SteeringArgs:
+    """``steer``'s ``SteeringArgs``, its arrays' types and layout checked
+    and the struct built on first use, then cached while ``steer``
+    lives."""
+    args = _STEERING_ARGS.get(steer)
+    if args is None:
+        for name in ("colidx", "lrow", "trow", "units", "splits", "vals"):
+            t = getattr(steer, name)
+            dtype = torch.float32 if name == "vals" else torch.int32
+            if t.dtype != dtype:
+                raise TypeError(f"CUDA {kernel} takes {name} as {dtype}, "
+                                f"got {t.dtype}")
+            if not t.is_contiguous():
+                raise ValueError(f"CUDA {kernel} needs a contiguous {name}")
+        args = SteeringArgs(
+            *(getattr(steer, k).data_ptr() for k in (
+                "colidx", "lrow", "trow", "vals", "units", "splits")),
+            steer.n_groups, int(steer.trow.shape[0]), steer.n_units,
+            int(steer.splits.shape[0]), steer.n_partials, steer.most,
+            steer.span)
+        _STEERING_ARGS[steer] = args
+    return args
+
+
+def _check_operands(steer, B, vals, rowmax, rowsum, scale, bias, residual,
+                    *, V, R, K, n_blocks, n_rows, activation):
+    if activation not in ACTIVATIONS:
+        raise ValueError(f"activation {activation!r} not in {ACTIVATIONS}")
+    check_steering(steer, V=V, R=R, K=K, n_blocks=n_blocks, n_rows=n_rows)
+    C = int(steer.trow.shape[0])
     if B.ndim not in (2, 3) or B.shape[-2] < steer.n_cols:
         raise ValueError(f"B must be (≥{steer.n_cols}, dim) or (H, "
                          f"≥{steer.n_cols}, dim), got {tuple(B.shape)}")
@@ -178,9 +364,9 @@ def _check_operands(steer, B, vals, rowmax, rowsum, scale, bias, residual,
                            ("residual", residual, (n_rows, dim))):
         if t is not None and tuple(t.shape) != shape:
             raise ValueError(f"{name} must be {shape}, got {tuple(t.shape)}")
-    devices = {t.device for t in (steer.colidx, steer.vals, steer.groups, B,
-                                  vals, rowmax, rowsum, scale, bias,
-                                  residual) if t is not None}
+    devices = {t.device for t in (steer.colidx, steer.vals, steer.groups,
+                                  steer.units, B, vals, rowmax, rowsum,
+                                  scale, bias, residual) if t is not None}
     if len(devices) != 1:
         raise ValueError(f"operands on several devices: {devices}")
 
@@ -193,10 +379,11 @@ def _lib():
     if _LIB is None:
         from repro_torch.kernels import build
         lib = build.load("paramspmm")
+        check_steering_args(lib, "paramspmm")
         p, i = ctypes.c_void_p, ctypes.c_int
         lib.repro_paramspmm_f32.argtypes = [
-            p, p, p, p, p, i, i, p, i, i, p, p, p, p, p, p, i, i, i, i, i,
-            i, i, ctypes.c_float, p]
+            ctypes.POINTER(SteeringArgs), p, p, p, i, i, p, p, p, p, p, p,
+            i, i, i, i, i, i, i, i, ctypes.c_float, p]
         lib.repro_paramspmm_f32.restype = i
         lib.repro_cuda_error_string.argtypes = [i]
         lib.repro_cuda_error_string.restype = ctypes.c_char_p
@@ -215,11 +402,8 @@ def _launch(steer: Steering, B, *, V, R, K, dblk, n_rows, vals, rowmax,
                          f"Dblk ≤ {MAX_DBLK}; got V={V}, R={R}, Dblk={dblk}")
     lead, (b_rows, dim) = tuple(B.shape[:-2]), B.shape[-2:]
     H = B.shape[0] if lead else 1
+    st = steering_args(steer, "paramspmm")
     for name, t, dtype in (
-            ("colidx", steer.colidx, torch.int32),
-            ("lrow", steer.lrow, torch.int32),
-            ("trow", steer.trow, torch.int32),
-            ("groups", steer.groups, torch.int32),
             ("vals", vals, torch.float32), ("B", B, torch.float32),
             ("rowmax", rowmax, torch.float32),
             ("rowsum", rowsum, torch.float32),
@@ -236,15 +420,19 @@ def _launch(steer: Steering, B, *, V, R, K, dblk, n_rows, vals, rowmax,
                       device=B.device)
     if n_rows == 0 or dim == 0 or H == 0:
         return out
+    # split groups' partial tiles: the design's workspace, summed in unit
+    # order by the merge step
+    partial = (torch.empty((H, steer.n_partials, R, dim),
+                           dtype=torch.float32, device=B.device)
+               if steer.n_partials else None)
     lib = _lib()
     ptr = lambda t: None if t is None else t.data_ptr()
     with torch.cuda.device(B.device):
         stream = torch.cuda.current_stream(B.device).cuda_stream
         err = lib.repro_paramspmm_f32(
-            ptr(steer.colidx), ptr(steer.lrow), ptr(steer.trow), ptr(vals),
-            ptr(steer.groups), steer.n_groups, int(steer.trow.shape[0]),
-            ptr(B), b_rows, dim, ptr(rowmax), ptr(rowsum), ptr(scale),
-            ptr(bias), ptr(residual), ptr(out), n_rows, H, V, R, K, dblk,
+            st, ptr(vals), ptr(partial), ptr(B), b_rows, dim, ptr(rowmax),
+            ptr(rowsum), ptr(scale), ptr(bias), ptr(residual), ptr(out),
+            n_rows, H, V, R, K, dblk, vector_width(dim, B),
             _ACT_CODE[activation], LEAKY_SLOPE, stream)
     if err != 0:
         raise RuntimeError("paramspmm kernel launch failed: "

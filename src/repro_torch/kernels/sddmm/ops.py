@@ -36,7 +36,11 @@ import torch
 
 from repro_torch.core.engine import _slot_rows, normalize_from_stats
 from repro_torch.core.pcsr import PCSR
-from repro_torch.kernels.paramspmm.ops import Steering, device_steering
+from repro_torch.kernels.paramspmm.ops import (Steering, SteeringArgs,
+                                               check_steering,
+                                               check_steering_args,
+                                               device_steering,
+                                               steering_args, vector_width)
 
 MAX_R = 32            # one warp's lanes hold a block's row stats
 
@@ -105,13 +109,7 @@ def sddmm_softmax_plain(steer: Steering, Q, K_mat, *, V, R, K, n_blocks,
 
 
 def _check_operands(steer, Q, K_mat, *, V, R, K, n_blocks, n_rows):
-    C = int(steer.trow.shape[0])
-    if (tuple(steer.vals.shape) != (C, V, K)
-            or steer.colidx.shape[0] != C * K or steer.n_groups != n_blocks
-            or n_rows > n_blocks * R):
-        raise ValueError("steering arrays do not match the geometry "
-                         f"(C={C}, V={V}, K={K}, n_blocks={n_blocks}, "
-                         f"R={R}, n_rows={n_rows})")
+    check_steering(steer, V=V, R=R, K=K, n_blocks=n_blocks, n_rows=n_rows)
     if (Q.ndim not in (2, 3) or K_mat.ndim != Q.ndim
             or Q.shape[:-2] != K_mat.shape[:-2]
             or Q.shape[-1] != K_mat.shape[-1] or Q.shape[-2] != n_rows
@@ -119,8 +117,8 @@ def _check_operands(steer, Q, K_mat, *, V, R, K, n_blocks, n_rows):
         raise ValueError(f"Q must be ([H,] {n_rows}, d) and K ([H,] "
                          f"≥{steer.n_cols}, d); got {tuple(Q.shape)} and "
                          f"{tuple(K_mat.shape)}")
-    devices = {t.device for t in (steer.colidx, steer.vals, steer.groups, Q,
-                                  K_mat)}
+    devices = {t.device for t in (steer.colidx, steer.vals, steer.groups,
+                                  steer.units, Q, K_mat)}
     if len(devices) != 1:
         raise ValueError(f"operands on several devices: {devices}")
 
@@ -128,8 +126,8 @@ def _check_operands(steer, Q, K_mat, *, V, R, K, n_blocks, n_rows):
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _ENTRY = {           # kernel → (C entry point, its argument types)
     "sddmm_softmax": ("repro_sddmm_softmax_f32",
-                      [_P] * 5 + [_I, _I, _P, _I, _P] + [_I] * 6
-                      + [_F, _F] + [_P] * 4),
+                      [ctypes.POINTER(SteeringArgs), _P, _P, _P, _I, _P]
+                      + [_I] * 7 + [_F, _F] + [_P] * 4),
     "sddmm": ("repro_sddmm_f32",
               [_P] * 4 + [_I, _P, _I, _P] + [_I] * 6 + [_P, _P]),
 }
@@ -143,6 +141,13 @@ def _lib(name: str):
         from repro_torch.kernels import build
         lib = build.load(name)
         fn_name, argtypes = _ENTRY[name]
+        if name == "sddmm_softmax":
+            check_steering_args(lib, name)
+            lib.repro_sddmm_sum_bytes.restype = ctypes.c_int
+            # the Σexp type the library was built with (float32 as
+            # shipped; float64 in chip_compare.py's variant)
+            lib.sum_dtype = {4: torch.float32, 8: torch.float64}[
+                lib.repro_sddmm_sum_bytes()]
         fn = getattr(lib, fn_name)
         fn.argtypes = argtypes
         fn.restype = ctypes.c_int
@@ -153,28 +158,26 @@ def _lib(name: str):
 
 
 def _check_launch(kernel: str, steer: Steering, Q, K_mat, *, V, R):
-    """Raise on anything the CUDA kernels do not take."""
+    """Raise on anything the CUDA kernels do not take; returns the
+    steering's ``SteeringArgs``."""
     if V not in (1, 2) or R > MAX_R:
         raise ValueError(f"CUDA {kernel} takes V ∈ {{1,2}}, R ≤ {MAX_R}; "
                          f"got V={V}, R={R}")
-    for name, t, dtype in (
-            ("colidx", steer.colidx, torch.int32),
-            ("lrow", steer.lrow, torch.int32),
-            ("trow", steer.trow, torch.int32),
-            ("groups", steer.groups, torch.int32),
-            ("vals", steer.vals, torch.float32), ("Q", Q, torch.float32),
-            ("K", K_mat, torch.float32)):
+    args = steering_args(steer, kernel)
+    for name, t, dtype in (("Q", Q, torch.float32),
+                           ("K", K_mat, torch.float32)):
         if t.dtype != dtype:
             raise TypeError(f"CUDA {kernel} takes {name} as {dtype}, got "
                             f"{t.dtype}")
         if not t.is_contiguous():
             raise ValueError(f"CUDA {kernel} needs a contiguous {name}")
+    return args
 
 
 def _stats_launch(steer: Steering, Q, K_mat, *, V, R, K, n_blocks, n_rows,
                   scale, slope):
     """Launch the fused SDDMM → softmax-stats kernel."""
-    _check_launch("sddmm_softmax", steer, Q, K_mat, V=V, R=R)
+    st = _check_launch("sddmm_softmax", steer, Q, K_mat, V=V, R=R)
     lead, d = tuple(Q.shape[:-2]), Q.shape[-1]
     H = Q.shape[0] if lead else 1
     C = int(steer.trow.shape[0])
@@ -185,15 +188,21 @@ def _stats_launch(steer: Steering, Q, K_mat, *, V, R, K, n_blocks, n_rows,
     rowsum = torch.empty_like(rowmax)
     if H == 0:
         return logits, rowmax, rowsum
+    # split groups' partial (max, Σexp) pairs, merged in unit order
     lib = _lib("sddmm_softmax")
-    ptr = lambda t: t.data_ptr()
+    part_max = part_sum = None
+    if steer.n_partials:
+        part_max = torch.empty((H, steer.n_partials, R), dtype=torch.float32,
+                               device=Q.device)
+        part_sum = torch.empty((H, steer.n_partials, R),
+                               dtype=lib.sum_dtype, device=Q.device)
+    ptr = lambda t: None if t is None else t.data_ptr()
     with torch.cuda.device(Q.device):
         stream = torch.cuda.current_stream(Q.device).cuda_stream
         err = lib.repro_sddmm_softmax_f32(
-            ptr(steer.colidx), ptr(steer.lrow), ptr(steer.trow),
-            ptr(steer.vals), ptr(steer.groups), steer.n_groups, C, ptr(Q),
-            n_rows, ptr(K_mat), K_mat.shape[-2], d, H, V, R, K, scale, slope,
-            ptr(logits), ptr(rowmax), ptr(rowsum), stream)
+            st, ptr(part_max), ptr(part_sum), ptr(Q), n_rows, ptr(K_mat),
+            K_mat.shape[-2], d, H, V, R, K, vector_width(d, Q, K_mat),
+            scale, slope, ptr(logits), ptr(rowmax), ptr(rowsum), stream)
     if err != 0:
         raise RuntimeError("sddmm_softmax kernel launch failed: "
                            + lib.repro_cuda_error_string(err).decode())

@@ -17,9 +17,13 @@ slot without a stored nonzero exactly 0.  The training operators'
 gradients on the card match the port on the CPU (bit-exact with integer
 operands for the SpMMs, ``rtol=1e-5, atol=1e-4`` otherwise), and a short
 ``train_gnn`` on the card follows the CPU's losses within ``rtol=1e-4``.
-Selective scan: the kernel within ``atol = rtol = 1e-5`` of its plain
-version (an FMA and another Σ_n order), an impulse at t = 0 reaching the
-last of 1024 steps, and a CUDA tensor never reaching the plain version;
+The ParamSpMM and SDDMM → softmax kernels are also held with work units
+cut to a few real slots (every real group split, partials merged in unit
+order), give the same bits on two launches, and index each head's stats by
+the block count.  Selective scan: the kernel within ``atol = rtol = 1e-5``
+of its plain version (an FMA and another Σ_n order), an impulse at t = 0
+reaching the last of 1024 steps, and a CUDA tensor never reaching the
+plain version;
 the reduced Hymba's prefill (one launch per layer) and decode on the card
 within ``atol = rtol = 5e-2`` of the port on the CPU (bf16).
 """
@@ -192,6 +196,123 @@ def test_gat_service_on_card_matches_cpu(cuda_device):
         assert a.rid == b.rid
         np.testing.assert_allclose(b.outputs, a.outputs, rtol=1e-4,
                                    atol=1e-4)
+
+
+SMALL_CAP = 3        # real slots per work unit: every real group splits
+
+
+def _geo(p):
+    cfg = p.config
+    return dict(V=cfg.V, R=cfg.R, K=p.K, n_blocks=p.n_blocks,
+                n_rows=p.n_rows)
+
+
+# epilogue operands and activation of each non-prologue mode
+SPLIT_EPILOGUES = {"plain": ((), "none"),
+                   "scale+bias+relu": (("scale", "bias"), "relu"),
+                   "residual+leaky_relu": (("residual",), "leaky_relu")}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cfg", CONFIGS, ids=lambda c: str(c.astuple()))
+@pytest.mark.parametrize("mode", list(SPLIT_EPILOGUES)
+                         + ["prologue", "prologue H=4"])
+def test_split_units_match_plain(cuda_device, cfg, mode):
+    """Both redesigned kernels with work units of at most SMALL_CAP real
+    slots (split groups, partials merged in unit order) against their
+    plain versions: bit-exact on integer operands, the tolerances above on
+    float ones; one launch counted per call."""
+    for integer in (True, False):
+        p = _pack(cfg, integer)
+        steer = ops.Steering.from_pcsr(p, cuda_device, cap=SMALL_CAP)
+        assert steer.n_partials > 0 and steer.n_units > steer.n_groups
+        rng = np.random.default_rng(4)
+        draw = ((lambda *s: rng.integers(-3, 4, s)) if integer
+                else (lambda *s: rng.standard_normal(s)))
+        t = lambda *s: torch.tensor(draw(*s), dtype=torch.float32,
+                                    device=cuda_device)
+        if mode in SPLIT_EPILOGUES:
+            names, activation = SPLIT_EPILOGUES[mode]
+            shapes = {"scale": (90,), "bias": (72,), "residual": (90, 72)}
+            epi = {k: t(*shapes[k]) for k in names}
+            B = t(90, 72)
+            before = ops.launch_count()
+            got = ops._call(steer, B, dblk=cfg.dblk, activation=activation,
+                            **_geo(p), **epi)
+            torch.cuda.synchronize()
+            assert ops.launch_count() == before + 1
+            want = ops.paramspmm_plain(steer, B, activation=activation,
+                                       **_geo(p), **epi)
+            if integer:
+                assert torch.equal(got, want)
+            else:
+                torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-4)
+            continue
+        H = 4 if mode.endswith("H=4") else 1
+        Q, K, B = _sddmm_case(p, cuda_device, 16, H, integer)
+        before = sddmm_ops.launch_count()
+        got = sddmm_ops._stats_call(steer, Q, K, scale=0.25, slope=0.2,
+                                    **_geo(p))
+        torch.cuda.synchronize()
+        assert sddmm_ops.launch_count() == before + 1
+        want = sddmm_ops.sddmm_softmax_plain(steer, Q, K, scale=0.25,
+                                             slope=0.2, **_geo(p))
+        if integer:
+            assert torch.equal(got[0], want[0])
+        else:
+            torch.testing.assert_close(got[0], want[0], rtol=1e-5,
+                                       atol=1e-5)
+        for a, b in zip(got[1:], want[1:]):
+            torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-6)
+        out = ops._call(steer, B, vals=got[0], rowmax=got[1], rowsum=got[2],
+                        dblk=cfg.dblk, **_geo(p))
+        ref = ops.paramspmm_plain(steer, B, vals=got[0], rowmax=got[1],
+                                  rowsum=got[2], **_geo(p))
+        torch.testing.assert_close(out, ref, rtol=1e-5, atol=1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cap", [None, SMALL_CAP], ids=["cap", "small"])
+def test_two_launches_give_the_same_bits(cuda_device, cap):
+    """No atomics and every merge in a fixed order: two launches of each
+    redesigned kernel on the same float operands are bit-identical."""
+    cfg = SpMMConfig(V=2, S=True, B=True, W=8)
+    p = _pack(cfg, integer=False)
+    steer = ops.Steering.from_pcsr(p, cuda_device, cap=cap)
+    Q, K, B = _sddmm_case(p, cuda_device, 64, 4, integer=False)
+    runs = []
+    for _ in range(2):
+        lg, rm, rs = sddmm_ops._stats_call(steer, Q, K, scale=0.125,
+                                           slope=0.2, **_geo(p))
+        runs.append((lg, rm, rs,
+                     ops._call(steer, B, vals=lg, rowmax=rm, rowsum=rs,
+                               dblk=cfg.dblk, **_geo(p)),
+                     ops._call(steer, K[0], dblk=cfg.dblk, **_geo(p),
+                               bias=K[0, 0], activation="relu")))
+    torch.cuda.synchronize()
+    for a, b in zip(*runs):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_multi_head_stats_offsets_with_split_units(cuda_device):
+    """Stats are indexed by the block count, not the grid: with more units
+    than groups, each of 4 heads' stats equal that head run alone."""
+    cfg = SpMMConfig(V=1, S=True, W=16)
+    p = _pack(cfg, integer=True)
+    steer = ops.Steering.from_pcsr(p, cuda_device, cap=SMALL_CAP)
+    assert steer.n_units != steer.n_groups
+    Q, K, _ = _sddmm_case(p, cuda_device, 16, 4, integer=True)
+    kw = dict(scale=0.25, slope=0.2, **_geo(p))
+    together = sddmm_ops._stats_call(steer, Q, K, **kw)
+    want = sddmm_ops.sddmm_softmax_plain(steer, Q, K, **kw)
+    for h in range(4):
+        alone = sddmm_ops._stats_call(steer, Q[h:h + 1], K[h:h + 1], **kw)
+        for a, b in zip(together, alone):
+            assert torch.equal(a[h], b[0])
+        assert torch.equal(together[0][h], want[0][h])
+        for a, w in zip(together[1:], want[1:]):
+            torch.testing.assert_close(a[h], w[h], rtol=1e-5, atol=1e-6)
 
 
 @pytest.mark.cuda
