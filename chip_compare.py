@@ -2,6 +2,7 @@
 """Comparisons of two versions on one NVIDIA GPU, in one run.
 
     python3 chip_compare.py spmm ROOT [ROOT ...]
+    python3 chip_compare.py sddmm ROOT [ROOT ...]
     python3 chip_compare.py serve ROOT [ROOT ...]
     python3 chip_compare.py sddmm-sum
 
@@ -10,7 +11,11 @@
 and without it, kreg150k; dim 64) with the ``chip_smoke.py`` and
 ``src/repro_torch`` of each checkout ROOT, each in a process of its own
 and in the order given (give parent, change, change, parent to see the
-drift).  ``serve`` runs the serving phase of each ROOT's
+drift).  ``sddmm`` does the same for the raw SDDMM rows (rmat17 and
+kreg150k at their GAT-picked configs, and the GAT training packs of
+``chip_smoke.py``'s 1,024- and 131,072-node graphs; dim 64), each with the kernel's
+device time from ``torch.profiler`` beside its events.  ``serve`` runs
+the serving phase of each ROOT's
 ``chip_smoke.py`` (GCN, GIN and GAT at full width on rmat13, each request
 checked as that phase checks it: its 64-request stream a model, on a
 fresh service ``SERVE_REPEATS`` times a process) and reads each model's
@@ -87,6 +92,72 @@ def spmm_rows(root: Path) -> list:
     for r in rows:
         r["epilogue"] = r.get("library_ms") is None
     return rows
+
+
+# ------------------------------------------------------------- sddmm
+def sddmm_rows(root: Path) -> list:
+    """The raw SDDMM timing rows of ``root``'s chip_smoke phase 7, each
+    with the kernel's device time per call on operands of its shape."""
+    import torch
+    device = _need_card()
+    cs = _smoke(root)
+    cs.build.build()
+    from repro_torch.pipeline import ParamSpMM
+    cases = []
+    for label, g in (("rmat17", cs.rmat(17, 6, seed=22)),
+                     ("kreg150k", cs.kregular(150_000, 6, seed=29))):
+        cases.append((label, g, cs.build_pcsr(
+            g.indptr, g.indices, g.data, g.n_rows, g.n_cols,
+            cs.pick_config(g, 64, op="gat"))))
+    for label, task in (
+            ("community1k", cs.community_task()),
+            ("community131k", cs.community_task(n_blocks=16,
+                                                block_size=8192,
+                                                p_in=0.0025))):
+        op = ParamSpMM(task.csr.gcn_normalize(), 64, op="gat",
+                       build_transpose=False, device=device)
+        cases.append((label, op.csr, op.op.pcsr))
+    rows = []
+    for label, csr, p in cases:
+        row = cs.time_sddmm(label, csr, p, 64, device)
+        Q, K = (torch.randn((n, 64), device=device)
+                for n in (p.n_rows, p.n_cols))
+        rows.append((row, lambda p=p, Q=Q, K=K: cs.sddmm_ops.sddmm(p, Q,
+                                                                   K)))
+    # device times after every event timing, as chip_smoke's phase 7
+    for row, call in rows:
+        row["device_ms"] = cs.device_ms(call, "sddmm")
+    return [row for row, _ in rows]
+
+
+def run_sddmm(roots: list) -> int:
+    import numpy as np
+    runs = _runs("sddmm", roots)
+    print("run | root | at | kernel ms | device ms | plain ms | library ms "
+          "| bound ms")
+    fmt = lambda x: "—" if x is None else f"{x:.4f}"
+    for run in runs:
+        for r in run["rows"]:
+            print(f"{run['run']} | {run['root']} | {r['at']} | "
+                  + " | ".join(fmt(r[k]) for k in (
+                      "ms", "device_ms", "plain_ms", "library_ms",
+                      "bound_ms")))
+    print("root | at | rows | median kernel ms (min–max) | median device "
+          "ms (min–max)")
+    for root in dict.fromkeys(roots):
+        for at in dict.fromkeys(r["at"] for run in runs
+                                for r in run["rows"]):
+            rows = [r for run in runs if run["root"] == root
+                    for r in run["rows"] if r["at"] == at]
+            cols = [[r["ms"] for r in rows],
+                    [r["device_ms"] for r in rows
+                     if r["device_ms"] is not None]]
+            print(f"{root} | {at} | {len(rows)} | " + " | ".join(
+                f"{np.median(c):.4f} ({min(c):.4f}–{max(c):.4f})"
+                if c else "not measured" for c in cols))
+    OUT.mkdir(parents=True, exist_ok=True)
+    (OUT / "compare_sddmm.json").write_text(json.dumps(runs, indent=1))
+    return 0
 
 
 def _runs(kind: str, roots: list) -> list:
@@ -274,12 +345,15 @@ def run_sddmm_sum() -> int:
 
 
 def main(argv) -> int:
-    rows = {"_spmm_rows": spmm_rows, "_serve_rows": serve_rows}
+    rows = {"_spmm_rows": spmm_rows, "_sddmm_rows": sddmm_rows,
+            "_serve_rows": serve_rows}
     if len(argv) == 2 and argv[0] in rows:
         print(json.dumps(rows[argv[0]](Path(argv[1]))))
         return 0
     if len(argv) >= 2 and argv[0] == "spmm":
         return run_spmm(argv[1:])
+    if len(argv) >= 2 and argv[0] == "sddmm":
+        return run_sddmm(argv[1:])
     if len(argv) >= 2 and argv[0] == "serve":
         return run_serve(argv[1:])
     if argv == ["sddmm-sum"]:

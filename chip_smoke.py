@@ -30,8 +30,11 @@ Runs from the root of a checkout and drives ``src/repro_torch`` only
    at 1 and 4 heads, at the same tolerances; two launches of each on float
    operands give the same bits.  Raw SDDMM: the 12
    configs of ``tests/test_torch_cuda.py`` × H ∈ {1, 4} × d ∈ {16, 64} on
-   a bucket pack with explicit zeros, and rmat17: bit-exact with integer
-   Q/K, every masked slot exactly 0.  Autograd: the training operators'
+   a bucket pack with explicit zeros, at the wrapper's cap and with units
+   of ``TINY_CAP`` real slots (there also d ∈ {15, 18, 200}: each load
+   width, and a d wider than the kernel's Q tile), the hub star at R ∈
+   {8, 32} (d up to 520 at R = 8), and rmat17: bit-exact with integer
+   Q/K, every masked slot exactly 0; two launches give the same bits.  Autograd: the training operators'
    outputs and gradients on the card against the port on the CPU
    (``make_spmm_fn``, ``make_fused_spmm_fn`` with bias + relu, scale +
    leaky_relu and residual — bit-exact on integer operands —, and the
@@ -56,11 +59,14 @@ Runs from the root of a checkout and drives ``src/repro_torch`` only
 6. training at real size — the same models for 5 steps on
    ``community_task(n_blocks=16, block_size=8192, p_in=0.0025)`` (131,072
    nodes): losses finite and falling, ms per step, the kernels' share;
+   the raw SDDMM's launches in phases 5 and 6 are counted by operand shape
+   (H, n_rows, d);
 7. timing — CUDA events after warm-up, at a serving shape, on rmat17 and
-   on ``corpus("large")``'s kreg150k (uniform degree), at dim 64: each
-   kernel (and, for ParamSpMM and the SDDMM → softmax, its device time per
-   call from ``torch.profiler``, which leaves out the wrapper's host
-   time), its plain version and one PyTorch library call (timed here
+   on ``corpus("large")``'s kreg150k (uniform degree), at dim 64, and the
+   raw SDDMM also on the GAT training packs of phases 5 and 6 (1,024 and
+   131,072 nodes): each
+   kernel (and its device time per call from ``torch.profiler``, which
+   leaves out the wrapper's host time), its plain version and one PyTorch library call (timed here
    only: ``torch.sparse.mm``, cuSPARSE SpMM, the paper's baseline; for the
    SDDMM ``torch.sparse.sampled_addmm``, cuSPARSE SDDMM, which gives raw
    scores without the softmax; for the prologue SpMM ``torch.sparse.mm``
@@ -101,6 +107,9 @@ kernels' JSON summary and ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
+import collections
+import contextlib
+import functools
 import json
 import subprocess
 import sys
@@ -137,7 +146,7 @@ from repro_torch import obs  # noqa: E402
 from repro_torch.kernels.paramspmm import ops  # noqa: E402
 from repro_torch.kernels.sddmm import ops as sddmm_ops  # noqa: E402
 from repro_torch.models.gnn import init_gat  # noqa: E402
-from repro_torch.pipeline import pick_config  # noqa: E402
+from repro_torch.pipeline import ParamSpMM, pick_config  # noqa: E402
 from repro_torch.serve import (BucketPolicy, GNNService,  # noqa: E402
                                PackGeom, SteeringPackCache, pack_subgraph,
                                reference_forward, replay, synthetic_stream)
@@ -690,9 +699,10 @@ def phase_hub(device):
 
 
 def phase_determinism(device):
-    """Phase 3: two launches of each redesigned kernel on the same float
-    operands give the same bits (no atomics; every merge in a fixed
-    order), on the hub graph and on rmat17 at the wrapper's cap."""
+    """Phase 3: two launches of each work-unit kernel (ParamSpMM, SDDMM →
+    softmax, the prologue, the raw SDDMM) on the same float operands give
+    the same bits (no atomics; every merge in a fixed order), on the hub
+    graph and on rmat17 at the wrapper's cap."""
     g17 = rmat(17, 6, seed=22)
     graphs = (("hub", _hub_graph(False), SpMMConfig(V=2, S=True, W=8)),
               ("rmat17", _normalized(g17), pick_config(g17, 64)))
@@ -706,14 +716,16 @@ def phase_determinism(device):
             lg, rm, rs = sddmm_ops.sddmm_softmax_stats(p, Q, K)
             runs.append((ops.paramspmm(p, B, bias=B[0], activation="relu"),
                          lg, rm, rs,
-                         ops.paramspmm_with_vals(p, lg, B, stats=(rm, rs))))
+                         ops.paramspmm_with_vals(p, lg, B, stats=(rm, rs)),
+                         sddmm_ops.sddmm(p, Q, K)))
         torch.cuda.synchronize()
         for a, b in zip(*runs):
             check(torch.equal(a, b), f"{label}: two launches differ")
         steer = ops.device_steering(p, device)
         print(f"[determinism] {label} {cfg.astuple()}: {steer.n_units} units "
-              f"({steer.n_partials} partials): paramspmm, sddmm_softmax and "
-              f"the prologue give the same bits on two launches")
+              f"({steer.n_partials} partials): paramspmm, sddmm_softmax, "
+              f"the prologue and the raw SDDMM give the same bits on two "
+              f"launches")
 
 
 # -------------------------------------------------- raw SDDMM, autograd
@@ -725,24 +737,28 @@ def _masked(csr, every=5):
     return CSRMatrix(csr.indptr, csr.indices, data, csr.n_rows, csr.n_cols)
 
 
-def _raw_sddmm_compare(p, device, rng, d, H, integer):
+def _raw_sddmm_compare(p, device, rng, d, H, integer, cap=None):
     """The raw SDDMM kernel against ``sddmm_plain`` on the same CUDA
-    tensors; returns the max abs difference."""
+    tensors (with ``cap``, through ``sddmm_ops._call`` on a steering cut
+    into units of at most ``cap`` real slots); returns the max abs
+    difference."""
     cfg = p.config
-    steer = ops.device_steering(p, device)
+    steer = _steering(p, device, cap)
     draw = ((lambda *s: rng.integers(-3, 4, s).astype(np.float32))
             if integer else
             (lambda *s: rng.standard_normal(s).astype(np.float32)))
     Q = torch.from_numpy(draw(H, p.n_rows, d)).to(device)
     K = torch.from_numpy(draw(H, p.n_cols, d)).to(device)
-    if H == 1:                # the single-head entry point, as GAT calls it
+    if cap is not None:
+        got = sddmm_ops._call(steer, Q, K, **_geo(p))
+    elif H == 1:              # the single-head entry point, as GAT calls it
         got = sddmm_ops.sddmm(p, Q[0], K[0])[None]
     else:
         got = sddmm_ops.sddmm(p, Q, K)
     want = sddmm_ops.sddmm_plain(steer, Q, K, V=cfg.V, R=cfg.R, K=p.K,
                                  n_rows=p.n_rows)
     torch.cuda.synchronize()
-    what = f"{cfg.astuple()} d={d} H={H} integer={integer}"
+    what = f"{cfg.astuple()} d={d} H={H} integer={integer} cap={cap}"
     check(got.shape == want.shape and bool(torch.isfinite(got).all()),
           f"raw sddmm: bad output ({what})")
     check(bool((got[:, steer.vals == 0] == 0).all()),
@@ -755,36 +771,73 @@ def _raw_sddmm_compare(p, device, rng, d, H, integer):
     return float((got - want).abs().max()) if got.numel() else 0.0
 
 
+# raw SDDMM widths beyond the grid's 16 and 64: 15 and 18 take the 1- and
+# 2-float loads, 200 is wider than the kernel's Q tile at R = 32 and 520
+# at R = 8 (csrc/sddmm.cu, kQTileFloats), so d is cut into column tiles
+RAW_DIMS = (15, 18, 200)
+RAW_WIDE = 520
+
+
 def phase_sddmm_grid(device):
     """Phase 3, raw SDDMM: the kernel against its plain version over the
     12 configs of tests/test_torch_cuda.py × H ∈ {1, 4} × d ∈ {16, 64}, on
     a bucket-padded serving pack whose every 5th edge is an explicit zero,
-    and on rmat17 at the GAT-picked config."""
+    at the wrapper's cap and again with units of ``TINY_CAP`` real slots
+    (and there also d ∈ ``RAW_DIMS``); the ``_hub_graph`` star (hub group
+    in many units) over V ∈ {1, 2} × R ∈ {8, 32} × d ∈ {16, 64} +
+    ``RAW_DIMS`` (+ ``RAW_WIDE`` at R = 8) at 1 and 4 heads; and rmat17
+    at the GAT-picked config."""
     rng = np.random.default_rng(4)
     g = rmat(13, 8, seed=31)
     union = _masked(_union(g, 8, seed=5))
     bucket = BucketPolicy.default().pick(union.n_rows, union.nnz)
     cases, err = 0, 0.0
+
+    def run(p, d, H, cap=None, integers=(True, False)):
+        nonlocal cases, err
+        for integer in integers:
+            e = _raw_sddmm_compare(p, device, rng, d, H, integer, cap)
+            err = max(err, 0.0 if integer else e)
+            cases += 1
+
     for v in (1, 2):
         for s, b in ((False, False), (True, False), (True, True)):
             for f, r in ((1, 32), (2, 8)):
                 cfg = SpMMConfig(V=v, S=s, B=b, F=f, W=r // v)
                 p = pack_subgraph(union, PackGeom.from_bucket(bucket, cfg))
+                check(_steering(p, device, TINY_CAP).n_partials > 0,
+                      f"cap={TINY_CAP} splits no group of {cfg.astuple()}")
                 for H in (1, 4):
                     for d in (16, 64):
-                        for integer in (True, False):
-                            e = _raw_sddmm_compare(p, device, rng, d, H,
-                                                   integer)
-                            err = max(err, 0.0 if integer else e)
-                            cases += 1
+                        run(p, d, H)
+                        run(p, d, H, TINY_CAP)
+                for d in RAW_DIMS:
+                    run(p, d, 1, TINY_CAP)
+    print(f"[sddmm grid] bucket packs, wrapper's cap and cap={TINY_CAP}: "
+          f"{cases} cases match")
+    for v in (1, 2):
+        for r in (8, 32):
+            cfg = SpMMConfig(V=v, S=True, W=r // v)
+            for integer in (True, False):
+                hub = _hub_graph(integer)
+                p = build_pcsr(hub.indptr, hub.indices, hub.data,
+                               hub.n_rows, hub.n_cols, cfg)
+                steer = ops.device_steering(p, device)
+                spans = int(torch.bincount(steer.units[:, 2].long()).max())
+                check(spans >= 8, f"hub group spans {spans} units only "
+                      f"({cfg.astuple()}, cap {steer.cap})")
+                for d in (16, 64) + RAW_DIMS + ((RAW_WIDE,) if r == 8
+                                                else ()):
+                    for H in (1, 4):
+                        run(p, d, H, integers=(integer,))
+            print(f"[sddmm grid] hub {cfg.astuple()}: K={p.K}, "
+                  f"{steer.n_units} units for {steer.n_groups} groups, hub "
+                  f"group in {spans} units (cap {steer.cap}): match")
     g17 = rmat(17, 6, seed=22)
     p = build_pcsr(g17.indptr, g17.indices, g17.data, g17.n_rows,
                    g17.n_cols, pick_config(g17, 64, op="gat"))
     for d, H in ((64, 1), (16, 4)):
-        for integer in (True, False):
-            e = _raw_sddmm_compare(p, device, rng, d, H, integer)
-            err = max(err, 0.0 if integer else e)
-            cases += 1
+        run(p, d, H)
     print(f"[sddmm grid] {cases} raw SDDMM kernel-vs-plain cases match "
           f"(integer Q/K bit-exact, masked slots exactly 0; max abs err "
           f"{err:.3e} on float Q/K)")
@@ -808,6 +861,25 @@ def _reset_counts():
     ops.reset_launch_count()
     sddmm_ops.reset_launch_count()
     scan.reset_launch_count()
+
+
+@contextlib.contextmanager
+def _raw_sddmm_shapes(into):
+    """While the block runs, count the raw SDDMM kernel's launches by
+    operand shape ``(H, n_rows, d)`` into the Counter ``into``: wraps the
+    wrapper's launch and leaves its launch count as it is."""
+    launch = sddmm_ops._launch
+
+    def recorded(steer, Q, K_mat, **kw):
+        out = launch(steer, Q, K_mat, **kw)
+        into[(Q.shape[0] if Q.ndim == 3 else 1,) + tuple(Q.shape[-2:])] += 1
+        return out
+
+    sddmm_ops._launch = recorded
+    try:
+        yield into
+    finally:
+        sddmm_ops._launch = launch
 
 
 def phase_autograd(device):
@@ -1078,13 +1150,28 @@ def phase_train(device, *, steps=10):
     return rows, launches
 
 
+@functools.lru_cache(maxsize=1)
+def _large_task():
+    """Phase 6's graph: ``community_task(n_blocks=16, block_size=8192,
+    p_in=0.0025)`` (131,072 nodes, 2,811,270 nonzeros, 16 classes)."""
+    return community_task(n_blocks=16, block_size=8192, p_in=0.0025)
+
+
+def _gat_train_pack(task, device):
+    """(CSR, PCSR) of GAT's training pack of ``task`` at hidden width 64,
+    one head: ``train_gnn``'s own (GCN-normalised, reordered, config
+    picked for op "gat")."""
+    op = ParamSpMM(task.csr.gcn_normalize(), 64, op="gat",
+                   build_transpose=False, device=device)
+    return op.csr, op.op.pcsr
+
+
 def phase_train_large(device, *, steps=5):
     """Phase 6: the same three models for ``steps`` steps on a real-size
-    graph, ``community_task(n_blocks=16, block_size=8192, p_in=0.0025)``
-    (131,072 nodes, 2,811,270 nonzeros, 16 classes): losses finite and the
-    last below the first; ms per step and the kernels' share of it."""
+    graph, ``_large_task()``: losses finite and the last below the first;
+    ms per step and the kernels' share of it."""
     t0 = time.perf_counter()
-    task = community_task(n_blocks=16, block_size=8192, p_in=0.0025)
+    task = _large_task()
     print(f"[train large] task: {task.csr.n_rows} nodes, {task.csr.nnz} "
           f"nonzeros, max degree {int(task.csr.degrees.max())}, "
           f"{task.n_classes} classes ({time.perf_counter() - t0:.1f} s)")
@@ -1310,10 +1397,11 @@ def time_gat(label, csr, p, dim, device, later):
     return sd, pro
 
 
-def time_sddmm(label, csr, p, dim, device):
+def time_sddmm(label, csr, p, dim, device, later=None):
     """The raw SDDMM kernel beside its plain version, cuSPARSE's SDDMM
     (``torch.sparse.sampled_addmm``, the same function: raw scores on the
-    pattern) and its bound, on the same inputs."""
+    pattern) and its bound, on the same inputs; with ``later``, the row
+    and its call are queued for a device time."""
     rng = np.random.default_rng(7)
     cfg = p.config
     steer = ops.device_steering(p, device)
@@ -1333,9 +1421,9 @@ def time_sddmm(label, csr, p, dim, device):
     torch.testing.assert_close(
         E.reshape(-1)[torch.as_tensor(flat[order], device=device)],
         lib().values(), rtol=RTOL, atol=ATOL)
+    kernel = lambda: sddmm_ops.sddmm(p, Q, K)
     row = {"at": label, "kernel": "sddmm", "config": list(cfg.astuple()),
-           "dim": dim, "nnz": p.nnz,
-           "ms": cuda_ms(lambda: sddmm_ops.sddmm(p, Q, K)),
+           "dim": dim, "nnz": p.nnz, "ms": cuda_ms(kernel),
            "plain_ms": cuda_ms(lambda: sddmm_ops.sddmm_plain(
                steer, Q[None], K[None], V=cfg.V, R=cfg.R, K=p.K,
                n_rows=p.n_rows)),
@@ -1345,7 +1433,11 @@ def time_sddmm(label, csr, p, dim, device):
     row["bound_ms"], row["bound_by"] = _bound(
         4 * ((csr.n_rows + csr.n_cols) * dim + csr.nnz)
         + _csr_bytes(csr, values=False), 2.0 * csr.nnz * dim)
-    print(f"[time] {label} {cfg.astuple()} dim {dim} sddmm: kernel "
+    row.update(_units(steer))
+    if later is not None:
+        later.append((row, kernel, "sddmm"))
+    print(f"[time] {label} {cfg.astuple()} dim {dim} {_units_text(steer)} "
+          f"sddmm: kernel "
           f"{row['ms']:.4f} ms, plain {row['plain_ms']:.4f} ms, library "
           f"{row['library_ms']:.4f} ms ({row['library']}), bound "
           f"{row['bound_ms']:.4f} ms ({row['bound_by']})")
@@ -1390,7 +1482,12 @@ def phase_timing(device):
         p = build_pcsr(g.indptr, g.indices, g.data, g.n_rows, g.n_cols,
                        pick_config(g, 64, op="gat"))
         gat_rows += time_gat(label, g, p, 64, device, later)
-        sd_rows.append(time_sddmm(label, g, p, 64, device))
+        sd_rows.append(time_sddmm(label, g, p, 64, device, later))
+    # the raw SDDMM where it runs: the GAT packs of phases 5 and 6
+    for label, task in (("community1k", community_task()),
+                        ("community131k", _large_task())):
+        csr, p = _gat_train_pack(task, device)
+        sd_rows.append(time_sddmm(label, csr, p, 64, device, later))
     for row, call, family in later:
         row["device_ms"] = device_ms(call, family)
         print(f"[time device] {row['at']} {row['config']} dim {row['dim']} "
@@ -1843,14 +1940,27 @@ def main() -> int:
           f"{time.perf_counter() - t0:.1f} s")
 
     t0 = time.perf_counter()
-    train_rows, train_launches = phase_train(device)
+    raw_shapes = collections.Counter()
+    with _raw_sddmm_shapes(raw_shapes):
+        train_rows, train_launches = phase_train(device)
     print(f"[train] {train_launches} launches on the training paths in "
           f"{time.perf_counter() - t0:.1f} s")
     rows, gat_rows, sd_rows = phase_timing(device)
     t0 = time.perf_counter()
-    large_rows, large_launches = phase_train_large(device)
+    with _raw_sddmm_shapes(raw_shapes):
+        large_rows, large_launches = phase_train_large(device)
     print(f"[train large] {large_launches} launches in "
           f"{time.perf_counter() - t0:.1f} s")
+    raw_by_shape = [{"H": h, "n_rows": n, "d": d, "launches": c}
+                    for (h, n, d), c in sorted(raw_shapes.items())]
+    check(sum(raw_shapes.values())
+          == train_launches["sddmm"] + large_launches["sddmm"],
+          f"raw SDDMM launches by shape {dict(raw_shapes)} do not add up "
+          "to the wrappers' count")
+    print("[sddmm launches] the raw SDDMM's training launches by shape "
+          "(H, n_rows, d): " + ", ".join(
+              f"({r['H']}, {r['n_rows']}, {r['d']}) × {r['launches']}"
+              for r in raw_by_shape))
     print("[train json] " + json.dumps(train_rows + large_rows))
 
     torch.cuda.empty_cache()
@@ -1917,6 +2027,7 @@ def main() -> int:
         "replaces": "src/repro/kernels/sddmm/kernel.py:176",
         "launches": launches["sddmm"],
         "launches_by_path": {"training": launches["sddmm"]},
+        "launches_by_shape": raw_by_shape,
         "max_abs_err": err_sddmm,
         "ms": raw_row["ms"], "plain_ms": raw_row["plain_ms"],
         "bound_ms": raw_row["bound_ms"], "bound_by": raw_row["bound_by"],

@@ -1,8 +1,9 @@
 // A steering's device arrays and sizes as the C entry points of
-// paramspmm.cu and sddmm_softmax.cu take them: built once per pack on the
-// host by kernels/paramspmm/ops.py::SteeringArgs (ctypes, the same fields
-// in this order).  Each library exports repro_steering_args_size(), which
-// the wrappers check against the ctypes struct when they load it.
+// paramspmm.cu, sddmm_softmax.cu and sddmm.cu take them: built once per
+// pack on the host by kernels/paramspmm/ops.py::SteeringArgs (ctypes, the
+// same fields in this order).  Each library exports
+// repro_steering_args_size(), which the wrappers check against the ctypes
+// struct when they load it.
 #pragma once
 #include <cuda_runtime.h>
 

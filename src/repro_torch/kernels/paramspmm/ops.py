@@ -276,9 +276,9 @@ def vector_width(dim: int, *tensors) -> int:
 
 class SteeringArgs(ctypes.Structure):
     """A steering's device arrays and sizes as the C entry points of
-    ``csrc/paramspmm.cu`` and ``csrc/sddmm_softmax.cu`` take them
-    (``csrc/steering.h``, the same fields in order): one pointer a call in
-    place of thirteen arguments."""
+    ``csrc/paramspmm.cu``, ``csrc/sddmm_softmax.cu`` and ``csrc/sddmm.cu``
+    take them (``csrc/steering.h``, the same fields in order): one pointer
+    a call in place of thirteen arguments."""
 
     _fields_ = [(name, ctypes.c_void_p) for name in (
         "colidx", "lrow", "trow", "vals", "units", "splits")] + [

@@ -42,7 +42,9 @@ from repro_torch.kernels.paramspmm.ops import (Steering, SteeringArgs,
                                                device_steering,
                                                steering_args, vector_width)
 
-MAX_R = 32            # one warp's lanes hold a block's row stats
+# R ≤ 32 in both kernels: sddmm_softmax holds a block's row stats in one
+# warp's lanes; sddmm's Q tile (R rows, d tiled to fit) is sized for it
+MAX_R = 32
 
 KERNELS = ("sddmm_softmax", "sddmm")
 _launches = dict.fromkeys(KERNELS, 0)
@@ -129,7 +131,8 @@ _ENTRY = {           # kernel → (C entry point, its argument types)
                       [ctypes.POINTER(SteeringArgs), _P, _P, _P, _I, _P]
                       + [_I] * 7 + [_F, _F] + [_P] * 4),
     "sddmm": ("repro_sddmm_f32",
-              [_P] * 4 + [_I, _P, _I, _P] + [_I] * 6 + [_P, _P]),
+              [ctypes.POINTER(SteeringArgs), _P, _I, _P] + [_I] * 7
+              + [_P, _P]),
 }
 _LIBS: dict = {}
 
@@ -141,8 +144,8 @@ def _lib(name: str):
         from repro_torch.kernels import build
         lib = build.load(name)
         fn_name, argtypes = _ENTRY[name]
+        check_steering_args(lib, name)
         if name == "sddmm_softmax":
-            check_steering_args(lib, name)
             lib.repro_sddmm_sum_bytes.restype = ctypes.c_int
             # the Σexp type the library was built with (float32 as
             # shipped; float64 in chip_compare.py's variant)
@@ -263,7 +266,7 @@ def sddmm_softmax(pcsr: PCSR, Q, K, *, scale: float | None = None,
 
 def _launch(steer: Steering, Q, K_mat, *, V, R, K, n_rows):
     """Launch the raw SDDMM kernel."""
-    _check_launch("sddmm", steer, Q, K_mat, V=V, R=R)
+    st = _check_launch("sddmm", steer, Q, K_mat, V=V, R=R)
     lead, d = tuple(Q.shape[:-2]), Q.shape[-1]
     H = Q.shape[0] if lead else 1
     C = int(steer.trow.shape[0])
@@ -276,9 +279,8 @@ def _launch(steer: Steering, Q, K_mat, *, V, R, K, n_rows):
     with torch.cuda.device(Q.device):
         stream = torch.cuda.current_stream(Q.device).cuda_stream
         err = lib.repro_sddmm_f32(
-            ptr(steer.colidx), ptr(steer.lrow), ptr(steer.trow),
-            ptr(steer.vals), C, ptr(Q), n_rows, ptr(K_mat),
-            K_mat.shape[-2], d, H, V, R, K, ptr(out), stream)
+            st, ptr(Q), n_rows, ptr(K_mat), K_mat.shape[-2], d, H, V, R, K,
+            vector_width(d, Q, K_mat), ptr(out), stream)
     if err != 0:
         raise RuntimeError("sddmm kernel launch failed: "
                            + lib.repro_cuda_error_string(err).decode())

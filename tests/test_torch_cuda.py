@@ -13,7 +13,9 @@ and α within ``rtol=1e-5, atol=1e-6``.  ParamSpMM with the softmax
 prologue: ``rtol=1e-5, atol=1e-4``.  GAT serving on the card matches the
 CPU within ``rtol=1e-4, atol=1e-4``.  Raw SDDMM: bit-exact with
 integer-valued Q/K, ``rtol=1e-5, atol=1e-5`` with float ones, and every
-slot without a stored nonzero exactly 0.  The training operators'
+slot without a stored nonzero exactly 0, at every load width and a d wider
+than its Q tile, with split work units and on a hub graph; a CUDA call
+launches the kernel and never reaches the plain version.  The training operators'
 gradients on the card match the port on the CPU (bit-exact with integer
 operands for the SpMMs, ``rtol=1e-5, atol=1e-4`` otherwise), and a short
 ``train_gnn`` on the card follows the CPU's losses within ``rtol=1e-4``.
@@ -275,7 +277,8 @@ def test_split_units_match_plain(cuda_device, cfg, mode):
 @pytest.mark.parametrize("cap", [None, SMALL_CAP], ids=["cap", "small"])
 def test_two_launches_give_the_same_bits(cuda_device, cap):
     """No atomics and every merge in a fixed order: two launches of each
-    redesigned kernel on the same float operands are bit-identical."""
+    work-unit kernel (ParamSpMM, SDDMM → softmax, raw SDDMM) on the same
+    float operands are bit-identical."""
     cfg = SpMMConfig(V=2, S=True, B=True, W=8)
     p = _pack(cfg, integer=False)
     steer = ops.Steering.from_pcsr(p, cuda_device, cap=cap)
@@ -288,7 +291,8 @@ def test_two_launches_give_the_same_bits(cuda_device, cap):
                      ops._call(steer, B, vals=lg, rowmax=rm, rowsum=rs,
                                dblk=cfg.dblk, **_geo(p)),
                      ops._call(steer, K[0], dblk=cfg.dblk, **_geo(p),
-                               bias=K[0, 0], activation="relu")))
+                               bias=K[0, 0], activation="relu"),
+                     sddmm_ops._call(steer, Q, K, **_geo(p))))
     torch.cuda.synchronize()
     for a, b in zip(*runs):
         assert torch.equal(a, b)
@@ -315,27 +319,116 @@ def test_multi_head_stats_offsets_with_split_units(cuda_device):
             torch.testing.assert_close(a[h], w[h], rtol=1e-5, atol=1e-6)
 
 
+# raw SDDMM feature widths: every load width (15 → 1 float, 18 → 2, 16 and
+# 64 → 4) and, at R = 32, a d wider than the kernel's Q tile (200)
+RAW_DIMS = (15, 16, 18, 64, 200)
+
+
+def _raw_check(p, Q, K, integer, steer=None):
+    """The raw SDDMM kernel against its plain version: through the public
+    ``sddmm`` (the wrapper's steering; one head as the single-head entry
+    point, as GAT calls it), or on ``steer`` through ``_call``.  One
+    launch counted, every slot without a stored nonzero exactly 0,
+    bit-exact on integer operands."""
+    cfg = p.config
+    before = sddmm_ops.launch_count("sddmm")
+    if steer is not None:
+        got = sddmm_ops._call(steer, Q, K, **_geo(p))
+    elif Q.shape[0] == 1:
+        got = sddmm_ops.sddmm(p, Q[0], K[0])[None]
+    else:
+        got = sddmm_ops.sddmm(p, Q, K)
+    torch.cuda.synchronize()
+    assert sddmm_ops.launch_count("sddmm") == before + 1
+    if steer is None:
+        steer = ops.device_steering(p, Q.device)
+    want = sddmm_ops.sddmm_plain(steer, Q, K, V=cfg.V, R=cfg.R, K=p.K,
+                                 n_rows=p.n_rows)
+    assert (got[:, steer.vals == 0] == 0).all()
+    if integer:
+        assert torch.equal(got, want)
+    else:
+        torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("cfg", CONFIGS, ids=lambda c: str(c.astuple()))
 @pytest.mark.parametrize("H", [1, 4])
 def test_raw_sddmm_matches_plain(cuda_device, cfg, H):
+    """At the wrapper's cap and with units of at most SMALL_CAP real
+    slots, over RAW_DIMS."""
     for integer in (True, False):
         p = _pack(cfg, integer, explicit_zeros=True)
-        steer = ops.device_steering(p, cuda_device)
-        for d in (16, 64):
+        split = ops.Steering.from_pcsr(p, cuda_device, cap=SMALL_CAP)
+        assert split.n_units > split.n_groups
+        for d in RAW_DIMS:
             Q, K, _ = _sddmm_case(p, cuda_device, d, H, integer)
-            before = sddmm_ops.launch_count("sddmm")
-            got = sddmm_ops.sddmm(p, Q[0], K[0])[None] if H == 1 else \
-                sddmm_ops.sddmm(p, Q, K)
-            torch.cuda.synchronize()
-            assert sddmm_ops.launch_count("sddmm") == before + 1
-            want = sddmm_ops.sddmm_plain(steer, Q, K, V=cfg.V, R=cfg.R,
-                                         K=p.K, n_rows=p.n_rows)
-            assert (got[:, steer.vals == 0] == 0).all()
-            if integer:
-                assert torch.equal(got, want)
-            else:
-                torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+            _raw_check(p, Q, K, integer)
+            _raw_check(p, Q, K, integer, split)
+
+
+def _hub_pack(cfg, integer, n=1200):
+    """A star over ``n`` nodes (row and column 0 hold every node) plus 3
+    random edges a row, every 7th stored value 0: the hub's group spans
+    several units at the wrapper's own cap."""
+    rng = np.random.default_rng(2)
+    rows = np.concatenate([rng.integers(0, n, 3 * n), np.zeros(n, np.int64),
+                           np.arange(n)])
+    cols = np.concatenate([rng.integers(0, n, 3 * n), np.arange(n),
+                           np.zeros(n, np.int64)])
+    key = np.unique(rows * n + cols)
+    rows, cols = key // n, key % n
+    vals = (rng.choice([-2.0, -1.0, 1.0, 2.0], rows.size) if integer
+            else rng.standard_normal(rows.size)).astype(np.float32)
+    vals[::7] = 0.0
+    c = CSRMatrix.from_coo(rows, cols, vals, n, n, sum_duplicates=False)
+    return build_pcsr(c.indptr, c.indices, c.data, n, n, cfg)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cfg", [SpMMConfig(V=1, S=True, W=32),
+                                 SpMMConfig(V=2, S=False, W=4)],
+                         ids=lambda c: str(c.astuple()))
+def test_raw_sddmm_hub_matches_plain(cuda_device, cfg):
+    """The hub's group split over several units at the wrapper's cap, at 1
+    and 4 heads, over RAW_DIMS and a d wider than the Q tile at R = 8."""
+    for integer in (True, False):
+        p = _hub_pack(cfg, integer)
+        steer = ops.device_steering(p, cuda_device)
+        assert int(torch.bincount(steer.units[:, 2].long()).max()) >= 2
+        for H in (1, 4):
+            for d in RAW_DIMS + (520,):
+                Q, K, _ = _sddmm_case(p, cuda_device, d, H, integer)
+                _raw_check(p, Q, K, integer)
+
+
+@pytest.mark.cuda
+def test_raw_sddmm_on_cuda_never_takes_the_plain_version(cuda_device,
+                                                          monkeypatch):
+    """A CUDA call launches the kernel (one count) and never reaches
+    ``sddmm_plain``, also for a Q that starts 4 bytes past a 16-byte
+    boundary (the one-float load width)."""
+    cfg = SpMMConfig(V=2, S=True, B=True, W=8)
+    p = _pack(cfg, integer=True, explicit_zeros=True)
+    steer = ops.device_steering(p, cuda_device)
+    Q, K, _ = _sddmm_case(p, cuda_device, 64, 1, integer=True)
+    shifted = torch.empty(Q.numel() + 1, device=cuda_device)[1:]
+    shifted.copy_(Q.reshape(-1))
+    Qs = shifted.view(p.n_rows, 64)
+    assert Qs.is_contiguous() and Qs.data_ptr() % 16 == 4
+    want = sddmm_ops.sddmm_plain(steer, Q, K, V=cfg.V, R=cfg.R, K=p.K,
+                                 n_rows=p.n_rows)[0]
+
+    def refuse(*a, **k):
+        raise AssertionError("a CUDA tensor reached the plain version")
+
+    monkeypatch.setattr(sddmm_ops, "sddmm_plain", refuse)
+    for q in (Q[0], Qs):
+        before = sddmm_ops.launch_count("sddmm")
+        got = sddmm_ops.sddmm(p, q, K[0])
+        torch.cuda.synchronize()
+        assert sddmm_ops.launch_count("sddmm") == before + 1
+        assert torch.equal(got, want)
 
 
 def _grads(fn, args, dOut):

@@ -19,11 +19,19 @@ combines in unit order.  Here, on the CPU:
   flash rescale — equals the plain versions (which the other test files
   hold against the JAX reference): bit-exact on integer operands, stats
   within 1e-6 relative, rows whose every partial is empty included;
-* ``ops.SteeringArgs`` against ``csrc/steering.h``, the struct both C
-  entry points take, and its cache beside each ``Steering``.
+* the raw SDDMM kernel's arithmetic by units — each unit's R rows of Q
+  as one tile, each slot's Q row read from it by local row, the dot over
+  column tiles in order, units cut into pieces, every slot written
+  once — equals ``sddmm_plain``
+  (bit-exact on integer operands, ``rtol=atol=1e-5`` on float ones) and
+  the reference's Pallas ``sddmm`` in interpret mode (the only cases here
+  that import the JAX package);
+* ``ops.SteeringArgs`` against ``csrc/steering.h``, the struct the three
+  C entry points take, and its cache beside each ``Steering``.
 """
 import ctypes
 import dataclasses
+import functools
 import gc
 import re
 
@@ -338,3 +346,97 @@ def test_emulated_units_match_plain(cfg, kind, cap):
                                  for r in range(R)])
             assert bool(torch.isneginf(m[rows]).any())
             assert bool((s[rows][torch.isneginf(m[rows])] == 0).all())
+
+
+def emulate_sddmm(steer, Q, K_mat, *, V, R, K, n_rows, tile_cols=None,
+                  parts=1):
+    """The raw SDDMM kernel's arithmetic by units, for ``Q`` ``(H, n_rows,
+    d)``: each unit's R rows of Q as one tile (its block's rows from
+    ``trow`` of the unit's first slot; rows ≥ ``n_rows`` NaN, so a slot
+    that read one would show), each slot's Q row read from its unit's tile
+    by local row, its dot with the gathered ``K_mat`` row summed over
+    column tiles of ``tile_cols`` (default all of d) in order.  Each unit
+    is cut into ``parts`` pieces as the kernel cuts it on a small grid;
+    a slot no piece covers stays NaN, one that two cover fails.  Written
+    slots are 0 where they hold no stored nonzero or their row is past
+    ``n_rows``.  Returns ``(H, C, V, K)``."""
+    H, _, d = Q.shape
+    C = steer.trow.shape[0]
+    unit, local = _by_unit(steer, R=R, V=V, K=K)              # (C, V, K)
+    row0 = steer.trow.long()[steer.units[:, 0].long() // K] * R
+    rows = row0[:, None] + torch.arange(R)                    # (U, R)
+    tiles = Q[:, rows.clamp(max=n_rows - 1)]                  # (H, U, R, d)
+    tiles = torch.where((rows < n_rows)[None, :, :, None], tiles,
+                        torch.nan)
+    q = tiles[:, unit, local]                                 # (H, C, V, K, d)
+    k = K_mat[:, steer.colidx.long()].reshape(H, C, 1, K, d)
+    step = tile_cols or d
+    dots = (q[..., :step] * k[..., :step]).sum(-1)
+    for c0 in range(step, d, step):
+        dots = dots + (q[..., c0:c0 + step] * k[..., c0:c0 + step]).sum(-1)
+    real = (steer.vals != 0) & (row0[unit] + local < n_rows)
+    written = torch.zeros(C * K, dtype=torch.bool)
+    for b, e, _, _ in steer.units.tolist():
+        for part in range(parts):          # csrc/sddmm.cu's [s0, s1)
+            s0 = b + (e - b) * part // parts
+            s1 = b + (e - b) * (part + 1) // parts
+            assert not written[s0:s1].any(), "a slot in two pieces"
+            written[s0:s1] = True
+    return torch.where(written.reshape(C, 1, K),
+                       torch.where(real, dots, 0.0), torch.nan)
+
+
+def _raw_operands(H, integer, d=16):
+    rng = np.random.default_rng(9 + H + 10 * integer)
+    draw = ((lambda *s: rng.integers(-3, 4, s)) if integer
+            else (lambda *s: rng.standard_normal(s)))
+    return tuple(torch.from_numpy(draw(H, N, d).astype(np.float32))
+                 for _ in range(2))
+
+
+@functools.lru_cache(maxsize=None)
+def _reference_sddmm(cfg, kind, H, integer):
+    """The reference's Pallas ``sddmm`` (interpret mode) on the same CSR
+    and operands: ``(H, num_chunks, V, K)`` in the uncovered layout.  It
+    does not depend on the unit cap, so both caps share one call."""
+    import jax.numpy as jnp
+    from repro.core import pcsr as rp
+    from repro.kernels.sddmm import ops as rsops
+    csr = _graph(kind, integer=integer)
+    r = rp.build_pcsr(csr.indptr, csr.indices, csr.data, csr.n_rows,
+                      csr.n_cols, rp.SpMMConfig(V=cfg.V, S=cfg.S, F=cfg.F,
+                                                W=cfg.W, B=cfg.B))
+    Q, Km = _raw_operands(H, integer)
+    return torch.from_numpy(np.array(rsops.sddmm(
+        r, jnp.asarray(Q.numpy()), jnp.asarray(Km.numpy()),
+        interpret=True)))
+
+
+@pytest.mark.parametrize("H", [1, 4])
+@pytest.mark.parametrize("cap", [None, TINY_CAP], ids=["cap", "tiny"])
+@pytest.mark.parametrize("kind", ("hub", "empty"))
+@pytest.mark.parametrize("cfg", EMU_CONFIGS, ids=lambda c: str(c.astuple()))
+def test_emulated_raw_sddmm_matches_plain_and_reference(cfg, kind, cap, H):
+    for integer in (True, False):
+        p = _pack(_graph(kind, integer=integer), cfg, padded=False)
+        steer = ops.Steering.from_pcsr(p, "cpu", cap=cap)
+        geo = dict(V=cfg.V, R=cfg.R, K=p.K, n_rows=p.n_rows)
+        Q, Km = _raw_operands(H, integer)
+        plain = sddmm_ops.sddmm_plain(steer, Q, Km, **geo)
+        ref = _reference_sddmm(cfg, kind, H, integer)
+        C = p.num_chunks
+        assert ref.shape == (H, C, cfg.V, p.K)
+        # d whole in one piece a unit; d in 4-column tiles, units in 3
+        for tile_cols, parts in ((None, 1), (4, 3)):
+            got = emulate_sddmm(steer, Q, Km, tile_cols=tile_cols,
+                                parts=parts, **geo)
+            assert bool((got[:, steer.vals == 0] == 0).all())
+            assert bool((got[:, C:] == 0).all()), "coverage chunks are 0"
+            if integer:
+                assert torch.equal(got, plain)
+                assert torch.equal(got[:, :C], ref)
+            else:
+                torch.testing.assert_close(got, plain, rtol=1e-5,
+                                           atol=1e-5)
+                torch.testing.assert_close(got[:, :C], ref, rtol=1e-5,
+                                           atol=1e-5)
