@@ -3,14 +3,18 @@ task, with ParamSpMM as the aggregation in the forward and the backward.
 
     PYTHONPATH=src python -m repro_torch.apps.gnn --model gcn --steps 20
     PYTHONPATH=src python -m repro_torch.apps.gnn --device cpu --model gat
+    PYTHONPATH=src python -m repro_torch.apps.gnn --spmm cusparse
 
 Every aggregation runs in a hand-written CUDA kernel on the card: GCN and
 GIN layers are one ParamSpMM launch forward (epilogue fused) and one on
 the transpose PCSR backward; a GAT layer is the fused SDDMM → softmax
 stats and the ParamSpMM prologue forward, and the raw SDDMM plus three
 ParamSpMM launches backward (``core.engine``).  On ``--device cpu`` the
-kernels' plain versions run instead.  Runs on CUDA unless told otherwise
-and raises without a card.
+kernels' plain versions run instead.  ``--spmm cusparse`` / ``gespmm``
+trains GCN or GIN through the paper's baselines instead
+(``core.baselines``: ``torch.sparse.mm`` on CSR, a row-wise gather +
+``index_add_``).  Runs on CUDA unless told otherwise and raises without
+a card.
 
 Spans (``repro_torch.obs``): ``gnn.pack`` (reorder, config pick, PCSR of
 A and Aᵀ), ``gnn.first_step`` (step 0: kernel build and load, allocator
@@ -25,6 +29,8 @@ from dataclasses import dataclass, field
 import numpy as np
 import torch
 
+from repro_torch.core.baselines import (make_cusparse_analog,
+                                        make_gespmm_analog)
 from repro_torch.core.pcsr import SpMMConfig
 from repro_torch.data.tasks import NodeTask
 from repro_torch.device import resolve_device
@@ -48,20 +54,28 @@ class GNNTrainResult:
 def build_spmm(task: NodeTask, dim: int, mode: str = "paramspmm", *,
                partitions: int = 0, **kw):
     """SpMM operator over Â (the GCN-normalized adjacency): returns
-    ``(op, perm, config)``.  Only ``mode="paramspmm"`` on one device is
-    ported."""
+    ``(op, perm, config)``.  ``mode`` is "paramspmm" (``kw`` go to
+    ``ParamSpMM``), or a baseline of ``core.baselines``: "cusparse" or
+    "gespmm", which take ``device`` only (any other keyword raises
+    ``ValueError``) and return ``(fn, None, None)``.  Partitioned
+    training is not ported yet."""
     if partitions:
         raise NotImplementedError(
             "partitioned training is not ported yet (ROADMAP Queue 1 "
             "item 8)")
-    if mode in ("cusparse", "gespmm"):
-        raise NotImplementedError(
-            f"the {mode} baseline is not ported yet (ROADMAP Queue 1 "
-            "item 5)")
-    if mode != "paramspmm":
+    csr = task.csr.gcn_normalize()
+    if mode == "paramspmm":
+        p = ParamSpMM(csr, dim, **kw)
+        return p, p.perm, p.config
+    baselines = {"cusparse": make_cusparse_analog,
+                 "gespmm": make_gespmm_analog}
+    if mode not in baselines:
         raise ValueError(f"unknown spmm mode {mode!r}")
-    p = ParamSpMM(task.csr.gcn_normalize(), dim, **kw)
-    return p, p.perm, p.config
+    device = kw.pop("device", None)
+    if kw:
+        raise ValueError(f"the {mode} baseline takes device only, not "
+                         f"{sorted(kw)}")
+    return baselines[mode](csr, device), None, None
 
 
 def _init_params(model, dims, heads, seed, device):
@@ -180,6 +194,9 @@ def main(argv=None):
     ap.add_argument("--layers", type=int, default=3)
     ap.add_argument("--steps", type=int, default=20)
     ap.add_argument("--heads", type=int, default=1)
+    ap.add_argument("--spmm", default="paramspmm",
+                    choices=["paramspmm", "cusparse", "gespmm"],
+                    help="aggregation operator (the baselines: GCN/GIN)")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--mutate", type=int, default=0, metavar="N",
                     help="dynamic-graph churn after training (not ported)")
@@ -193,13 +210,17 @@ def main(argv=None):
     task = community_task(seed=args.seed)
     res = train_gnn(task, model=args.model, hidden=args.hidden,
                     n_layers=args.layers, steps=args.steps,
-                    heads=args.heads, seed=args.seed, device=device)
+                    heads=args.heads, seed=args.seed,
+                    spmm_mode=args.spmm, device=device)
     print(f"losses: {res.losses[0]:.4f} → {res.losses[-1]:.4f} over "
           f"{len(res.losses)} steps")
     print(f"val_acc={res.val_acc:.3f} "
           f"ms_per_step={res.seconds_per_step * 1e3:.1f} ({device})")
-    w, f, v, s, b = res.config.astuple()
-    print(f"config: W={w} F={f} V={v} S={s} B={b}")
+    if res.config is None:
+        print(f"spmm: the {args.spmm} baseline")
+    else:
+        w, f, v, s, b = res.config.astuple()
+        print(f"config: W={w} F={f} V={v} S={s} B={b}")
     return res
 
 

@@ -8,6 +8,8 @@ returns the port's parameters — the same structure as float32 tensors on
 one device — so both packages can run the same model.
 ``lm_params_to_torch`` does the same for the LM side's nested dicts,
 keeping each leaf's dtype (bf16 weights, float32 ``a_log``).
+``decider_to_torch`` carries a trained SpMM-decider across: its random
+forest node by node, and its config space.
 """
 from __future__ import annotations
 
@@ -51,3 +53,43 @@ def lm_params_to_torch(params, device="cpu"):
             t = torch.from_numpy(np.array(a))
         out[k] = t.to(device)
     return out
+
+
+def decider_to_torch(ref_decider):
+    """A decider of the JAX package (``repro.core.decider.SpMMDecider``)
+    → the port's, with the same trees and config space, so it predicts
+    the same configs.  The reference is read by attribute only
+    (``space`` as ``astuple()``s; ``forest.trees``; each node's
+    ``feature``/``threshold``/``left``/``right``/``value``): a pickle of
+    it names the reference's classes, which the port never imports."""
+    from repro_torch.core.decider import (DecisionTree, RandomForest,
+                                          SpMMDecider, _Node)
+    from repro_torch.core.pcsr import SpMMConfig
+
+    def node(ref):
+        out = _Node(None if ref.value is None
+                    else np.array(ref.value, np.float64))
+        if ref.value is None:
+            out.feature, out.threshold = int(ref.feature), \
+                float(ref.threshold)
+            out.left, out.right = node(ref.left), node(ref.right)
+        return out
+
+    ref_forest = ref_decider.forest
+    forest = RandomForest(n_estimators=ref_forest.n_estimators,
+                          max_depth=ref_forest.max_depth,
+                          min_samples_leaf=ref_forest.min_samples_leaf,
+                          seed=ref_forest.seed)
+    forest.n_classes = int(ref_forest.n_classes)
+    for ref_tree in ref_forest.trees:
+        tree = DecisionTree(ref_tree.max_depth, ref_tree.min_samples_leaf,
+                            ref_tree.max_features)
+        tree.n_classes = int(ref_tree.n_classes)
+        tree.root = node(ref_tree.root)
+        forest.trees.append(tree)
+    space = []
+    for c in ref_decider.space:
+        w, f, v, s, b = c.astuple()
+        space.append(SpMMConfig(V=int(v), S=bool(s), F=int(f), W=int(w),
+                                B=bool(b)))
+    return SpMMDecider(space=space, forest=forest)

@@ -15,14 +15,20 @@ The formulas are the JAX package's; the constants are a ``Hardware``
 argument.  ``H100`` is the default.  Its ``hbm_bw`` and ``flops`` are
 NVIDIA data-sheet figures (H100 SXM: 3.35 TB/s HBM3, 67 TFLOP/s float32
 outside the tensor cores), not measurements.  ``step_overhead`` and
-``chunk_setup`` have no data-sheet counterpart and are 0 until a
-calibration on the card fits them.
+``chunk_setup`` have no data-sheet counterpart and are 0.  A calibration
+artifact (``core.calibrate``; the card's is
+``configs/calibration_h100.json``) replaces all of them with
+coefficients fitted to the card's measured kernel times: pass it as
+``CostModel(csr, calibration=)`` or ``CostModel.from_calibration``.  The
+default pick stays the data-sheet one.
 """
 from __future__ import annotations
 
 from dataclasses import dataclass
 
 import numpy as np
+
+from repro_torch.obs import decisions as _obs_decisions, trace as _obs_trace
 
 from .pcsr import PCSRStats, SpMMConfig, pcsr_stats
 from .sparse import CSRMatrix
@@ -153,20 +159,69 @@ def sddmm_cost(stats: PCSRStats, dim: int, config: SpMMConfig,
         flops=flops, steps=steps, chunk_setups=C)
 
 
+def unfused_bytes(stats: PCSRStats, dim: int, config: SpMMConfig,
+                  op: str, dtype_bytes: int = H100.dtype_bytes, *,
+                  heads: int = 1) -> float:
+    """Device-memory bytes of the elementwise passes between kernels that
+    the fused pipeline removes — the traffic side of ``unfused_penalty``,
+    split out so a calibrated model prices it at its fitted stream rate.
+
+    op="gat": the softmax-normalize pass between SDDMM and SpMM, ≈ 3
+    slot-tensor traversals (read logits and row stats, write α, and the
+    α the backward would keep).  op="spmm": the separate degree-norm /
+    bias / activation pass over the (n, d) output, one read and one
+    write.
+    """
+    C, K, _ = stats.chunks_and_slots(config.S, B=config.B)
+    if op == "gat":
+        slot_bytes = heads * C * config.V * K * dtype_bytes
+        return 3.0 * slot_bytes
+    if op == "spmm":
+        out_bytes = heads * stats.n_rows * _head_dim(dim, heads) * dtype_bytes
+        return 2.0 * out_bytes
+    raise ValueError(f"no fusion penalty for op={op!r}")
+
+
+def unfused_penalty(stats: PCSRStats, dim: int, config: SpMMConfig,
+                    op: str, hw: Hardware = H100, *,
+                    heads: int = 1) -> float:
+    """Extra seconds the unfused pipeline pays over the fused one: the
+    ``unfused_bytes`` round trips at ``hw``'s memory rate."""
+    return unfused_bytes(stats, dim, config, op, hw.dtype_bytes,
+                         heads=heads) / hw.hbm_bw
+
+
 class CostModel:
     """Caches per-(V,W) stats for one matrix; prices any config × dim.
 
     ``op`` is the operator priced: ``"spmm"``, ``"sddmm"``, or ``"gat"``
     — the attention pair, one fused SDDMM+softmax pass plus one SpMM
     aggregation pass, so ``best(..., op="gat")`` picks the config that
-    minimises the pair.  ``H`` prices the per-head grids.  The unfused
-    pipeline's price (``fused=False``) is not ported yet.
+    minimises the pair.  ``H`` prices the per-head grids.
+    ``fused=False`` adds the elementwise passes the fusion removes
+    (``unfused_penalty``).
+
+    ``calibration`` (a ``core.calibrate.CalibrationResult``; load one
+    with ``from_calibration``) prices the same grid extents (bytes,
+    MACs, steps, chunk setups of ``cost()``) through coefficients fitted
+    to measured kernel time instead of ``hardware``'s constants.
     """
 
-    def __init__(self, csr: CSRMatrix, hardware: Hardware = H100):
+    def __init__(self, csr: CSRMatrix, hardware: Hardware = H100,
+                 calibration=None):
         self.csr = csr
         self.hardware = hardware
+        self.calibration = calibration
         self._stats: dict[tuple[int, int], PCSRStats] = {}
+
+    @classmethod
+    def from_calibration(cls, csr: CSRMatrix, path) -> "CostModel":
+        """Cost model priced by a saved calibration artifact (a JSON path
+        or an already-loaded ``CalibrationResult``)."""
+        from .calibrate import CalibrationResult
+        cal = (path if isinstance(path, CalibrationResult)
+               else CalibrationResult.load(path))
+        return cls(csr, calibration=cal)
 
     def stats(self, V: int, W: int) -> PCSRStats:
         key = (V, W)
@@ -188,19 +243,58 @@ class CostModel:
         raise ValueError(f"no single-kernel breakdown for op={op!r}")
 
     def time(self, dim: int, config: SpMMConfig, op: str = "spmm", *,
-             H: int = 1, epilogue: bool = False) -> float:
-        """Seconds for one kernel pass (the analytic roofline total), or
-        for the SDDMM + SpMM pair when ``op="gat"``."""
+             H: int = 1, fused: bool = True,
+             epilogue: bool = False) -> float:
+        """Seconds for one kernel pass, or for the SDDMM + SpMM pair when
+        ``op="gat"``.  ``epilogue=True`` prices a fused-epilogue SpMM;
+        with ``fused=False`` the post-ops run as separate passes instead,
+        so the kernel is priced without the epilogue and the elementwise
+        passes' penalty is added."""
         if op == "gat":
-            return (self.cost(dim, config, "sddmm", H=H).total
-                    + self.cost(dim, config, "spmm", H=H).total)
-        return self.cost(dim, config, op, H=H, epilogue=epilogue).total
+            t = (self._price(self.cost(dim, config, "sddmm", H=H), "sddmm")
+                 + self._price(self.cost(dim, config, "spmm", H=H), "spmm"))
+        else:
+            t = self._price(self.cost(dim, config, op, H=H,
+                                      epilogue=epilogue and fused), op)
+        if not fused and op in ("gat", "spmm"):
+            st = self.stats(config.V, config.W)
+            if self.calibration is None:
+                t += unfused_penalty(st, dim, config, op, self.hardware,
+                                     heads=H)
+            else:
+                t += self.calibration.stream_seconds(
+                    unfused_bytes(st, dim, config, op,
+                                  self.hardware.dtype_bytes, heads=H),
+                    hbm_bw=self.hardware.hbm_bw)
+        return t
 
-    def best(self, dim: int, space, op: str = "spmm", *,
-             H: int = 1) -> tuple[SpMMConfig, float]:
+    def _price(self, bd: CostBreakdown, op: str) -> float:
+        """Seconds for one kernel pass: the analytic roofline total, or,
+        when calibrated, the fitted linear model over the same grid
+        extents (``calibrate.breakdown_features``)."""
+        if self.calibration is None:
+            return bd.total
+        return self.calibration.price(bd, op)
+
+    def best(self, dim: int, space, op: str = "spmm", *, H: int = 1,
+             fused: bool = True) -> tuple[SpMMConfig, float]:
+        """The cheapest config of ``space`` (the first on a tie) and its
+        price; recorded in the decision log while tracing is on."""
         best_cfg, best_t = None, np.inf
+        scored = []
         for cfg in space:
-            t = self.time(dim, cfg, op, H=H)
+            t = self.time(dim, cfg, op, H=H, fused=fused)
+            scored.append((cfg, t))
             if t < best_t:
                 best_cfg, best_t = cfg, t
+        if _obs_trace.trace_enabled() and best_cfg is not None:
+            _obs_decisions.record_decision(
+                self.csr, source="cost_model", op=op, dim=dim, heads=H,
+                chosen=best_cfg, predicted_seconds=best_t,
+                candidates=scored, calibration=self.calibration)
         return best_cfg, best_t
+
+
+def useful_flops(nnz: int, dim: int) -> float:
+    """MAC count of the mathematical SpMM (2·nnz·dim)."""
+    return 2.0 * nnz * dim

@@ -1,19 +1,27 @@
-"""Process-wide telemetry: spans and counters behind one switch.
+"""Process-wide telemetry: spans, counters, decision log, drift checks.
 
 Tracing is off by default and every instrumentation point in the hot
 paths degrades to a near-zero no-op.  Enable with ``obs.tracing(path)``
 or the ``--trace`` flag of ``repro_torch.apps.serve_gnn``.
 """
 from repro_torch.obs.trace import (
-    tracing, start_tracing, stop_tracing, trace_enabled, span,
+    tracing, start_tracing, stop_tracing, trace_enabled, span, instant,
     export_trace, trace_events,
 )
 from repro_torch.obs.metrics import (
     counter, histogram, metrics_snapshot, reset_metrics,
 )
+from repro_torch.obs.decisions import (
+    DecisionRecord, DriftAdvisory, DRIFT_FEATURES, DRIFT_THRESHOLD,
+    record_decision, decision_log, clear_decisions,
+    graph_snapshot, check_drift, resolve_drift_thresholds,
+)
 
 __all__ = [
     "tracing", "start_tracing", "stop_tracing", "trace_enabled", "span",
-    "export_trace", "trace_events",
+    "instant", "export_trace", "trace_events",
     "counter", "histogram", "metrics_snapshot", "reset_metrics",
+    "DecisionRecord", "DriftAdvisory", "DRIFT_FEATURES", "DRIFT_THRESHOLD",
+    "record_decision", "decision_log", "clear_decisions",
+    "graph_snapshot", "check_drift", "resolve_drift_thresholds",
 ]

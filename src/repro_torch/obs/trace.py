@@ -1,4 +1,4 @@
-"""Nestable spans with Chrome-trace-event JSON export.
+"""Nestable spans and instant events with Chrome-trace-event JSON export.
 
 One process-wide switch gates the whole ``repro_torch.obs`` layer:
 tracing is off by default and every instrumentation point degrades to a
@@ -8,8 +8,10 @@ manager, counters return immediately).  Enable it with the
 
 Exported files follow the Chrome trace event format: ``"X"`` complete
 events (``ts``/``dur`` in microseconds) nest by containment per thread,
-and one ``"C"`` counter event per metric series is appended at export.
-The top-level key ``repro_metrics`` carries the full metric snapshot.
+``"i"`` instant events mark points in time, and one ``"C"`` counter
+event per metric series is appended at export.  The top-level keys
+``repro_metrics`` and ``repro_decisions`` carry the full metric snapshot
+and the config-pick decision log (``repro_torch.obs.decisions``).
 
 Kernel launches are not traced here: each kernel wrapper keeps its own
 launch count (``repro_torch.kernels.paramspmm.ops.launch_count``).
@@ -23,7 +25,7 @@ from time import perf_counter
 from typing import Any, Optional
 
 __all__ = ["tracing", "start_tracing", "stop_tracing", "trace_enabled",
-           "span", "export_trace", "trace_events"]
+           "span", "instant", "export_trace", "trace_events"]
 
 _LOCK = threading.Lock()
 _STATE: Optional["_TraceState"] = None
@@ -96,6 +98,16 @@ def span(name: str, cat: str = "repro", **args: Any):
     return _Span(st, name, cat, args)
 
 
+def instant(name: str, cat: str = "repro", **args: Any) -> None:
+    """Record a point-in-time ``"i"`` event (no-op when disabled)."""
+    st = _STATE
+    if st is None:
+        return
+    st.add({"name": name, "cat": cat, "ph": "i", "s": "t",
+            "ts": st.now_us(), "pid": os.getpid(),
+            "tid": threading.get_ident(), "args": args})
+
+
 def trace_events() -> list[dict]:
     """Snapshot of the event buffer (empty list when disabled)."""
     st = _STATE
@@ -106,20 +118,22 @@ def trace_events() -> list[dict]:
 
 
 def start_tracing(path: Optional[str] = None) -> None:
-    """Open a tracing session with a fresh event buffer and a zeroed
-    metrics registry.  Raises if a session is already active."""
+    """Open a tracing session with a fresh event buffer, a zeroed
+    metrics registry and an empty decision log (a trace captures its own
+    window).  Raises if a session is already active."""
     global _STATE
     if _STATE is not None:
         raise RuntimeError("tracing already active")
-    from repro_torch.obs import metrics as _metrics
+    from repro_torch.obs import decisions as _decisions, metrics as _metrics
     _STATE = _TraceState(path)
     _metrics.reset_metrics()
+    _decisions.clear_decisions()
 
 
 def export_trace(path: str) -> str:
-    """Write the current buffer + metric snapshot as Chrome-trace JSON
-    without stopping the session.  Returns ``path``."""
-    from repro_torch.obs import metrics as _metrics
+    """Write the current buffer + metric snapshot + decision log as
+    Chrome-trace JSON without stopping the session.  Returns ``path``."""
+    from repro_torch.obs import decisions as _decisions, metrics as _metrics
     st = _STATE
     events = trace_events()
     end_us = st.now_us() if st is not None else 0.0
@@ -134,13 +148,17 @@ def export_trace(path: str) -> str:
                            "args": {"value": value}})
     with open(path, "w") as fh:
         json.dump({"traceEvents": events, "displayTimeUnit": "ms",
-                   "repro_metrics": snapshot}, fh, indent=1, default=str)
+                   "repro_metrics": snapshot,
+                   "repro_decisions": [r.to_dict() for r in
+                                       _decisions.decision_log()]},
+                  fh, indent=1, default=str)
     return path
 
 
 def stop_tracing(path: Optional[str] = None) -> Optional[str]:
     """End the session; write the trace to ``path`` (or the path given
-    at start) if any.  Returns the written path."""
+    at start) if any.  The decision log survives the stop, so
+    ``check_drift`` can run against it later.  Returns the written path."""
     global _STATE
     st = _STATE
     if st is None:

@@ -8,29 +8,29 @@ from __future__ import annotations
 import numpy as np
 
 from .core import (CostModel, CSRMatrix, H100, Hardware, SpMMConfig,
-                   config_space, pcsr_stats)
+                   config_space, extract_features, pcsr_stats)
 from .core.engine import ParamSpMMOperator
 from .core.reorder import apply_reorder, rabbit_reorder
 
 
 def pick_config(csr: CSRMatrix, dim: int, *, decider=None,
                 select: str = "model", op: str = "spmm", heads: int = 1,
-                hardware: Hardware = H100) -> SpMMConfig:
-    """Configuration pick shared by every entry point: a cost-model sweep
-    over ``config_space`` priced for ``hardware``.  The serving tier
-    calls it once per shape bucket.
-
-    The trained decider and the measured oracle search are not ported
-    yet (ROADMAP Queue 1 item 6).
+                hardware: Hardware = H100, device=None) -> SpMMConfig:
+    """Configuration pick shared by every entry point.  The order is the
+    JAX package's: the ``decider``'s prediction (a ``core.decider.
+    SpMMDecider``) > the measured oracle (``select="measured"``: every
+    config of ``config_space(dim)`` timed on ``device``, default CUDA,
+    two reps) > a cost-model sweep over ``config_space(dim)`` priced for
+    ``hardware``.  The serving tier calls it once per shape bucket.
     """
     if decider is not None:
-        raise NotImplementedError(
-            "decider-driven config pick is not ported yet "
-            "(ROADMAP Queue 1 item 6)")
+        return decider.predict(extract_features(csr), dim)
     if select == "measured":
-        raise NotImplementedError(
-            "measured oracle search is not ported yet "
-            "(ROADMAP Queue 1 item 6)")
+        from .core.autotune import oracle_search
+        return oracle_search(csr, dim, mode="measured", reps=2, op=op,
+                             H=heads, device=device).best_config
+    if select != "model":
+        raise ValueError(f"unknown select {select!r}")
     config, _ = CostModel(csr, hardware).best(dim, config_space(dim),
                                               op=op, H=heads)
     return config
@@ -50,7 +50,9 @@ class ParamSpMM:
     (reordering an already well-ordered graph can only hurt); ``perm``
     (node i → ``perm[i]``) says how to permute node-aligned data.  The
     config is ``config`` if given, else ``pick_config`` for ``op``
-    ("spmm", "sddmm" or "gat") and ``heads`` on ``hardware``.  ``p(B)`` is
+    ("spmm", "sddmm" or "gat") and ``heads``: the ``decider``'s, the
+    measured oracle's on ``device`` (``select="measured"``) or the cost
+    model's on ``hardware``.  ``p(B)`` is
     the differentiable SpMM, ``p.fused(B, scale=, bias=, activation=,
     residual=)`` the epilogue-fused one; ``p.op`` holds the PCSRs of A and
     Aᵀ.  ``device`` (default CUDA; raises without a card) is where the
@@ -77,7 +79,8 @@ class ParamSpMM:
         self.dim = dim
         if config is None:
             config = pick_config(csr, dim, decider=decider, select=select,
-                                 op=op, heads=heads, hardware=hardware)
+                                 op=op, heads=heads, hardware=hardware,
+                                 device=device)
         self.config = config
         self.op = ParamSpMMOperator(csr, config,
                                     build_transpose=build_transpose,

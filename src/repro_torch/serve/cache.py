@@ -1,7 +1,7 @@
 """Bucket-keyed steering-pack cache.
 
 A cache entry (``BucketPack``) is everything request-independent about a
-bucket: the cost-model-picked ⟨W,F,V,S,B⟩ config and the static
+bucket: the decider- or cost-model-picked ⟨W,F,V,S,B⟩ config and the static
 ``PackGeom`` derived from it, which also fixes the kernel's grid (one
 chunk group per output block, ``geom.n_blocks``).  The pick runs ONCE
 per bucket, on the first batch that lands in it, and is amortized across
@@ -45,17 +45,19 @@ class SteeringPackCache:
     ``dim`` is the widest layer of the served model (the config pick's
     embedding-dim argument); ``op`` steers the cost model ("spmm" for
     GCN/GIN, "gat" for attention, priced as the SDDMM + SpMM pair);
-    ``hardware`` the constants it prices with.
+    ``hardware`` the constants it prices with; ``decider`` (a trained
+    ``core.decider.SpMMDecider``) short-circuits the cost model.
     """
 
     def __init__(self, *, dim: int, capacity: int = 8, op: str = "spmm",
-                 hardware: Hardware = H100):
+                 hardware: Hardware = H100, decider=None):
         if capacity < 1:
             raise ValueError("cache capacity must be >= 1")
         self.dim = dim
         self.capacity = capacity
         self.op = op
         self.hardware = hardware
+        self.decider = decider
         self.hits = 0
         self.misses = 0
         self.evictions = 0
@@ -74,8 +76,8 @@ class SteeringPackCache:
             return entry
         self.misses += 1
         _metrics.counter("serve_cache_misses_total").inc(bucket=bucket.key)
-        config = pick_config(csr, self.dim, op=self.op,
-                             hardware=self.hardware)
+        config = pick_config(csr, self.dim, decider=self.decider,
+                             op=self.op, hardware=self.hardware)
         entry = BucketPack(bucket, config, PackGeom.from_bucket(bucket,
                                                                 config))
         self._entries[bucket] = entry

@@ -80,7 +80,8 @@ class GNNService:
     the model parameters (moved to the service's device).  ``device``
     defaults to CUDA and raises if there is none; pass ``device="cpu"``
     to serve through the kernel's plain version.  ``hardware`` is what
-    the per-bucket config pick prices with.  ``keep_subgraphs=True``
+    the per-bucket config pick prices with, unless a trained ``decider``
+    (``core.decider.SpMMDecider``) picks instead.  ``keep_subgraphs=True``
     retains each request's sampled subgraph on its result, for
     re-checking against ``reference_forward``.
     """
@@ -90,7 +91,7 @@ class GNNService:
                  policy: BucketPolicy | None = None,
                  cache_capacity: int = 8, max_batch: int = 32,
                  keep_subgraphs: bool = False,
-                 hardware: Hardware = H100):
+                 hardware: Hardware = H100, decider=None):
         check_model(model)
         self.device = resolve_device(device)
         self.csr = csr
@@ -102,7 +103,8 @@ class GNNService:
         self.keep_subgraphs = keep_subgraphs
         self.cache = SteeringPackCache(
             dim=_model_dims(model, params), capacity=cache_capacity,
-            op="gat" if model == "gat" else "spmm", hardware=hardware)
+            op="gat" if model == "gat" else "spmm", hardware=hardware,
+            decider=decider)
         big = self.policy.largest
         self.batcher = RequestBatcher(n_max=big.n_ceil, e_max=big.e_ceil,
                                       max_batch=max_batch)

@@ -49,13 +49,31 @@ def test_every_module_imports_without_jax():
         "for n in names:\n"
         "    importlib.import_module(n)\n"
         "assert 'jax' not in [k for k, v in sys.modules.items() if v]\n"
+        "print(' '.join(names))\n"
         "print(len(names))\n")
     res = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                          env={"PYTHONPATH": str(ROOT / "src"),
                               "PATH": "/usr/bin:/bin"},
                          capture_output=True, text=True, timeout=120)
     assert res.returncode == 0, res.stderr
-    assert int(res.stdout.split()[-1]) >= 49
+    assert int(res.stdout.split()[-1]) >= 56
+    # the decider path and the baselines are among them
+    assert set(DECIDER_PATH) <= set(res.stdout.split())
+
+
+DECIDER_PATH = ("repro_torch.obs.decisions", "repro_torch.core.features",
+                "repro_torch.core.decider", "repro_torch.core.calibrate",
+                "repro_torch.core.autotune", "repro_torch.core.baselines",
+                "repro_torch.apps.decider_train")
+
+
+@pytest.mark.parametrize("name", DECIDER_PATH)
+def test_decider_path_modules_are_checked(name):
+    path = PORT / (name.split(".", 1)[1].replace(".", "/") + ".py")
+    assert path in PORT_FILES
+    bad = [m for m in _imported_modules(path)
+           if m.split(".")[0] in ("jax", "jaxlib", "repro")]
+    assert not bad, f"{path.name} imports {bad}"
 
 
 def test_entry_points_default_to_cuda(monkeypatch):
@@ -87,6 +105,15 @@ def test_entry_points_default_to_cuda(monkeypatch):
             gnn_app.main(["--model", model, "--steps", "1"])
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         ParamSpMM(task.csr, 16)
+    for mode in ("cusparse", "gespmm"):
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            gnn_app.train_gnn(task, steps=1, spmm_mode=mode)
+    from repro_torch.apps import decider_train
+    from repro_torch.core import calibrate
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        decider_train.main(["--scale", "small", "--dims", "16"])
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        calibrate.main(["--fast"])
     from repro_torch.configs import get_reduced
     from repro_torch.launch import serve
     from repro_torch.models import lm

@@ -635,3 +635,85 @@ def test_hymba_prefill_and_decode_on_card_match_cpu(cuda_device):
                    device=cuda_device)
     assert seq.shape == (2, 14) and seq.device.type == "cuda"
     assert int(seq.max()) < cfg.vocab
+
+
+# ------------------------------------- measured oracle, baselines, decider
+@pytest.mark.cuda
+@pytest.mark.parametrize("op,H", [("spmm", 1), ("spmm", 4), ("sddmm", 1),
+                                  ("gat", 1), ("gat", 4)])
+def test_measured_oracle_times_the_kernels(cuda_device, op, H):
+    """Each config launches each timed kernel warmup + reps times, and
+    nothing else; every time is finite and positive, the best the
+    argmin."""
+    from repro_torch.core.autotune import oracle_search
+    from repro_torch.core.pcsr import config_space
+    g = rmat(10, 8, seed=1)
+    space = config_space(64)
+    ops.reset_launch_count()
+    sddmm_ops.reset_launch_count()
+    res = oracle_search(g, 64, mode="measured", reps=3, warmup=2, op=op,
+                        H=H, device=cuda_device)
+    per = 5 * len(space)
+    assert (ops.launch_count(), sddmm_ops.launch_count("sddmm_softmax"),
+            sddmm_ops.launch_count("sddmm")) == (
+        per if op in ("spmm", "gat") else 0, per if op == "gat" else 0,
+        per if op == "sddmm" else 0)
+    t = np.array(list(res.times.values()))
+    assert np.isfinite(t).all() and (t > 0).all()
+    assert res.best_config == min(res.times, key=res.times.get)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cfg", CONFIGS, ids=lambda c: str(c.astuple()))
+def test_cusparse_analogue_equals_paramspmm(cuda_device, cfg):
+    """torch.sparse.mm on CSR (cuSPARSE) and the ParamSpMM kernel give the
+    same bits on integer-valued operands; so does the GE-SpMM analogue,
+    and both differentiate in B like the kernel's operator."""
+    from repro_torch.core.baselines import (make_cusparse_analog,
+                                            make_gespmm_analog)
+    rng = np.random.default_rng(3)
+    A = (rng.random((90, 90)) < 0.08) * rng.integers(-2, 3, (90, 90))
+    c = CSRMatrix.from_dense(A.astype(np.float32))
+    p = build_pcsr(c.indptr, c.indices, c.data, 90, 90, cfg)
+    B = torch.from_numpy(rng.integers(-4, 5, (90, 24)).astype(np.float32)
+                         ).to(cuda_device)
+    launches = ops.launch_count()
+    want = ops.paramspmm(p, B)
+    assert ops.launch_count() == launches + 1
+    for make in (make_cusparse_analog, make_gespmm_analog):
+        fn = make(c, cuda_device)
+        assert torch.equal(fn(B), want)
+        Bg = B.clone().requires_grad_()
+        dC = torch.ones_like(want)
+        (dB,) = torch.autograd.grad(fn(Bg), Bg, dC)
+        assert torch.equal(dB.cpu(), torch.from_numpy(
+            (A.T @ np.ones((90, 24))).astype(np.float32)))
+    assert ops.launch_count() == launches + 1
+
+
+@pytest.mark.cuda
+def test_serving_with_a_decider_on_card(cuda_device):
+    """A decider's pick drives GCN serving on the card; the result equals
+    the same service on the CPU bit for bit (integer operands)."""
+    from repro_torch.core.decider import RandomForest, SpMMDecider
+    from repro_torch.core.features import extract_features
+    g = rmat(10, 6, seed=4)
+    pick = SpMMConfig(V=2, S=True, F=1, W=4, B=True)
+    dec = SpMMDecider(forest=RandomForest(n_estimators=3, seed=0))
+    dec.fit([(extract_features(g), 64, pick)] * 4)
+    rng = np.random.default_rng(0)
+    feats = rng.integers(0, 3, (g.n_rows, 16)).astype(np.float32)
+    params = [{k: torch.round(v * 4) for k, v in layer.items()}
+              for layer in init_gcn([16, 64, 16],
+                                    generator=torch.Generator()
+                                    .manual_seed(0))]
+    out = {}
+    for dev in (cuda_device, "cpu"):
+        svc = GNNService(g, feats, params, model="gcn", device=dev,
+                         decider=dec)
+        res = replay(svc, synthetic_stream(6, g.n_rows, seed=1),
+                     tick_every=3)
+        assert {r.config for r in res} == {pick}
+        out[str(dev)] = [r.outputs for r in res]
+    for a, b in zip(out["cuda"], out["cpu"]):
+        np.testing.assert_array_equal(a, b)

@@ -32,6 +32,7 @@ from repro.pipeline import ParamSpMM as RParamSpMM
 from repro_torch.apps.gnn import _init_params, main, train_gnn
 from repro_torch.convert import params_to_torch
 from repro_torch.core import cost_model as tcm
+from repro_torch.core import pcsr as tp
 from repro_torch.core import reorder as treorder
 from repro_torch.core.sparse import CSRMatrix as TCSR
 from repro_torch.data.tasks import community_task
@@ -91,8 +92,15 @@ def test_paramspmm_perm_and_config_equal_reference(kind, op, heads):
                               getattr(want.op.pcsr, f)), f
         assert np.array_equal(getattr(got.op.pcsr_t, f),
                               getattr(want.op.pcsr_t, f)), f
-    with pytest.raises(NotImplementedError, match="item 6"):
-        ParamSpMM(_port(r), 64, decider=object(), device="cpu")
+    # a decider's pick takes precedence over the cost model's
+    pick = tp.SpMMConfig(V=2, S=True, F=1, W=4, B=True)
+
+    class _Fixed:
+        def predict(self, feats, dim):
+            assert dim == 64 and feats.values.shape == (18,)
+            return pick
+    assert ParamSpMM(_port(r), 64, decider=_Fixed(), op=op, heads=heads,
+                     device="cpu").config == pick
 
 
 def test_community_task_equals_reference():
@@ -216,11 +224,16 @@ def test_train_gnn_multihead_gat_and_unported_options():
     res = train_gnn(task, model="gat", hidden=16, n_layers=3, steps=4,
                     heads=4, device="cpu")
     assert np.isfinite(res.losses).all() and res.losses[-1] < res.losses[0]
-    for kw, match in (({"partitions": 2}, "item 8"),
-                      ({"spmm_mode": "cusparse"}, "item 5"),
-                      ({"spmm_mode": "gespmm"}, "item 5")):
-        with pytest.raises(NotImplementedError, match=match):
-            train_gnn(task, steps=1, device="cpu", **kw)
+    with pytest.raises(NotImplementedError, match="item 8"):
+        train_gnn(task, steps=1, device="cpu", partitions=2)
+    # the baselines train GCN / GIN (tests/test_torch_baselines.py holds
+    # them against the reference); GAT needs the PCSR message fn
+    for mode in ("cusparse", "gespmm"):
+        res = train_gnn(task, steps=2, device="cpu", spmm_mode=mode)
+        assert res.config is None and np.isfinite(res.losses).all()
+        with pytest.raises(ValueError, match="PCSR message"):
+            train_gnn(task, model="gat", steps=1, device="cpu",
+                      spmm_mode=mode)
     with pytest.raises(ValueError, match="unknown model"):
         train_gnn(task, model="mlp", steps=1, device="cpu")
     with pytest.raises(NotImplementedError, match="item 9"):
