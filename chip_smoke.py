@@ -48,7 +48,9 @@ Runs from the root of a checkout and drives ``src/repro_torch`` only
    single-head GAT at ``configs/gat.py``'s width ([16, 64, 64, 16]) on the
    same graph and stream, seeded random weights and features: every
    request within ``rtol=1e-4, atol=1e-4`` of ``reference_forward`` on
-   the CPU, and each of the two kernels launched layers × batches times;
+   the CPU, and each of the two kernels launched layers × batches times.
+   The services serve through CUDA graphs (their default on a card: one
+   capture per bucket geometry, replayed; launches counted per replay);
 5. training — GCN, GIN (5 × 64) and single-head GAT (3 × 64) through
    ``train_gnn`` on ``community_task()`` for 10 steps, on the card and on
    the CPU: loss trajectories within ``rtol=1e-4``, equal val_acc (also
@@ -89,8 +91,9 @@ Runs from the root of a checkout and drives ``src/repro_torch`` only
    layer's scan within 1e-5 × max |y| of the plain one; then B = 1,
    S = 32768 timed (ms, tokens/s, peak memory) and profiled once;
 10. LM decode — ``launch/serve.py::generate`` at full config with the
-    reference CLI's defaults (batch 4, prompt 16, gen 32, greedy): ms per
-    decode step, no scan launch;
+    reference CLI's defaults (batch 4, prompt 16, gen 32, greedy; the step
+    captured as a CUDA graph, its default on a card): ms per decode step,
+    no scan launch;
 11. LM consistency — full width, 4 layers (3 SWA + 1 global), S = 1100:
     teacher-forced ``decode_step`` logits vs ``forward_hidden`` within the
     reference's ``atol=0.2, rtol=0.05``;
@@ -117,12 +120,39 @@ Runs from the root of a checkout and drives ``src/repro_torch`` only
     within ``rtol=1e-4`` of the same mode on the CPU, none of our kernels
     launched; at 131,072 nodes ParamSpMM, cuSPARSE and GE-SpMM through
     the same ``train_gnn`` call (5 steps, no tracing), twice each in the
-    order P C G G C P, ms per step of each run (launches checked).
+    order P C G G C P, ms per step of each run (launches checked);
+15. captured serving (runs right after phase 4) — GCN, GIN and GAT as in
+    phase 4, each through four services in the order eager
+    (``graphs=False``), captured, captured, eager, each serving the
+    64-request stream twice: every request of every pass bit-exact (GCN,
+    GIN) or within ``rtol=1e-4, atol=1e-4`` (GAT) of the CPU reference;
+    launches per pass = layers × batches in both modes;
+    ``serve_recompiles_total`` = the (bucket, model) programs after the
+    first pass and unchanged after the second; p50 / p99 and the summed
+    ``serve.forward`` span per pass, eager beside captured; each bucket's
+    largest real unit table beside its bounds; one n512e2048 batch's
+    forward timed with CUDA events, eager beside the captured replay
+    (bit-equal), and a whole program call of each.  Then the tiny-cap bucket
+    grids once under capture: per config, the bucket pack's unit table cut
+    at ``TINY_CAP`` real slots and padded to the geometry's bounds,
+    ParamSpMM with the full epilogue and the GAT pair captured and
+    replayed twice on new operands, each replay against the plain
+    version;
+16. captured decode (runs after phase 11) — ``generate`` at full config,
+    batch 4, prompt 16, gen 32, eager and captured in the order eager,
+    captured, captured, eager: ms per decode step of each run, captured
+    tokens equal to eager up to each row's first near-tie (top-two logits
+    within 1e-2), step logits teacher-forced along the eager tokens within
+    ``atol=0.2, rtol=0.05``, no scan launch; one step's kernels and their
+    summed device time (``torch.profiler``) beside a replay's time (CUDA
+    events).
 
-Each main path (serving per model, training per model, each oracle
-search, each 131k baseline-comparison run, LM prefill, decode and the
-consistency forward) runs with the launch counts set to 0 just before it
-and read just after.
+Each main path (serving per model, each pass of each phase-15 service,
+training per model, each oracle search, each 131k baseline-comparison
+run, LM prefill, each decode run and the consistency forward) runs with
+the launch counts set to 0 just before it and read just after.  A
+replayed graph adds the launches its capture recorded
+(``kernels/capture.py``).
 
 Any failure raises and exits non-zero.  The last two lines are the
 kernels' JSON summary and ``{"ok": true, "device": {...}}``.
@@ -170,8 +200,9 @@ from repro_torch.kernels.sddmm import ops as sddmm_ops  # noqa: E402
 from repro_torch.models.gnn import init_gat  # noqa: E402
 from repro_torch.pipeline import ParamSpMM, pick_config  # noqa: E402
 from repro_torch.serve import (BucketPolicy, GNNService,  # noqa: E402
-                               PackGeom, SteeringPackCache, pack_subgraph,
-                               reference_forward, replay, synthetic_stream)
+                               PackGeom, SteeringPackCache, bucket_forward,
+                               pack_subgraph, reference_forward, replay,
+                               synthetic_stream)
 
 # H100 SXM data-sheet peaks (700 W): HBM3 rate, float32 outside tensor cores
 HBM_BYTES_PER_S = 3.35e12
@@ -662,6 +693,350 @@ def phase_serve_gat(device, *, requests=64, seed=0):
           f"layers × {len(svc.batch_log)} batches each)")
     _report("gat", svc, results, spans, wall)
     return launches, worst
+
+
+# ------------------------------------------------ captured serving (15)
+GRAPH_ORDER = (False, True, True, False)   # eager, captured, captured, eager
+
+
+def _serve_inputs(model, seed=0):
+    """Phase 4's graph, features and weights for ``model``: integer-valued
+    for GCN/GIN (bit-exact), seeded float ones for GAT."""
+    g = rmat(13, 8, seed=31)                   # corpus("serve")'s rmat13
+    rng = np.random.default_rng(seed)
+    if model == "gat":
+        feats = rng.standard_normal((g.n_rows, GAT_DIMS[0])).astype(
+            np.float32)
+        return g, feats, init_gat(GAT_DIMS, generator=torch.Generator()
+                                  .manual_seed(seed)), GAT_DIMS
+    feats = rng.integers(0, 3, (g.n_rows, SERVE_DIMS[0])).astype(np.float32)
+    return g, feats, _int_params(model, seed), SERVE_DIMS
+
+
+def _recompiles():
+    return sum(obs.metrics_snapshot().get("serve_recompiles_total",
+                                          {}).values())
+
+
+def _two_passes(svc, stream):
+    """The stream served twice by one service inside one tracing session.
+    Each pass is a main path: the launch counts are set to 0 just before
+    it and read just after.  Returns per pass the results, wall s, launch
+    counts (paramspmm, sddmm_softmax), ``serve_recompiles_total`` after
+    it and the summed ``serve.forward`` span (ms)."""
+    passes = []
+    with obs.tracing():
+        for _ in range(2):
+            seen = len(obs.trace_events())
+            ops.reset_launch_count()
+            sddmm_ops.reset_launch_count()
+            t0 = time.perf_counter()
+            results = replay(svc, stream, tick_every=8)
+            wall = time.perf_counter() - t0
+            forward = sum(e["dur"] for e in obs.trace_events()[seen:]
+                          if e["ph"] == "X" and e["name"] == "serve.forward")
+            passes.append({"results": results, "wall": wall,
+                           "launches": (ops.launch_count(),
+                                        sddmm_ops.launch_count()),
+                           "recompiles": _recompiles(),
+                           "forward_ms": forward / 1e3})
+    return passes
+
+
+def _check_served(model, results, refs, feats, params, dims):
+    """Every result against the CPU reference forward (computed once per
+    request into ``refs``): bit-exact for GCN/GIN, within GAT_RTOL /
+    GAT_ATOL for GAT.  Returns the max abs error."""
+    worst = 0.0
+    for r in results:
+        sr = r.sampled
+        if r.rid not in refs:
+            if model != "gat":
+                check(_abs_bound(sr.sub, feats[sr.nodes], params, model)
+                      < 2 ** 24, f"{model} {r.rid}: partial sums past "
+                      "float32's exact integers")
+            refs[r.rid] = reference_forward(
+                sr.sub, torch.from_numpy(feats[sr.nodes]), params,
+                model=model, config=r.config).numpy()[sr.seed_local]
+        want = refs[r.rid]
+        check(np.isfinite(r.outputs).all()
+              and r.outputs.shape == (len(sr.seed_local), dims[-1]),
+              f"{model} {r.rid}: bad output")
+        if model == "gat":
+            np.testing.assert_allclose(r.outputs, want, rtol=GAT_RTOL,
+                                       atol=GAT_ATOL,
+                                       err_msg=f"gat {r.rid}")
+        else:
+            check(np.array_equal(r.outputs, want),
+                  f"{model} {r.rid}: not bit-exact vs the CPU reference "
+                  f"(max diff {np.abs(r.outputs - want).max()})")
+        worst = max(worst, float(np.abs(r.outputs - want).max()))
+    return worst
+
+
+def _bounds_use(svc, results):
+    """Per bucket geometry: the largest real unit table of its batches
+    (units, split groups, partials) beside the geometry's bounds."""
+    from repro_torch.serve.service import _union_csr
+    by_rid = {r.rid: r for r in results}
+    use: dict = {}
+    for key, rids in svc.batch_log:
+        members = [by_rid[rid].sampled for rid in rids]
+        cfg = by_rid[rids[0]].config
+        union = _union_csr(members)
+        geom = PackGeom.from_bucket(svc.policy.pick(union.n_rows,
+                                                    union.nnz), cfg)
+        b = geom.bounds()
+        h = ops.host_steering(pack_subgraph(union, geom), cap=b.cap)
+        got = (len(h["units"]), len(h["splits"]), h["n_partials"])
+        old = use.get((key, cfg.astuple()), ((0, 0, 0), None))[0]
+        use[(key, cfg.astuple())] = (tuple(map(max, got, old)),
+                                     (b.n_units, b.n_splits, b.n_partials))
+    return use
+
+
+def phase_serve_graphs(model, device, *, requests=64, seed=0):
+    """Phase 15: serving through CUDA graphs beside eager serving, one
+    process, services in the order eager, captured, captured, eager, each
+    serving phase 4's stream twice.  Every request of every pass against
+    the CPU reference (bit-exact for GCN/GIN, GAT within GAT_RTOL /
+    GAT_ATOL); launches per pass = layers × batches, as in eager;
+    ``serve_recompiles_total`` = the distinct (bucket, model) programs
+    after the first pass and unchanged after the second.  Returns launch
+    counts by mode and the max abs error."""
+    g, feats, params, dims = _serve_inputs(model, seed)
+    stream = synthetic_stream(requests, g.n_rows, seed=seed)
+    n_layers = len(dims) - 1
+    refs: dict = {}
+    runs = {False: [], True: []}
+    launches = {False: [0, 0], True: [0, 0]}
+    worst, logs, use = 0.0, [], None
+    for graphs in GRAPH_ORDER:
+        svc = GNNService(g, feats, params, model=model, device=device,
+                         keep_subgraphs=True, graphs=graphs)
+        check(svc.graphs == graphs, f"{model}: graphs={svc.graphs}")
+        passes = _two_passes(svc, stream)
+        tag = f"{model} ({'captured' if graphs else 'eager'})"
+        n_b = len(svc.batch_log) // 2
+        buckets = len({k for k, _ in svc.batch_log})
+        for i, ps in enumerate(passes):
+            check(len(ps["results"]) == requests,
+                  f"{tag}: pass {i + 1} gave {len(ps['results'])} results")
+            want = n_layers * n_b
+            check(ps["launches"] == (want, want if model == "gat" else 0),
+                  f"{tag} pass {i + 1}: (paramspmm, sddmm_softmax) "
+                  f"launches {ps['launches']}, {n_layers} layers × {n_b} "
+                  "batches predict one launch of each kernel a layer")
+            worst = max(worst, _check_served(model, ps["results"], refs,
+                                             feats, params, dims))
+            for k in (0, 1):
+                launches[graphs][k] += ps["launches"][k]
+        check(passes[0]["recompiles"] == svc.compiled_buckets == buckets
+              > 0, f"{tag}: serve_recompiles_total "
+              f"{passes[0]['recompiles']} after pass 1, "
+              f"{svc.compiled_buckets} programs, {buckets} buckets")
+        check(passes[1]["recompiles"] == passes[0]["recompiles"],
+              f"{tag}: serve_recompiles_total moved in pass 2 "
+              f"({passes[0]['recompiles']} → {passes[1]['recompiles']})")
+        check(svc.batch_log[:n_b] == svc.batch_log[n_b:],
+              f"{tag}: pass 2 batched differently")
+        logs.append(svc.batch_log[:n_b])
+        if use is None:
+            use = _bounds_use(svc, passes[0]["results"])
+        runs[graphs].append(passes)
+    check(all(log == logs[0] for log in logs),
+          f"{model}: eager and captured services batched differently")
+    pct = lambda ps, q: float(np.percentile(
+        [r.latency_s * 1e3 for r in ps["results"]], q))
+    rows = {}
+    for graphs, name in ((False, "eager"), (True, "captured")):
+        rows[name] = [{"pass": i + 1,
+                       "p50_ms": [pct(ps[i], 50) for ps in runs[graphs]],
+                       "p99_ms": [pct(ps[i], 99) for ps in runs[graphs]],
+                       "forward_ms": [ps[i]["forward_ms"]
+                                      for ps in runs[graphs]],
+                       "wall_s": [ps[i]["wall"] for ps in runs[graphs]]}
+                      for i in (0, 1)]
+    fmt = lambda xs: " / ".join(f"{x:.3f}" for x in xs)
+    print(f"[serve graphs] {model}: {requests} requests × 2 passes × 4 "
+          f"services (order eager, captured, captured, eager), every "
+          f"request {'within rtol=%g, atol=%g' % (GAT_RTOL, GAT_ATOL) if model == 'gat' else 'bit-exact'} "
+          f"vs the CPU reference (max abs err {worst:.3e}); "
+          f"serve_recompiles_total = {buckets} programs after pass 1, "
+          "unchanged in pass 2; launches per pass = layers × batches")
+    for i in (0, 1):
+        e, c = rows["eager"][i], rows["captured"][i]
+        print(f"[serve graphs] {model} pass {i + 1}: p50 ms eager "
+              f"{fmt(e['p50_ms'])}, captured {fmt(c['p50_ms'])}; p99 ms "
+              f"eager {fmt(e['p99_ms'])}, captured {fmt(c['p99_ms'])}; "
+              f"serve.forward ms summed eager {fmt(e['forward_ms'])}, "
+              f"captured {fmt(c['forward_ms'])}")
+    print(f"[serve graphs] {model}: bucket bounds (units, split groups, "
+          "partials) largest real table / bound: " + ", ".join(
+              f"{k} {cfg}: {u} / {b}" for (k, cfg), (u, b) in
+              sorted(use.items())))
+    return {"model": model, "rows": rows,
+            "bounds_use": [{"bucket": k, "config": list(cfg),
+                            "largest": list(u), "bound": list(b)}
+                           for (k, cfg), (u, b) in sorted(use.items())],
+            "max_abs_err": worst}, launches
+
+
+def _time_program(model, device, *, bucket="n512e2048", reps=50):
+    """Phase 15: one bucket forward of phase 4's stream (its batch in
+    ``bucket``) timed three ways with CUDA events over ``reps``
+    back-to-back calls: the forward run eagerly on the batch's padded
+    steering, the captured program's replay alone, and a whole program
+    call (the batch's pinned copies, then the replay) against the same
+    eager call.  The replay must give the eager forward's bits."""
+    from repro_torch.serve.forward import BucketProgram
+    from repro_torch.serve.service import _union_csr
+    g, feats, params, dims = _serve_inputs(model)
+    svc = GNNService(g, feats, params, model=model, device=device,
+                     keep_subgraphs=True, graphs=False)
+    res = replay(svc, synthetic_stream(64, g.n_rows, seed=0), tick_every=8)
+    by_rid = {r.rid: r for r in res}
+    rids = next(r for k, r in svc.batch_log if k == bucket)
+    members = [by_rid[rid].sampled for rid in rids]
+    union = _union_csr(members)
+    geom = PackGeom.from_bucket(svc.policy.pick(union.n_rows, union.nnz),
+                                by_rid[rids[0]].config)
+    padded = pack_subgraph(union, geom)
+    X = feats[np.concatenate([m.nodes for m in members])]
+    Xp = np.zeros((geom.n_rows, X.shape[1]), np.float32)
+    Xp[:len(X)] = X
+    steer = ops.Steering.from_pcsr(padded, device, bounds=geom.bounds())
+    Xd = torch.from_numpy(Xp).to(device)
+    progs = {gr: BucketProgram(geom, padded, svc.params, X.shape[1], device,
+                               model=model, graphs=gr)
+             for gr in (False, True)}
+    with torch.no_grad():
+        eager = lambda: bucket_forward(steer, Xd, svc.params, geom=geom,
+                                       model=model)
+        want = eager()
+        got = progs[True](padded, X)            # warm-up, then capture
+        check(torch.equal(progs[True].captured.replay(), want)
+              and torch.equal(got, want),
+              f"{model}: the replayed bucket forward differs from eager")
+        row = {"model": model, "bucket": bucket,
+               "config": list(geom.config.astuple()),
+               "forward_eager_ms": cuda_ms(eager, reps=reps),
+               "replay_ms": cuda_ms(progs[True].captured.replay,
+                                    reps=reps),
+               "call_eager_ms": cuda_ms(lambda: progs[False](padded, X),
+                                        reps=reps),
+               "call_captured_ms": cuda_ms(lambda: progs[True](padded, X),
+                                           reps=reps)}
+    print(f"[serve graphs] {model} {bucket} {geom.config.astuple()}, one "
+          f"batch's forward (CUDA events, {reps} back-to-back): eager "
+          f"{row['forward_eager_ms']:.4f} ms, replay "
+          f"{row['replay_ms']:.4f} ms; a program call (pinned copies + "
+          f"forward): eager {row['call_eager_ms']:.4f} ms, captured "
+          f"{row['call_captured_ms']:.4f} ms; replay bit-equal to eager")
+    return row
+
+
+def phase_tiny_cap_captured(device):
+    """Phase 15: the tiny-cap bucket grids once under capture.  For every
+    config of phase 3's grid, the serving batch's bucket pack with its
+    unit table cut at ``TINY_CAP`` real slots and padded to the
+    geometry's bounds at that cap (split groups, padding units and
+    padding splits in every case): ParamSpMM with the full epilogue and
+    the GAT pair (SDDMM → stats, prologue SpMM) captured, then replayed on
+    new operands copied into the captured inputs; each replay against
+    the plain version at phase 3's tolerances.  Returns (cases, max abs
+    error)."""
+    from repro_torch.kernels.capture import capture
+    rng = np.random.default_rng(4)
+    g = rmat(13, 8, seed=31)
+    union = _union(g, 8, seed=5)
+    bucket = BucketPolicy.default().pick(union.n_rows, union.nnz)
+    cases, worst, pads = 0, 0.0, []
+    for v in (1, 2):
+        for s, b in ((False, False), (True, False), (True, True)):
+            for r in (8, 16, 32):
+                for f in (1, 2):
+                    cfg = SpMMConfig(V=v, S=s, B=b, F=f, W=r // v)
+                    geom = PackGeom.from_bucket(bucket, cfg)
+                    bounds = geom.bounds(TINY_CAP)
+                    for integer in (True, False):
+                        p = pack_subgraph(union if integer
+                                          else _normalized(union), geom)
+                        steer = ops.Steering.from_pcsr(p, device,
+                                                       bounds=bounds)
+                        u = steer.units.cpu()
+                        real = int((u[:, 0] < u[:, 1]).sum())
+                        check(bool((u[:, 3] >= 0).any())
+                              and real < steer.n_units,
+                              f"tiny cap {cfg.astuple()}: no split group "
+                              "or no padding unit")
+                        pads.append(steer.n_units - real)
+                        geo = _geo(p)
+                        for dim in (16, 64):
+                            worst = max(worst, _captured_case(
+                                capture, steer, p, geo, dim, integer, rng,
+                                device))
+                            cases += 1
+    print(f"[graphs tiny cap] {cases} captured cases (ParamSpMM with the "
+          f"full epilogue and the GAT pair, replayed on new operands), "
+          f"units ≤ {TINY_CAP} real slots, {min(pads)}–{max(pads)} padding "
+          f"units a table; all match (max abs err {worst:.3e} on float "
+          "operands)")
+    return cases, worst
+
+
+def _captured_case(capture, steer, p, geo, dim, integer, rng, device):
+    """One tiny-cap case under capture: returns the max abs error of the
+    replays on float operands (0 on integer ones, which must be
+    bit-exact)."""
+    cfg = p.config
+    draw = ((lambda *sh: rng.integers(-3, 4, sh).astype(np.float32))
+            if integer else
+            (lambda *sh: rng.standard_normal(sh).astype(np.float32)))
+    n = p.n_rows
+    new = lambda: {"B": draw(n, dim), "scale": draw(n), "bias": draw(dim),
+                   "residual": draw(n, dim), "Q": draw(1, n, dim),
+                   "K": draw(1, n, dim), "Vf": draw(1, n, dim)}
+    ins = {k: torch.from_numpy(a).to(device) for k, a in new().items()}
+    scale = float(1.0 / np.sqrt(dim))
+
+    def fn():
+        spmm = ops._call(steer, ins["B"], dblk=cfg.dblk, scale=ins["scale"],
+                         bias=ins["bias"], residual=ins["residual"],
+                         activation="relu", **geo)
+        lg, m, s = sddmm_ops._stats_call(steer, ins["Q"], ins["K"],
+                                         scale=scale, slope=SLOPE, **geo)
+        out = ops._call(steer, ins["Vf"], vals=lg, rowmax=m, rowsum=s,
+                        dblk=cfg.dblk, **geo)
+        return spmm, lg, m, s, out
+
+    _, captured = capture(fn, device)
+    err = 0.0
+    for _ in range(2):                  # replays on fresh operands
+        for k, a in new().items():
+            ins[k].copy_(torch.from_numpy(a))
+        spmm, lg, m, s, out = captured.replay()
+        want = ops.paramspmm_plain(steer, ins["B"], scale=ins["scale"],
+                                   bias=ins["bias"],
+                                   residual=ins["residual"],
+                                   activation="relu", **geo)
+        w_lg, w_m, w_s = sddmm_ops.sddmm_softmax_plain(
+            steer, ins["Q"], ins["K"], scale=scale, slope=SLOPE, **geo)
+        w_out = ops.paramspmm_plain(steer, ins["Vf"], vals=lg, rowmax=m,
+                                    rowsum=s, **geo)
+        torch.cuda.synchronize()
+        what = f"tiny cap {cfg.astuple()} d={dim} integer={integer}"
+        if integer:
+            check(torch.equal(spmm, want) and torch.equal(lg, w_lg),
+                  f"{what}: a replay is not bit-exact")
+        else:
+            torch.testing.assert_close(spmm, want, rtol=RTOL, atol=ATOL)
+            torch.testing.assert_close(lg, w_lg, rtol=RTOL, atol=1e-5)
+            err = max(err, float((spmm - want).abs().max()))
+        torch.testing.assert_close(m, w_m, rtol=STATS_RTOL, atol=STATS_ATOL)
+        torch.testing.assert_close(s, w_s, rtol=STATS_RTOL, atol=STATS_ATOL)
+        torch.testing.assert_close(out, w_out, rtol=RTOL, atol=ATOL)
+    return err
 
 
 # ------------------------------------------------------------ hub case
@@ -2112,6 +2487,144 @@ def phase_lm_consistency(device, *, S=1100):
     return diff, launched
 
 
+TIE = 1e-2    # top-two logits this close: either greedy pick is right
+#               (tests/test_torch_lm.py's near-tie rule)
+
+
+def _step_logits(params, cfg, seq, P, device, graphs):
+    """Every decode step's logits, teacher-forced along ``seq`` (B, T):
+    eager steps, or the step captured at position 0 and replayed (as
+    ``generate`` runs it).  Returns (T − 1, B, Vp) float32."""
+    from repro_torch.kernels.capture import capture
+    B, T = seq.shape
+    cache = lm.init_cache(cfg, ShapeCell("d", T, B, "decode"), device=device)
+    tok = seq[:, :1].clone()
+    pos = torch.zeros((), dtype=torch.int64, device=device)
+    step = lambda: lm.decode_step(params, cfg, tok, cache, pos)[0]
+    out, captured = [], None
+    with torch.no_grad():
+        for t in range(T - 1):
+            if not graphs:
+                logits, cache = lm.decode_step(params, cfg, seq[:, t:t + 1],
+                                               cache, t)
+            else:
+                tok.copy_(seq[:, t:t + 1])
+                pos.fill_(t)
+                if captured is None:
+                    logits, captured = capture(step, device)
+                else:
+                    logits = captured.replay()
+            out.append(logits[:, 0].clone())
+    return torch.stack(out)
+
+
+def _decode_device(params, cfg, device, batch, max_len, *, reps=20):
+    """One decode step at position 4 (after four eager steps): the kernels
+    it launches and their summed device ms, from ``torch.profiler`` over
+    one eager step, and the ms per replay of the captured step, from CUDA
+    events over ``reps`` back-to-back replays (each rewrites position 4's
+    cache slot)."""
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.kernels.capture import capture
+    cache = lm.init_cache(cfg, ShapeCell("d", max_len, batch, "decode"),
+                          device=device)
+    tok = torch.zeros((batch, 1), dtype=torch.int64, device=device)
+    pos = torch.zeros((), dtype=torch.int64, device=device)
+    step = lambda: lm.decode_step(params, cfg, tok, cache, pos)[0]
+    with torch.no_grad():
+        for t in range(4):
+            pos.fill_(t)
+            step()
+        pos.fill_(4)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            step()
+            torch.cuda.synchronize()
+        kernels, us = 0, 0.0
+        for e in prof.key_averages():
+            t = getattr(e, "device_time_total", None)
+            if t is None:
+                t = getattr(e, "cuda_time_total", 0.0)
+            if t > 0 and not e.key.startswith(("Memcpy", "Memset")):
+                kernels += e.count
+                us += t
+        _, captured = capture(step, device)
+        replay = cuda_ms(captured.replay, reps=reps, warmup=2)
+    check(kernels > 0, "the profiler saw no decode kernel")
+    return {"kernels_per_step": kernels, "kernel_ms_per_step": us / 1e3,
+            "replay_ms": replay}
+
+
+def phase_lm_decode_graphs(device, *, batch=4, prompt_len=16, gen=32):
+    """Phase 16: ``generate`` at full config, batch 4, the reference CLI's
+    prompt and gen lengths, with the decode step captured as a CUDA graph
+    and eagerly, in the order eager, captured, captured, eager (after one
+    warm-up run of each): ms per decode step of each run; the tokens of
+    the captured runs equal the eager runs' up to each row's first bf16
+    near-tie (top-two eager logits within ``TIE``), and the step logits,
+    teacher-forced along the eager tokens, within ``LOGITS_ATOL`` /
+    ``LOGITS_RTOL``; no scan launch."""
+    cfg = get_config("hymba-1.5b")
+    params = _hymba_params(cfg, device, seed=0)
+    prompt = np.random.default_rng(0).integers(0, cfg.vocab,
+                                               (batch, prompt_len))
+    steps = prompt_len + gen - 1
+
+    def run(graphs):
+        t0 = time.perf_counter()
+        seq, launched = _main_path(lambda: generate(
+            cfg, params, prompt, prompt_len + gen, gen, device=device,
+            graphs=graphs))
+        check(launched == 0, f"decode launched the scan {launched} times")
+        return seq, (time.perf_counter() - t0) * 1e3 / steps
+
+    run(False)
+    run(True)
+    runs = [(graphs, *run(graphs)) for graphs in GRAPH_ORDER]
+    seqs = {g: [r[1] for r in runs if r[0] == g] for g in (False, True)}
+    ms = {g: [r[2] for r in runs if r[0] == g] for g in (False, True)}
+    for g in (False, True):
+        check(torch.equal(seqs[g][0], seqs[g][1]),
+              f"two {'captured' if g else 'eager'} runs gave other tokens")
+    eager, captured = seqs[False][0], seqs[True][0]
+    check(torch.equal(captured[:, :prompt_len].cpu(),
+                      torch.as_tensor(prompt)), "generate changed the prompt")
+    want = _step_logits(params, cfg, eager, prompt_len, device, False)
+    got = _step_logits(params, cfg, eager, prompt_len, device, True)
+    real = slice(0, cfg.vocab)
+    torch.testing.assert_close(got[..., real], want[..., real],
+                               atol=LOGITS_ATOL, rtol=LOGITS_RTOL)
+    diff = float((got - want)[..., real].abs().max())
+    agree = np.full(batch, prompt_len + gen)
+    top2 = want[prompt_len - 1:, :, real].topk(2, dim=-1).values.cpu()
+    for i, t in enumerate(range(prompt_len - 1, steps)):
+        tie = (top2[i, :, 0] - top2[i, :, 1] <= TIE).numpy()
+        agree = np.where(tie, np.minimum(agree, t + 1), agree)
+    for b in range(batch):
+        check(torch.equal(captured[b, :agree[b]], eager[b, :agree[b]]),
+              f"row {b}: captured tokens differ from eager before the "
+              f"first near-tie (step {agree[b]})")
+    same_rows = int(sum(torch.equal(captured[b], eager[b])
+                        for b in range(batch)))
+    dev = _decode_device(params, cfg, device, batch, prompt_len + gen)
+    fmt = lambda xs: " / ".join(f"{x:.2f}" for x in xs)
+    print(f"[lm decode graphs] {cfg.name}, {cfg.n_layers} layers, batch "
+          f"{batch}, prompt {prompt_len}, gen {gen}: ms per decode step "
+          f"eager {fmt(ms[False])}, captured {fmt(ms[True])} (order eager, "
+          f"captured, captured, eager); tokens equal up to each row's "
+          f"first near-tie (rows equal throughout: {same_rows}/{batch}); "
+          f"step logits within atol={LOGITS_ATOL}, rtol={LOGITS_RTOL} "
+          f"(max abs diff {diff:.3e}); no scan launch")
+    print(f"[lm decode graphs] one step on the device: "
+          f"{dev['kernels_per_step']} kernels summing to "
+          f"{dev['kernel_ms_per_step']:.3f} ms (torch.profiler, eager "
+          f"step); a replay of the captured step {dev['replay_ms']:.3f} ms "
+          f"(CUDA events, back-to-back)")
+    return {"ms_per_step_eager": ms[False], "ms_per_step_captured": ms[True],
+            "steps": steps, "batch": batch, "rows_equal": same_rows,
+            "logits_max_abs_diff": diff, **dev}
+
+
 def _scan_bound(shape):
     """Least time for the scan: dA, dBx and C read once and y written once
     over the HBM rate (2 FLOPs per state element and step are far below
@@ -2200,6 +2713,23 @@ def main() -> int:
           f"sddmm_softmax launches on the serving paths in "
           f"{time.perf_counter() - t0:.1f} s")
 
+    t0 = time.perf_counter()
+    graph_rows, graph_launches = [], {False: [0, 0], True: [0, 0]}
+    for model in ("gcn", "gin", "gat"):
+        row, counts = phase_serve_graphs(model, device)
+        graph_rows.append(row)
+        for mode in (False, True):
+            for k in (0, 1):
+                graph_launches[mode][k] += counts[mode][k]
+    program_rows = [_time_program(m, device) for m in ("gcn", "gin", "gat")]
+    tiny_graph_cases, err_tiny_graph = phase_tiny_cap_captured(device)
+    print(f"[serve graphs] captured serving ({graph_launches[True][0]} "
+          f"paramspmm + {graph_launches[True][1]} sddmm_softmax launches) "
+          f"beside eager ({graph_launches[False][0]} + "
+          f"{graph_launches[False][1]}), {tiny_graph_cases} tiny-cap "
+          f"captured cases, in {time.perf_counter() - t0:.1f} s")
+    print("[serve graphs json] " + json.dumps(graph_rows + program_rows))
+
     # phase 13 runs before any profiler window, which slows the host's
     # enqueueing under time_fn's hold of the stream
     t0 = time.perf_counter()
@@ -2256,15 +2786,21 @@ def main() -> int:
     t0 = time.perf_counter()
     consist_diff, consist_launches = phase_lm_consistency(device)
     print(f"[lm consistency] in {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    decode_graph_row = phase_lm_decode_graphs(device)
+    print(f"[lm decode graphs] in {time.perf_counter() - t0:.1f} s")
     scan_rows = time_scan(device)
     print("[lm json] " + json.dumps({"prefill": prefill_row,
                                      "decode": decode_row,
+                                     "decode_graphs": decode_graph_row,
                                      "consistency_max_abs_diff":
                                          consist_diff}))
     launches = {k: train_launches[k] + large_launches[k]
                 + oracle_launches[k] + baseline_launches[k] for k in KERNELS}
-    launches["paramspmm"] += spmm_launches
-    launches["sddmm_softmax"] += gat_launches[1]
+    launches["paramspmm"] += (spmm_launches + graph_launches[True][0]
+                              + graph_launches[False][0])
+    launches["sddmm_softmax"] += (gat_launches[1] + graph_launches[True][1]
+                                  + graph_launches[False][1])
 
     main_row = rows[2]                       # rmat17, A·B, dim 64
     sm_row = gat_rows[2]                     # rmat17, SDDMM → stats, dim 64
@@ -2280,13 +2816,16 @@ def main() -> int:
         "replaces": "src/repro/kernels/paramspmm/kernel.py:122",
         "launches": launches["paramspmm"],
         "launches_by_path": {"serving": spmm_launches,
+                             "serving_captured": graph_launches[True][0],
+                             "serving_eager_comparison":
+                                 graph_launches[False][0],
                              "training": train_launches["paramspmm"]
                              + large_launches["paramspmm"],
                              "oracle": oracle_launches["paramspmm"],
                              "baselines_comparison":
                                  baseline_launches["paramspmm"]},
         "max_abs_err": max(max_err, err_prologue, err_autograd, err_tiny,
-                           err_tiny_out, err_hub),
+                           err_tiny_out, err_hub, err_tiny_graph),
         "ms": main_row["ms"], "plain_ms": main_row["plain_ms"],
         "bound_ms": main_row["bound_ms"], "bound_by": main_row["bound_by"],
         "library_ms": main_row["library_ms"], "at": at(main_row),
@@ -2297,6 +2836,9 @@ def main() -> int:
         "replaces": "src/repro/kernels/sddmm/kernel.py:111",
         "launches": launches["sddmm_softmax"],
         "launches_by_path": {"serving": gat_launches[1],
+                             "serving_captured": graph_launches[True][1],
+                             "serving_eager_comparison":
+                                 graph_launches[False][1],
                              "training": train_launches["sddmm_softmax"]
                              + large_launches["sddmm_softmax"],
                              "oracle": oracle_launches["sddmm_softmax"]},
@@ -2326,7 +2868,8 @@ def main() -> int:
         + decode_row["launches"],
         "launches_by_path": {"prefill": prefill_launches,
                              "consistency_forward": consist_launches,
-                             "decode": decode_row["launches"]},
+                             "decode": decode_row["launches"],
+                             "decode_captured_and_eager": 0},
         "max_abs_err": max(scan_abs, prefill_row["layer_scan_max_abs_err"]),
         "max_rel_err": scan_rel,
         "ms": scan_row["ms"], "plain_ms": scan_row["plain_ms"],

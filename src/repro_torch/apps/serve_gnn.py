@@ -6,17 +6,18 @@
 
 Replays a seeded bursty synthetic request stream through ``GNNService``
 on ``--device`` (default ``cuda``; raises when there is no card) and
-prints per-bucket traffic, cache hit/miss, kernel launches and latency
-percentiles.  ``--check`` re-runs every request through the full-pipeline
-reference forward on the CPU (same subgraph, same config, no bucketing)
-and asserts the served outputs match.  ``--stats PATH`` writes the
-summary JSON; ``--trace PATH`` wraps the run in ``repro_torch.obs``
-tracing (serve spans + counters exported as Chrome-trace JSON).
+prints per-bucket traffic, cache hit/miss, kernel launches, the bucket
+programs (on a card, one CUDA-graph capture each) with
+``serve_recompiles_total``, and latency percentiles.  ``--check`` re-runs
+every request through the full-pipeline reference forward on the CPU
+(same subgraph, same config, no bucketing) and asserts the served outputs
+match.  ``--stats PATH`` writes the summary JSON; ``--trace PATH`` also
+exports the run's ``repro_torch.obs`` trace (serve spans + counters) as
+Chrome-trace JSON.  The run is always traced, for the counters.
 """
 from __future__ import annotations
 
 import argparse
-import contextlib
 import json
 
 import numpy as np
@@ -69,10 +70,9 @@ def main(argv=None):
     params = init(dims, generator=gen)
 
     stream = synthetic_stream(args.requests, g.n_rows, seed=args.seed)
-    ctx = tracing(args.trace) if args.trace else contextlib.nullcontext()
     ops.reset_launch_count()
     sddmm_ops.reset_launch_count()
-    with ctx:
+    with tracing(args.trace):
         svc = GNNService(g, feats, params, model=args.model, device=device,
                          cache_capacity=args.cache_capacity,
                          keep_subgraphs=args.check)
@@ -115,6 +115,8 @@ def main(argv=None):
         "cache_evictions": cache.evictions,
         "cache_hit_rate": cache.hit_rate,
         "compiled_buckets": svc.compiled_buckets,
+        "serve_recompiles_total": sum(
+            snap.get("serve_recompiles_total", {}).values()),
         "kernel_launches": launches,
         "latency_ms_p50": float(np.percentile(lat, 50)),
         "latency_ms_p99": float(np.percentile(lat, 99)),
@@ -127,6 +129,9 @@ def main(argv=None):
           f"({launches} kernel launches)")
     print(f"cache: {cache.hits} hits / {cache.misses} misses "
           f"(hit rate {cache.hit_rate:.2f})")
+    print(f"bucket programs: {svc.compiled_buckets} "
+          f"({'CUDA graphs' if svc.graphs else 'eager'}), "
+          f"serve_recompiles_total {stats['serve_recompiles_total']:g}")
     print(f"latency p50 {stats['latency_ms_p50']:.1f} ms, "
           f"p99 {stats['latency_ms_p99']:.1f} ms")
     if args.stats:

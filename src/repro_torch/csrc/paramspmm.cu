@@ -26,7 +26,10 @@
 //   the units of a split group write float32 partial (R, Dblk) tiles into a
 //   workspace, and paramspmm_merge_kernel sums each split group's partials
 //   in unit order, then applies the epilogue once (scale, bias, residual,
-//   activation, the reference's order).  No atomics: the same inputs give
+//   activation, the reference's order).  A unit with begin = end and a split
+//   with no partials are padding (a serving bucket pads its tables to fixed
+//   bounds, so one captured grid fits every batch): their blocks return at
+//   once and write nothing.  No atomics: the same inputs give
 //   the same bits on every run, and sums of integer-valued operands are
 //   exact in any fixed order.  Coverage chunks give every empty block a
 //   group, so every output row is written and gets bias and activation.
@@ -164,6 +167,7 @@ paramspmm_kernel(const int* __restrict__ colidx, const int* __restrict__ lrow,
   float* st_val = reinterpret_cast<float*>(st_row + 2 * ts);  // [2][V][ts]
 
   const int4 u = units[blockIdx.x];
+  if (u.x >= u.y) return;       // a padding unit of a bucket's fixed grid
   const long long h = blockIdx.z;
   const int col0 = blockIdx.y * dblk;
   const int wt = min(dblk, dim - col0);
@@ -325,6 +329,7 @@ paramspmm_merge_kernel(const int* __restrict__ splits,
   const int block = splits[3 * blockIdx.x];
   const int p0 = splits[3 * blockIdx.x + 1];
   const int p1 = splits[3 * blockIdx.x + 2];
+  if (p1 <= p0) return;         // a padding split: no partials, no block
   const long long h = blockIdx.z;
   const int col0 = blockIdx.y / slices * dblk;
   const int wt = min(dblk, dim - col0);

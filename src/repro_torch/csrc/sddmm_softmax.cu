@@ -25,7 +25,9 @@
 // group that is one unit writes its rows' stats directly; each unit of a
 // split group writes per-row partial (max, Σexp) pairs into a workspace,
 // and sddmm_softmax_merge_kernel combines a group's partials in unit order
-// with the flash rescale.  Inside a unit the steering is staged in shared
+// with the flash rescale.  Padding units (begin = end) and padding splits
+// (no partials) of a serving bucket's fixed tables return at once and
+// write nothing.  Inside a unit the steering is staged in shared
 // memory 256 slots at a time with cp.async, double-buffered.  LS lanes
 // cover one d-wide dot with VW-wide loads (at d = 64: 16 lanes of float4,
 // so a warp reduces two slots per step), each lane group keeps kUnroll
@@ -133,6 +135,7 @@ sddmm_softmax_kernel(const int* __restrict__ colidx,
       reinterpret_cast<float*>(st_row + 2 * kStage);
 
   const int4 u = units[blockIdx.x];
+  if (u.x >= u.y) return;       // a padding unit of a bucket's fixed grid
   const long long h = blockIdx.y;
   const long long row0 = static_cast<long long>(__ldg(trow + u.x / K)) * R;
   Q += h * n_rows * d;
@@ -298,6 +301,7 @@ sddmm_softmax_merge_kernel(const int* __restrict__ splits,
   const long long row0 = static_cast<long long>(splits[3 * blockIdx.x]) * R;
   const int p0 = splits[3 * blockIdx.x + 1];
   const int p1 = splits[3 * blockIdx.x + 2];
+  if (p1 <= p0) return;         // a padding split: no partials, no block
   const long long h = blockIdx.y;
   const float* pm = part_max + (h * n_partials + p0) * R + r;
   const Sum* ps = part_sum + (h * n_partials + p0) * R + r;

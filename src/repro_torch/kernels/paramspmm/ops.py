@@ -14,6 +14,12 @@ partial tiles are summed in unit order).  With softmax stats the kernel
 runs the GAT *prologue* instead: the slot values are logits and each slot
 weight is α = exp(logit − rowmax)/rowsum, computed once per slot.
 
+A serving bucket launches every batch over one grid: ``schedule_bounds``
+gives the largest unit table any steering of a fixed geometry can have
+(at a cap fixed by the geometry), and ``Steering.from_pcsr(bounds=)``
+pads each batch's table to it with empty units and empty splits, which
+the kernels skip.  A table past a bound raises.
+
 ``_call`` picks the implementation by the device of ``B``: on a CPU
 tensor the plain version (``paramspmm_plain``: the engine's gather +
 ``index_add_`` plus ``apply_epilogue``), on a CUDA tensor the kernel in
@@ -52,6 +58,14 @@ def launch_count() -> int:
 def reset_launch_count() -> None:
     global _launches
     _launches = 0
+
+
+def count_launches(n: int = 1) -> None:
+    """Add ``n`` to ``launch_count()``: one per launch of the kernel, made
+    by the wrapper or by a replay of a CUDA graph that captured it
+    (``kernels.capture``; a capture itself launches nothing)."""
+    global _launches
+    _launches += n
 
 
 def group_table(trow: np.ndarray, init: np.ndarray, fini: np.ndarray,
@@ -157,6 +171,107 @@ def work_units(vals: np.ndarray, groups: np.ndarray, K: int,
             cap, most, span)
 
 
+@dataclass(frozen=True)
+class ScheduleBounds:
+    """The largest work-unit table (``work_units`` at ``cap``) of any
+    covered steering of one fixed geometry: table rows, partials, and the
+    ``most`` / ``span`` the kernels size their blocks by."""
+
+    cap: int
+    n_units: int
+    n_splits: int
+    n_partials: int
+    most: int
+    span: int
+
+
+def schedule_bounds(n_blocks: int, num_chunks: int, K: int,
+                    cap: int | None = None) -> ScheduleBounds:
+    """Bounds of the unit table of every steering with ``n_blocks`` chunk
+    groups over ``num_chunks`` chunks of ``K`` slots, each block at least
+    one chunk (a serving bucket's ``PackGeom``).
+
+    The real slots are taken to be at most ``E = (num_chunks −
+    n_blocks)·K``: ``PackGeom.from_bucket`` sizes ``num_chunks`` so that E
+    is at least the bucket's edge ceiling, and a batch in the bucket has
+    no more edges than that (``_pad_schedule`` checks the table itself,
+    whatever the batch).  ``cap`` defaults to the wrapper's rule at
+    that ceiling: ``max(UNIT_MIN_CAP, 2K)`` (K is the mean slots of a
+    full block).  Two consecutive units of a split group hold more than
+    ``cap`` real slots together (the cut is greedy), so a split group of
+    r real slots has at most ``2⌊r/(cap+1)⌋ + 1`` units; with ``F =
+    ⌊E/(cap+1)⌋`` there are at most F split groups, 3F partials and
+    ``n_blocks + 2F`` units (``n_blocks − splits + partials``, as
+    ``check_steering`` asks).  No unit holds more than ``min(cap, E)``
+    real slots or spans more than a group can, ``(num_chunks − n_blocks
+    + 1)·K`` slots."""
+    edges = (num_chunks - n_blocks) * K
+    if n_blocks < 1 or edges < 0:
+        raise ValueError(f"no geometry has {n_blocks} blocks in "
+                         f"{num_chunks} chunks")
+    cap = max(UNIT_MIN_CAP, 2 * K) if cap is None else int(cap)
+    if cap < 1:
+        raise ValueError(f"unit cap must be ≥ 1, got {cap}")
+    f = edges // (cap + 1)
+    return ScheduleBounds(cap=cap, n_units=n_blocks + 2 * f, n_splits=f,
+                          n_partials=3 * f, most=max(1, min(cap, edges)),
+                          span=(num_chunks - n_blocks + 1) * K)
+
+
+def _pad_schedule(units: np.ndarray, splits: np.ndarray, n_partials: int,
+                 most: int, span: int, bounds: ScheduleBounds,
+                 n_slots: int):
+    """``units`` and ``splits`` padded to ``bounds``: empty units ``[n_slots,
+    n_slots, −1, −1]`` after the real ones (the begins stay sorted) and
+    empty splits ``[0, 0, 0]``, both of which the kernels skip.  Raises
+    if the table exceeds a bound: a serving bucket's grid is fixed, and a
+    larger table would need another one."""
+    over = [f"{name} {got} > {bound}" for name, got, bound in (
+        ("units", len(units), bounds.n_units),
+        ("split groups", len(splits), bounds.n_splits),
+        ("partials", n_partials, bounds.n_partials),
+        ("real slots in a unit", most, bounds.most),
+        ("slots in a unit", span, bounds.span))
+        if got > bound]
+    if over:
+        raise ValueError("the work schedule exceeds its bucket's bounds: "
+                         + ", ".join(over))
+    pad_u = np.tile(np.array([[n_slots, n_slots, -1, -1]], np.int32),
+                    (bounds.n_units - len(units), 1))
+    pad_s = np.zeros((bounds.n_splits - len(splits), 3), np.int32)
+    return (np.concatenate([units, pad_u]).astype(np.int32),
+            np.concatenate([splits, pad_s]).astype(np.int32))
+
+
+def host_steering(pcsr: PCSR, *, cap: int | None = None,
+                  bounds: ScheduleBounds | None = None) -> dict:
+    """The fields of ``Steering.from_pcsr`` on the host: numpy arrays and
+    sizes.  With ``bounds`` the unit table is cut at ``bounds.cap`` and
+    padded to the bounds, and the sizes are the bounds'."""
+    st = pcsr.steering(covered=True)
+    if st["colidx"].size and int(st["colidx"].max()) >= pcsr.n_cols:
+        raise ValueError("colidx out of range of the packed matrix")
+    groups = group_table(st["trow"], st["init"], st["fini"], pcsr.n_blocks)
+    if bounds is not None:
+        cap = bounds.cap
+    units, splits, n_partials, cap, most, span = work_units(
+        st["vals"], groups, pcsr.K, cap)
+    # the merges write a split group's output block: name it, so the
+    # kernels need neither the group table nor trow to find it
+    splits = splits.copy()
+    splits[:, 0] = st["trow"][groups[splits[:, 0]]]
+    if bounds is not None:
+        units, splits = _pad_schedule(units, splits, n_partials, most,
+                                      span, bounds,
+                                      int(st["trow"].size) * pcsr.K)
+        n_partials, most, span = (bounds.n_partials, bounds.most,
+                                  bounds.span)
+    return dict(colidx=st["colidx"], lrow=st["lrow"], trow=st["trow"],
+                vals=st["vals"], groups=groups, units=units, splits=splits,
+                n_partials=n_partials, cap=cap, most=most, span=span,
+                n_cols=pcsr.n_cols)
+
+
 @dataclass(frozen=True, eq=False)
 class Steering:
     """Covered steering arrays of one PCSR on one device, plus the group
@@ -186,28 +301,15 @@ class Steering:
         return int(self.units.shape[0])
 
     @staticmethod
-    def from_pcsr(pcsr: PCSR, device, *, cap: int | None = None
-                  ) -> "Steering":
-        """``cap`` overrides ``unit_cap`` (tests force the split path)."""
-        st = pcsr.steering(covered=True)
-        if st["colidx"].size and int(st["colidx"].max()) >= pcsr.n_cols:
-            raise ValueError("colidx out of range of the packed matrix")
-        groups = group_table(st["trow"], st["init"], st["fini"],
-                             pcsr.n_blocks)
-        units, splits, n_partials, cap, most, span = work_units(
-            st["vals"], groups, pcsr.K, cap)
-        # the merges write a split group's output block: name it, so the
-        # kernels need neither the group table nor trow to find it
-        splits = splits.copy()
-        splits[:, 0] = st["trow"][groups[splits[:, 0]]]
-        dev = {k: torch.as_tensor(st[k], device=device)
-               for k in ("colidx", "lrow", "trow", "vals")}
-        return Steering(groups=torch.as_tensor(groups, device=device),
-                        units=torch.as_tensor(units, device=device),
-                        splits=torch.as_tensor(splits, device=device),
-                        n_partials=n_partials, cap=cap, most=most,
-                        span=span, n_cols=pcsr.n_cols,
-                        **dev)
+    def from_pcsr(pcsr: PCSR, device, *, cap: int | None = None,
+                  bounds: ScheduleBounds | None = None) -> "Steering":
+        """``cap`` overrides ``unit_cap`` (tests force the split path);
+        ``bounds`` pads the unit table to a fixed geometry's bounds
+        (``host_steering``)."""
+        return Steering(**{
+            k: torch.as_tensor(v, device=device)
+            if isinstance(v, np.ndarray) else v
+            for k, v in host_steering(pcsr, cap=cap, bounds=bounds).items()})
 
 
 def device_steering(pcsr: PCSR, device) -> Steering:
@@ -396,7 +498,6 @@ def _launch(steer: Steering, B, *, V, R, K, dblk, n_rows, vals, rowmax,
     """Launch the CUDA kernel on ``B`` ``([H,] n, dim)``, ``vals``
     ``([H,] C, V, K)`` and stats ``([H,] n_blocks·R)`` or None; raises on
     anything it does not take."""
-    global _launches
     if V not in (1, 2) or R > MAX_R or dblk > MAX_DBLK:
         raise ValueError(f"CUDA paramspmm takes V ∈ {{1,2}}, R ≤ {MAX_R}, "
                          f"Dblk ≤ {MAX_DBLK}; got V={V}, R={R}, Dblk={dblk}")
@@ -437,7 +538,7 @@ def _launch(steer: Steering, B, *, V, R, K, dblk, n_rows, vals, rowmax,
     if err != 0:
         raise RuntimeError("paramspmm kernel launch failed: "
                            + lib.repro_cuda_error_string(err).decode())
-    _launches += 1
+    count_launches()
     return out
 
 

@@ -61,6 +61,12 @@ def reset_launch_count() -> None:
         _launches[name] = 0
 
 
+def count_launches(name: str, n: int = 1) -> None:
+    """Add ``n`` to ``launch_count(name)``: one per launch of the kernel,
+    made by the wrapper or by a replay of a CUDA graph that captured it."""
+    _launches[name] += n
+
+
 def sddmm_plain(steer: Steering, Q, K_mat, *, V, R, K, n_rows):
     """The raw SDDMM kernel's plain PyTorch version, on any device:
     gather and dot on the real slots only.  ``Q`` is ``(H, n_rows, d)``,
@@ -209,7 +215,7 @@ def _stats_launch(steer: Steering, Q, K_mat, *, V, R, K, n_blocks, n_rows,
     if err != 0:
         raise RuntimeError("sddmm_softmax kernel launch failed: "
                            + lib.repro_cuda_error_string(err).decode())
-    _launches["sddmm_softmax"] += 1
+    count_launches("sddmm_softmax")
     return logits, rowmax, rowsum
 
 
@@ -284,7 +290,7 @@ def _launch(steer: Steering, Q, K_mat, *, V, R, K, n_rows):
     if err != 0:
         raise RuntimeError("sddmm kernel launch failed: "
                            + lib.repro_cuda_error_string(err).decode())
-    _launches["sddmm"] += 1
+    count_launches("sddmm")
     return out
 
 

@@ -35,6 +35,13 @@ def reset_launch_count() -> None:
     _launches = 0
 
 
+def count_launches(n: int = 1) -> None:
+    """Add ``n`` to ``launch_count()``: one per launch of the kernel, made
+    by the wrapper or by a replay of a CUDA graph that captured it."""
+    global _launches
+    _launches += n
+
+
 _LIB = None
 
 
@@ -54,7 +61,6 @@ def _lib():
 
 
 def _launch(dA, dBx, C):
-    global _launches
     B, S, N, Di = dA.shape
     if N > MAX_N or B > 65535:
         raise ValueError(f"the CUDA selective scan takes N ≤ {MAX_N} and "
@@ -72,7 +78,7 @@ def _launch(dA, dBx, C):
     if err != 0:
         raise RuntimeError("selective_scan kernel launch failed: "
                            + lib.repro_cuda_error_string(err).decode())
-    _launches += 1
+    count_launches()
     return y
 
 

@@ -4,7 +4,9 @@ prompt, then greedy or temperature sampling).
   PYTHONPATH=src python -m repro_torch.launch.serve --arch hymba-1.5b \
       [--reduced] [--batch 4 --prompt-len 16 --gen 32] [--device cpu]
 
-Runs on CUDA unless ``--device`` names another device.
+Runs on CUDA unless ``--device`` names another device.  On a card the
+decode step is captured once as a CUDA graph and replayed, where the
+reference jits it (``repro/launch/serve.py``).
 """
 from __future__ import annotations
 
@@ -17,16 +19,28 @@ import torch
 from repro_torch.configs import get_config, get_reduced
 from repro_torch.configs.base import ShapeCell
 from repro_torch.device import resolve_device
+from repro_torch.kernels.capture import capture
 from repro_torch.models import lm
 
 
 def generate(cfg, params, prompt, max_len: int, gen: int, *,
-             temperature=0.0, seed=0, device=None):
+             temperature=0.0, seed=0, device=None, graphs=None):
     """Greedy/temperature decode of ``gen`` tokens after teacher-forcing
     the prompt (B, P) through ``decode_step`` (the cache path end to end).
     Returns the (B, P + gen) tokens.  Temperature samples draw from a
-    ``torch.Generator`` seeded with ``seed`` on the device."""
+    ``torch.Generator`` seeded with ``seed`` on the device.
+
+    With ``graphs`` (the default on a card) the step runs over static
+    token, position, cache and logits tensors: the first step eagerly on
+    a side stream (the warm-up), then captured once as a CUDA graph and
+    replayed for every later step (``kernels.capture``).  Teacher forcing
+    and sampling stay outside the graph, as the reference jits only the
+    step.  ``graphs=False`` runs every step eagerly."""
     device = resolve_device(device)
+    if graphs is None:
+        graphs = device.type == "cuda"
+    if graphs and device.type != "cuda":
+        raise ValueError(f"CUDA graphs need a CUDA device, not {device}")
     prompt = torch.as_tensor(prompt, dtype=torch.int64, device=device)
     B, P = prompt.shape
     cache = lm.init_cache(cfg, ShapeCell("serve", max_len, B, "decode"),
@@ -34,9 +48,22 @@ def generate(cfg, params, prompt, max_len: int, gen: int, *,
     generator = torch.Generator(device=device).manual_seed(seed)
     tok = prompt[:, :1]
     out = [tok]
+    static_tok = tok.clone()
+    static_pos = torch.zeros((), dtype=torch.int64, device=device)
+    step = lambda: lm.decode_step(params, cfg, static_tok, cache,
+                                  static_pos)[0]
+    captured = None
     with torch.no_grad():
         for pos in range(P + gen - 1):
-            logits, cache = lm.decode_step(params, cfg, tok, cache, pos)
+            if not graphs:
+                logits, cache = lm.decode_step(params, cfg, tok, cache, pos)
+            else:
+                static_tok.copy_(tok)
+                static_pos.fill_(pos)
+                if captured is None:
+                    logits, captured = capture(step, device)
+                else:
+                    logits = captured.replay()
             if pos + 1 < P:
                 tok = prompt[:, pos + 1:pos + 2]          # teacher forcing
             elif temperature > 0:

@@ -56,9 +56,10 @@ def layer_params(stack: dict, i: int) -> dict:
             for k, v in stack.items()}
 
 
-def decode_attn(q, ck, cv, valid_upto: int):
-    """Ring/flat decode attention: all cache slots ≤ valid_upto are live
-    (slot order is irrelevant to the softmax sum)."""
+def decode_attn(q, ck, cv, valid_upto):
+    """Ring/flat decode attention: all cache slots ≤ ``valid_upto`` (a 0-d
+    device tensor) are live (slot order is irrelevant to the softmax
+    sum)."""
     H, hd = q.shape[2], q.shape[3]
     Sk = ck.shape[1]
     ck, cv = _repeat_kv(ck, H), _repeat_kv(cv, H)
@@ -73,8 +74,9 @@ def decode_attn(q, ck, cv, valid_upto: int):
 def hybrid_layer(x, lp, cfg, *, cos, sin, rot, window, cache=None,
                  pos=None, write=None, chunk=1024):
     """window=0 → global layer.  cache=(k, v, conv, ssm) → decode (S=1):
-    this layer's K/V cache slices are written in place at ``write`` and
-    ``(x, (new_conv, new_ssm))`` is returned; else ``(x, None)``."""
+    this layer's K/V cache slices are written in place at ``write`` (a
+    0-d device tensor, as ``pos``) and ``(x, (new_conv, new_ssm))`` is
+    returned; else ``(x, None)``."""
     B, Sq, _ = x.shape
     h = apply_norm(x, lp["ln1"], cfg.norm)
     q = (h @ lp["wq"]).reshape(B, Sq, cfg.n_heads, cfg.head_dim)
@@ -85,9 +87,10 @@ def hybrid_layer(x, lp, cfg, *, cos, sin, rot, window, cache=None,
     new_state = None
     if cache is not None:
         ck, cv, conv_s, ssm_s = cache
-        ck[:, write] = k[:, 0]
-        cv[:, write] = v[:, 0]
-        attn = decode_attn(q, ck, cv, min(pos, ck.shape[1] - 1))
+        at = write.reshape(1)
+        ck.index_copy_(1, at, k)
+        cv.index_copy_(1, at, v)
+        attn = decode_attn(q, ck, cv, pos.clamp(max=ck.shape[1] - 1))
     else:
         attn = chunked_attention(q, k, v, window=window, chunk=chunk)
     attn = attn.reshape(B, Sq, cfg.q_dim) @ lp["wo"]
@@ -123,13 +126,15 @@ def hybrid_forward(params, cfg, embeds, *, chunk=1024):
     return apply_norm(x, params["final_norm"], cfg.norm)
 
 
-def hybrid_decode_step(params, cfg, token_embed, cache, pos: int):
+def hybrid_decode_step(params, cfg, token_embed, cache, pos):
     """cache: SWA ring stacks ("k", "v" (Lswa, B, W, KV, hd), "conv",
     "ssm") + global stacks ("gk", "gv" (Lg, B, S, KV, hd), "gconv",
     "gssm").  Updated in place (JAX returns a new cache; here the old
     one is not kept, which saves a copy of every stack per token) and
-    returned."""
-    positions = torch.tensor([[pos]], device=token_embed.device)
+    returned.  ``pos`` is a 0-d int64 tensor on the cache's device, and
+    nothing here reads it on the host, so the step can be captured as a
+    CUDA graph and replayed with ``pos`` refilled."""
+    positions = pos.reshape(1, 1)
     cos, sin, rot = rope_tables(positions, cfg.head_dim, cfg.rope_fraction,
                                 cfg.rope_base)
     x = token_embed
@@ -143,7 +148,7 @@ def hybrid_decode_step(params, cfg, token_embed, cache, pos: int):
                 x, layer_params(stack, i), cfg, cos=cos, sin=sin, rot=rot,
                 window=0, cache=(kc, vc, cache[ck][i], cache[sk][i]),
                 pos=pos, write=write)
-            cache[ck][i] = conv
-            cache[sk][i] = ssm
+            cache[ck][i].copy_(conv)
+            cache[sk][i].copy_(ssm)
     x = apply_norm(x, params["final_norm"], cfg.norm)
     return x, cache

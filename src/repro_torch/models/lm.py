@@ -105,12 +105,15 @@ def prefill(params, cfg, batch, *, chunk=1024):
     return logits_for(h[:, -1:], params, cfg)
 
 
-def decode_step(params, cfg, token, cache, pos: int):
+def decode_step(params, cfg, token, cache, pos):
     """One serve step: (B, 1) token + cache → (B, 1, Vp) logits + cache
-    (updated in place)."""
+    (updated in place).  ``pos`` is an int or a 0-d integer tensor on the
+    token's device; as a tensor nothing reads it on the host, so the step
+    can be captured as a CUDA graph (``launch/serve.py::generate``)."""
     _check_family(cfg)
     x = _embed_tokens(params, cfg, token)
-    h, cache = hybrid_decode_step(params, cfg, x, cache, int(pos))
+    pos = torch.as_tensor(pos, dtype=torch.int64, device=token.device)
+    h, cache = hybrid_decode_step(params, cfg, x, cache, pos)
     return logits_for(h, params, cfg), cache
 
 

@@ -15,6 +15,11 @@ The bucket geometry leaves deliberate headroom:
   chunks even when a batch lands exactly on the node ceiling;
 * ``num_chunks = n_blocks + ceil(e_ceil / K)`` — enough for any edge
   distribution at or under the ceiling.
+
+The kernels' work schedule is fixed per geometry too: ``PackGeom.bounds``
+(``kernels.paramspmm.ops.schedule_bounds``) caps the units, split groups
+and partials of any batch's table, and every batch's table is padded to
+those bounds, so one captured grid serves the bucket.
 """
 from __future__ import annotations
 
@@ -23,7 +28,8 @@ from dataclasses import dataclass
 from repro_torch.core.pcsr import (PCSR, SUBLANES, SpMMConfig, _round_up,
                                    build_pcsr, pad_pcsr)
 from repro_torch.core.sparse import CSRMatrix
-from repro_torch.kernels.paramspmm.ops import Steering
+from repro_torch.kernels.paramspmm.ops import (ScheduleBounds, Steering,
+                                               schedule_bounds)
 
 
 @dataclass(frozen=True)
@@ -101,6 +107,11 @@ class PackGeom:
         num_chunks = n_blocks + -(-bucket.e_ceil // K)
         return PackGeom(config, n_rows, n_blocks, num_chunks, K)
 
+    def bounds(self, cap: int | None = None) -> ScheduleBounds:
+        """The work schedule's bounds over every batch packed into this
+        geometry (``cap``: a smaller unit cap, to force split groups)."""
+        return schedule_bounds(self.n_blocks, self.num_chunks, self.K, cap)
+
 
 def pack_subgraph(csr: CSRMatrix, geom: PackGeom) -> PCSR:
     """Pack a (relabeled) subgraph into the bucket's fixed geometry:
@@ -118,5 +129,7 @@ def pack_subgraph(csr: CSRMatrix, geom: PackGeom) -> PCSR:
 
 def steering_arrays(padded: PCSR, device) -> Steering:
     """Steering of a bucket-padded PCSR on ``device`` — the operand of
-    ``bucket_forward`` — with its chunk-group table."""
-    return Steering.from_pcsr(padded, device)
+    ``bucket_forward`` — with its chunk-group table and its unit table
+    padded to the geometry's bounds."""
+    return Steering.from_pcsr(padded, device, bounds=schedule_bounds(
+        padded.n_blocks, padded.covered_num_chunks, padded.K))

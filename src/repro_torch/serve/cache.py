@@ -45,17 +45,19 @@ class SteeringPackCache:
     ``dim`` is the widest layer of the served model (the config pick's
     embedding-dim argument); ``op`` steers the cost model ("spmm" for
     GCN/GIN, "gat" for attention, priced as the SDDMM + SpMM pair);
+    ``heads`` prices multi-head attention's head-tiled grids;
     ``hardware`` the constants it prices with; ``decider`` (a trained
     ``core.decider.SpMMDecider``) short-circuits the cost model.
     """
 
     def __init__(self, *, dim: int, capacity: int = 8, op: str = "spmm",
-                 hardware: Hardware = H100, decider=None):
+                 heads: int = 1, hardware: Hardware = H100, decider=None):
         if capacity < 1:
             raise ValueError("cache capacity must be >= 1")
         self.dim = dim
         self.capacity = capacity
         self.op = op
+        self.heads = heads
         self.hardware = hardware
         self.decider = decider
         self.hits = 0
@@ -77,7 +79,8 @@ class SteeringPackCache:
         self.misses += 1
         _metrics.counter("serve_cache_misses_total").inc(bucket=bucket.key)
         config = pick_config(csr, self.dim, decider=self.decider,
-                             op=self.op, hardware=self.hardware)
+                             op=self.op, heads=self.heads,
+                             hardware=self.hardware)
         entry = BucketPack(bucket, config, PackGeom.from_bucket(bucket,
                                                                 config))
         self._entries[bucket] = entry

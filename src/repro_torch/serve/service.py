@@ -6,10 +6,12 @@
 and for each batch: coalesces the member subgraphs into one
 block-diagonal union, picks the shape bucket, fetches the bucket's pack
 from the cache (span ``serve.pack``, config pick amortized), packs the
-union into the bucket geometry and moves its steering and padded
-features to the service's device, and runs the bucket forward (span
-``serve.forward``).  Per-request outputs are the forward's rows at each
-request's seed positions.
+union into the bucket geometry, and runs the geometry's
+``BucketProgram`` (span ``serve.forward``): the batch's steering and
+padded features are copied into the program's fixed buffers, and on a
+card the forward captured at the geometry's first batch is replayed.
+Per-request outputs are the forward's rows at each request's seed
+positions, copied out before the next batch.
 
 Everything is deterministic given the request stream: sampling is
 seeded per request, batch composition is a pure function of queue
@@ -31,9 +33,9 @@ from repro_torch.obs import metrics as _metrics
 from repro_torch.obs import span
 
 from .batcher import RequestBatcher, SampledRequest, SubgraphRequest
-from .bucket import BucketPolicy, pack_subgraph, steering_arrays
+from .bucket import BucketPolicy, pack_subgraph
 from .cache import SteeringPackCache
-from .forward import bucket_forward, check_model
+from .forward import BucketProgram, check_model
 
 
 @dataclass
@@ -79,8 +81,11 @@ class GNNService:
     the ``(n_nodes, f)`` node features (numpy, host-resident), ``params``
     the model parameters (moved to the service's device).  ``device``
     defaults to CUDA and raises if there is none; pass ``device="cpu"``
-    to serve through the kernel's plain version.  ``hardware`` is what
-    the per-bucket config pick prices with, unless a trained ``decider``
+    to serve through the kernel's plain version.  On a card each bucket
+    geometry's forward is captured once as a CUDA graph and replayed
+    (``BucketProgram``); ``graphs=False`` runs it eagerly over the same
+    buffers, for comparison.  ``hardware`` is what the per-bucket config
+    pick prices with, unless a trained ``decider``
     (``core.decider.SpMMDecider``) picks instead.  ``keep_subgraphs=True``
     retains each request's sampled subgraph on its result, for
     re-checking against ``reference_forward``.
@@ -91,9 +96,19 @@ class GNNService:
                  policy: BucketPolicy | None = None,
                  cache_capacity: int = 8, max_batch: int = 32,
                  keep_subgraphs: bool = False,
-                 hardware: Hardware = H100, decider=None):
+                 hardware: Hardware = H100, decider=None,
+                 graphs: bool | None = None):
         check_model(model)
         self.device = resolve_device(device)
+        if graphs is None:
+            graphs = self.device.type == "cuda"
+        if graphs and self.device.type != "cuda":
+            raise ValueError(f"CUDA graphs need a CUDA device, not "
+                             f"{self.device}")
+        self.graphs = graphs
+        # one memory pool for the service's graphs: each batch's output
+        # is copied out before the next replay
+        self._pool = torch.cuda.graph_pool_handle() if graphs else None
         self.csr = csr
         self.features = np.asarray(features, np.float32)
         self.params = [{k: v.to(self.device) for k, v in layer.items()}
@@ -110,7 +125,7 @@ class GNNService:
                                       max_batch=max_batch)
         self.batch_log: list = []       # (bucket_key, (rid, ...)) per batch
         self.requests_served = 0
-        self._geoms: set = set()        # distinct (geometry, model) forwards
+        self._programs: dict = {}       # PackGeom → BucketProgram
 
     # ------------------------------------------------------------ intake
     def submit(self, req: SubgraphRequest) -> SampledRequest:
@@ -145,21 +160,19 @@ class GNNService:
             with span("serve.pack", bucket=bucket.key):
                 t0 = time.perf_counter()
                 pack = self.cache.get(bucket, union)
-                steer = steering_arrays(pack_subgraph(union, pack.geom),
-                                        self.device)
+                padded = pack_subgraph(union, pack.geom)
                 _metrics.histogram("serve_pack_seconds").observe(
                     time.perf_counter() - t0, bucket=bucket.key)
-            self._geoms.add((pack.geom, self.model))
-            X = np.zeros((pack.geom.n_rows, self.features.shape[1]),
-                         np.float32)
-            X[:n_tot] = self.features[
-                np.concatenate([sr.nodes for sr in members])]
-            with span("serve.forward", bucket=bucket.key), \
-                    torch.no_grad():
-                out = bucket_forward(
-                    steer, torch.from_numpy(X).to(self.device), self.params,
-                    geom=pack.geom, model=self.model)
-                out = out.cpu().numpy()
+            X = self.features[np.concatenate([sr.nodes for sr in members])]
+            with span("serve.forward", bucket=bucket.key):
+                program = self._programs.get(pack.geom)
+                if program is None:
+                    program = self._programs[pack.geom] = BucketProgram(
+                        pack.geom, padded, self.params,
+                        self.features.shape[1], self.device,
+                        model=self.model, graphs=self.graphs,
+                        pool=self._pool)
+                out = program(padded, X).cpu().numpy()
         now = time.perf_counter()
         results, off = [], 0
         for sr in members:
@@ -176,10 +189,10 @@ class GNNService:
 
     @property
     def compiled_buckets(self) -> int:
-        """Distinct (geometry, model) forwards this service has run — the
-        count of per-bucket programs (one CUDA-graph capture each, once
-        per-bucket capture lands)."""
-        return len(self._geoms)
+        """Bucket programs this service holds, one per geometry its
+        batches used (the model is the service's): on a card with graphs,
+        its CUDA-graph captures."""
+        return len(self._programs)
 
 
 def replay(service: GNNService, stream, *, tick_every: int = 8) -> list:

@@ -57,14 +57,30 @@ def test_every_module_imports_without_jax():
                          capture_output=True, text=True, timeout=120)
     assert res.returncode == 0, res.stderr
     assert int(res.stdout.split()[-1]) >= 56
-    # the decider path and the baselines are among them
-    assert set(DECIDER_PATH) <= set(res.stdout.split())
+    # the decider path, the baselines and the capture path are among them
+    assert set(DECIDER_PATH) | set(CAPTURE_PATH) <= set(res.stdout.split())
 
 
 DECIDER_PATH = ("repro_torch.obs.decisions", "repro_torch.core.features",
                 "repro_torch.core.decider", "repro_torch.core.calibrate",
                 "repro_torch.core.autotune", "repro_torch.core.baselines",
                 "repro_torch.apps.decider_train")
+
+
+# the graph-capture slice: the captured serving and decode paths' helper
+# and the trace reader (a copy of the reference's, which imports no JAX
+# but is the reference's all the same)
+CAPTURE_PATH = ("repro_torch.kernels.capture", "repro_torch.apps.obs_report",
+                "repro_torch.serve.forward", "repro_torch.launch.serve")
+
+
+@pytest.mark.parametrize("name", CAPTURE_PATH)
+def test_capture_path_modules_are_checked(name):
+    path = PORT / (name.split(".", 1)[1].replace(".", "/") + ".py")
+    assert path in PORT_FILES
+    bad = [m for m in _imported_modules(path)
+           if m.split(".")[0] in ("jax", "jaxlib", "repro")]
+    assert not bad, f"{path.name} imports {bad}"
 
 
 @pytest.mark.parametrize("name", DECIDER_PATH)

@@ -27,7 +27,11 @@ of its plain version (an FMA and another Σ_n order), an impulse at t = 0
 reaching the last of 1024 steps, and a CUDA tensor never reaching the
 plain version;
 the reduced Hymba's prefill (one launch per layer) and decode on the card
-within ``atol = rtol = 5e-2`` of the port on the CPU (bf16).
+within ``atol = rtol = 5e-2`` of the port on the CPU (bf16).  CUDA graphs:
+a captured bucket forward replayed on a second batch gives the eager
+forward's bits and launch counts (GCN, GIN, GAT), a batch past its
+bucket's schedule bounds raises, and the captured Hymba decode step gives
+the eager step's bits.
 """
 import numpy as np
 import pytest
@@ -135,6 +139,120 @@ def test_service_on_card_matches_cpu(cuda_device):
         assert launches == (0 if dev == "cpu" else 3 * len(svc.batch_log))
     for a, b in zip(out["cpu"], out[str(cuda_device)]):
         assert a.rid == b.rid and np.array_equal(a.outputs, b.outputs)
+
+
+def _bucket_batches(geom, n_feat, seeds=(1, 2)):
+    """Bucket-padded packs of two sampled batches of one rmat graph, with
+    GCN-normalised (float) edges, and float features for each."""
+    from repro_torch.data.graphs import extract_subgraph, sample_khop
+    from repro_torch.serve import pack_subgraph
+    g = rmat(10, 6, seed=7).gcn_normalize()
+    rng = np.random.default_rng(0)
+    out = []
+    for seed in seeds:
+        nodes = sample_khop(g, rng.integers(0, g.n_rows, 6), (10, 10),
+                            seed=seed)
+        sub = extract_subgraph(g, nodes)
+        out.append((pack_subgraph(sub, geom), rng.standard_normal(
+            (sub.n_rows, n_feat)).astype(np.float32)))
+    return out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("model", ["gcn", "gin", "gat"])
+def test_replayed_bucket_forward_equals_eager(cuda_device, model):
+    """One bucket geometry, two batches: the captured program (warm-up on
+    the first batch, a replay on the second) gives the eager program's
+    bits on float operands, with the eager program's kernel launches."""
+    from repro_torch.kernels import capture
+    from repro_torch.models.gnn import init_gin
+    from repro_torch.serve import PackGeom, ShapeBucket
+    from repro_torch.serve.forward import BucketProgram
+    geom = PackGeom.from_bucket(ShapeBucket(512, 4096),
+                                SpMMConfig(V=2, S=True, B=True, W=8))
+    init = {"gcn": init_gcn, "gin": init_gin, "gat": init_gat}[model]
+    params = init([8, 16, 16, 4], generator=torch.Generator().manual_seed(1),
+                  device=cuda_device)
+    batches = _bucket_batches(geom, 8)
+    progs = {g: BucketProgram(geom, batches[0][0], params, 8, cuda_device,
+                              model=model, graphs=g) for g in (True, False)}
+    for i, (p, X) in enumerate(batches):
+        before = capture.launch_counts()
+        got = progs[True](p, X).clone()
+        mid = capture.launch_counts()
+        want = progs[False](p, X)
+        after = capture.launch_counts()
+        torch.cuda.synchronize()
+        assert torch.equal(got, want), f"batch {i}"
+        assert ({k: mid[k] - before[k] for k in mid}
+                == {k: after[k] - mid[k] for k in mid}), f"batch {i}"
+        assert progs[True].captured is not None
+    assert sum(progs[True].captured.launches.values()) == (
+        6 if model == "gat" else 3)
+
+
+@pytest.mark.cuda
+def test_batch_past_its_bucket_bounds_raises(cuda_device, monkeypatch):
+    """A batch whose unit table exceeds the bucket's bounds raises on the
+    card: nothing is re-captured, nothing runs eagerly."""
+    import dataclasses
+    from repro_torch.serve import PackGeom
+    bounds = PackGeom.bounds
+    monkeypatch.setattr(PackGeom, "bounds", lambda self, cap=None: (
+        dataclasses.replace(bounds(self, cap), n_units=self.n_blocks - 1)))
+    g = rmat(10, 6, seed=1)
+    params = init_gcn([8, 16, 4], generator=torch.Generator().manual_seed(0))
+    svc = GNNService(g, np.ones((g.n_rows, 8), np.float32), params,
+                     device=cuda_device)
+    assert svc.graphs
+    launches = ops.launch_count()
+    with pytest.raises(ValueError, match="exceeds its bucket's bounds"):
+        replay(svc, synthetic_stream(4, g.n_rows, seed=3), tick_every=4)
+    assert ops.launch_count() == launches and svc.compiled_buckets == 0
+
+
+@pytest.mark.cuda
+def test_captured_decode_step_equals_eager(cuda_device):
+    """Reduced Hymba: the decode step captured once (warm-up at position 0)
+    and replayed gives the eager step's logits and caches bit for bit over
+    12 positions, past the window of 8; ``generate`` gives the same tokens
+    with and without graphs."""
+    from repro_torch.configs import get_reduced
+    from repro_torch.configs.base import ShapeCell
+    from repro_torch.kernels.capture import capture
+    from repro_torch.launch.serve import generate
+    from repro_torch.models import lm
+    cfg = get_reduced("hymba-1.5b")
+    g = torch.Generator().manual_seed(2)
+    params = _to(lm.init_params(cfg, generator=g, device="cpu"),
+                 cuda_device)
+    tokens = torch.randint(0, cfg.vocab, (2, 12), generator=g).to(
+        cuda_device)
+    caches = [lm.init_cache(cfg, ShapeCell("d", 12, 2, "decode"),
+                            device=cuda_device) for _ in "ab"]
+    static_tok = tokens[:, :1].clone()
+    static_pos = torch.zeros((), dtype=torch.int64, device=cuda_device)
+    step = lambda: lm.decode_step(params, cfg, static_tok, caches[1],
+                                  static_pos)[0]
+    captured = None
+    with torch.no_grad():
+        for t in range(12):
+            want, _ = lm.decode_step(params, cfg, tokens[:, t:t + 1],
+                                     caches[0], t)
+            static_tok.copy_(tokens[:, t:t + 1])
+            static_pos.fill_(t)
+            if captured is None:
+                got, captured = capture(step, cuda_device)
+            else:
+                got = captured.replay()
+            assert torch.equal(got, want), f"step {t}"
+    torch.cuda.synchronize()
+    for name in caches[0]:
+        assert torch.equal(caches[0][name], caches[1][name]), name
+    prompt = tokens[:, :4].cpu().numpy()
+    seqs = [generate(cfg, params, prompt, 12, 8, device=cuda_device,
+                     graphs=graphs) for graphs in (True, False)]
+    assert torch.equal(seqs[0], seqs[1])
 
 
 def _sddmm_case(p, dev, d, H, integer, seed=5):

@@ -311,6 +311,42 @@ def test_decode_steps_and_caches_match_reference(ref):
                                    **MODEL_TOL, err_msg=name)
 
 
+def test_decode_with_a_tensor_pos(ref):
+    """``pos`` as a 0-d int64 tensor (what a captured decode step reads):
+    bit-equal to the int path, logits and caches, at every step; and within
+    the reference's tolerance of its ``decode_step`` (int32 ``pos``, as it
+    jits it) over 20 steps, past the reduced window of 8, so the ring's
+    write slot wraps twice."""
+    steps = 20
+    assert ref.tcfg.sliding_window < steps
+    cell = tbase.ShapeCell("d", steps, B, "decode")
+    caches = [tlm.init_cache(ref.tcfg, cell, device="cpu") for _ in "ab"]
+    rcache = rlm.init_cache(ref.cfg, rbase.ShapeCell("d", steps, B,
+                                                     "decode"))
+    step = jax.jit(lambda p, t, c, pos: rlm.decode_step(p, ref.cfg, t, c,
+                                                        pos))
+    tokens = np.random.default_rng(13).integers(0, ref.cfg.vocab,
+                                                (B, steps))
+    for t in range(steps):
+        tok = torch.as_tensor(tokens[:, t:t + 1])
+        got, caches[0] = tlm.decode_step(ref.tparams, ref.tcfg, tok,
+                                         caches[0], torch.tensor(t))
+        same, caches[1] = tlm.decode_step(ref.tparams, ref.tcfg, tok,
+                                          caches[1], t)
+        assert torch.equal(got, same)
+        for name in caches[0]:
+            assert torch.equal(caches[0][name], caches[1][name]), name
+        want, rcache = step(ref.params, jnp.asarray(tokens[:, t:t + 1],
+                                                    jnp.int32),
+                            rcache, jnp.int32(t))
+        m = _valid(want)
+        np.testing.assert_allclose(got.numpy()[m], _np(want)[m],
+                                   **MODEL_TOL)
+    for name, want in rcache.items():
+        np.testing.assert_allclose(caches[0][name].float().numpy(),
+                                   _np(want), **MODEL_TOL, err_msg=name)
+
+
 TIE = 1e-2      # top-two logits this close: either greedy pick is right
 
 
@@ -359,6 +395,12 @@ def test_greedy_generate_matches_reference(ref, seed):
         np.testing.assert_array_equal(got[b, :agree_upto[b]],
                                       want[b, :agree_upto[b]])
     assert agree_upto.min() > P
+
+
+def test_generate_refuses_graphs_off_the_card(ref):
+    with pytest.raises(ValueError, match="CUDA graphs need a CUDA device"):
+        tserve.generate(ref.tcfg, ref.tparams, np.zeros((1, 2), np.int64),
+                        4, 2, device="cpu", graphs=True)
 
 
 def test_temperature_generate_is_seeded(ref):

@@ -216,7 +216,8 @@ def test_steering_args_are_cached_off_the_instance():
 # ------------------------------------------------------------ emulation
 def _by_unit(steer, *, R, V, K):
     """Per slot of the covered layout ``(C, V, K)``: its unit's index and
-    its row inside the unit's (R,) tile."""
+    its row inside the unit's (R,) tile.  A padded table's empty units
+    begin past the last slot, so no slot falls in one."""
     C = steer.trow.shape[0]
     slot = torch.arange(C * K).reshape(C, 1, K)
     unit = torch.searchsorted(steer.units[:, 0].long().contiguous(), slot,
@@ -229,9 +230,18 @@ def _by_unit(steer, *, R, V, K):
 def _in_unit_order(steer, parts, write):
     """Combine each split group's partials in unit order: ``parts`` is
     indexed by partial, ``write(block, rows of the group's partials in
-    order)`` stores the result."""
+    order)`` stores the result.  Empty (padding) splits are skipped, as
+    the merge kernels skip them."""
     for block, p0, p1 in steer.splits.tolist():
-        write(block, parts[p0:p1])
+        if p1 > p0:
+            write(block, parts[p0:p1])
+
+
+def _unit_blocks(steer, K):
+    """The output block of each non-empty unit, and the mask of those
+    units (a padded table's empty units have no block)."""
+    live = steer.units[:, 0] < steer.units[:, 1]
+    return steer.trow.long()[steer.units[live, 0].long() // K], live
 
 
 def emulate_spmm(steer, B, *, V, R, K, n_blocks, n_rows, vals=None,
@@ -248,10 +258,10 @@ def emulate_spmm(steer, B, *, V, R, K, n_blocks, n_rows, vals=None,
                      (vals[..., None] * gathered).reshape(-1, B.shape[1]))
     tiles = tiles.reshape(steer.n_units, R, -1)
     out = B.new_zeros((n_blocks, R, B.shape[1]))
-    direct = steer.units[:, 3] < 0
-    blocks = steer.trow.long()[steer.units[:, 0].long() // K]
-    out[blocks[direct]] = tiles[direct]
-    parts = tiles[~direct]            # partials in partial order
+    blocks, live = _unit_blocks(steer, K)
+    direct = steer.units[live, 3] < 0
+    out[blocks[direct]] = tiles[live][direct]
+    parts = tiles[steer.units[:, 3] >= 0]    # partials in partial order
 
     def write(block, ps):
         y = ps[0]
@@ -277,10 +287,12 @@ def emulate_stats(steer, logits, *, V, R, K, n_blocks):
     m, s = m.reshape(-1, R), s.reshape(-1, R)
     rowmax = torch.full((n_blocks, R), -torch.inf, dtype=torch.float64)
     rowsum = torch.zeros((n_blocks, R), dtype=torch.float64)
-    direct = steer.units[:, 3] < 0
-    blocks = steer.trow.long()[steer.units[:, 0].long() // K]
-    rowmax[blocks[direct]], rowsum[blocks[direct]] = m[direct], s[direct]
-    parts = torch.stack([m[~direct], s[~direct]], dim=1)
+    blocks, live = _unit_blocks(steer, K)
+    direct = steer.units[live, 3] < 0
+    rowmax[blocks[direct]] = m[live][direct]
+    rowsum[blocks[direct]] = s[live][direct]
+    split = steer.units[:, 3] >= 0
+    parts = torch.stack([m[split], s[split]], dim=1)
 
     def write(block, ps):
         mx = ps[:, 0].max(dim=0).values
