@@ -145,12 +145,41 @@ Runs from the root of a checkout and drives ``src/repro_torch`` only
     within 1e-2), step logits teacher-forced along the eager tokens within
     ``atol=0.2, rtol=0.05``, no scan launch; one step's kernels and their
     summed device time (``torch.profiler``) beside a replay's time (CUDA
-    events).
+    events);
+17. distributed (runs after phase 14) — ``train_gnn(partitions=4)`` on 4
+    gloo ranks sharing the card (``repro_torch.dist``; NCCL refuses two
+    ranks on one card, so gloo's collectives are staged through pinned
+    host buffers): GCN (balanced, contiguous, overlap), GIN (balanced,
+    overlap), GAT and GAT_MH (balanced) at phase 5's widths on
+    ``community_task()`` (10 steps) and on phase 6's 131,072-node graph
+    (5 steps, the steady steps under ``torch.profiler`` in each rank),
+    against single-device card training with reorder off (the
+    partitioned runs' node order): losses within ``TRAIN_RTOL`` (GAT_MH
+    as in phase 5, its val_acc within ``MH_VAL_FLIPS`` nodes), equal
+    val_acc, parameters bit-equal on every rank, each rank's launches
+    equal to the model's structure (the overlap path's aggregations two
+    SpMMs each); per run ms/step (max over ranks, and per rank), each
+    rank's device ms in our kernels (131k), halo bytes per step, host ms
+    inside the collectives (host-staged gloo, not an interconnect figure)
+    beside the exchange priced at the data-sheet NVLink rate; then,
+    outside the main-path windows, one step and the evaluation of each
+    run at 131k with every launch on every rank held against its plain
+    version on the same tensors (the shard packs, their transposes,
+    overlap's local and halo packs, the GAT message both ways: bit-equal
+    on integer operands, else ``RTOL``/``ATOL``), an empty shard and a
+    halo-heavy ER graph (every launch held the same way; SpMM, overlap
+    off and on, bit-equal to the single-device kernel on integer
+    operands; the 2-head GAT message and its gradients within
+    ``DIST_GAT_TOL``), each shard's config,
+    nonzeros, halo rows and SpMM time (CUDA events, one rank at a time)
+    on rmat17 at d = 64 under both strategies, and GCN over NCCL at one
+    rank against single-device training.
 
 Each main path (serving per model, each pass of each phase-15 service,
 training per model, each oracle search, each 131k baseline-comparison
-run, LM prefill, each decode run and the consistency forward) runs with
-the launch counts set to 0 just before it and read just after.  A
+run, each distributed run on each rank, LM prefill, each decode run and
+the consistency forward) runs with the launch counts set to 0 just
+before it and read just after.  A
 replayed graph adds the launches its capture recorded
 (``kernels/capture.py``).
 
@@ -2134,6 +2163,675 @@ def phase_baselines(device):
     return rows, pack_row, launches
 
 
+# ---------------------------------------------------- distributed (17)
+DIST_PARTS = 4
+# (tag, model, heads, strategy, overlap); GAT always runs the joint exchange
+DIST_RUNS = (("gcn", "gcn", 1, "balanced", False),
+             ("gcn_contiguous", "gcn", 1, "contiguous", False),
+             ("gcn_overlap", "gcn", 1, "balanced", True),
+             ("gin", "gin", 1, "balanced", False),
+             ("gin_overlap", "gin", 1, "balanced", True),
+             ("gat", "gat", 1, "balanced", False),
+             ("gat_mh", "gat", 4, "balanced", False))
+DIST_TASKS = (("1k", 10), ("131k", 5))   # community_task(), _large_task()
+# the GAT message over 4 shards against one pack, both on the card: the
+# same kernels, the sums in another order (phase 3's autograd tolerance)
+DIST_GAT_TOL = dict(rtol=1e-5, atol=1e-4)
+DIST_CASE_DIM = 64
+# GAT_MH's val_acc may differ from single-device training by this many
+# validation nodes: its trajectory's own sensitivity (MH_RTOL) flipped 3
+# of the 131k task's 52k in an H100 run
+MH_VAL_FLIPS = 10
+
+
+def _dist_task(tag):
+    return community_task() if tag == "1k" else _large_task()
+
+
+def _dist_structure(model, overlap, steps):
+    """A rank's launches in one ``train_gnn`` call: the single-device
+    structure (``launches_per_step``, ``eval_launches``), the overlap
+    path's aggregations running two SpMMs (local, halo) for each one."""
+    layers = TRAIN_SHAPES[model][1]
+    per, ev = launches_per_step(model, layers), eval_launches(model, layers)
+    if overlap:
+        per = dict(per, paramspmm=2 * per["paramspmm"])
+        ev = dict(ev, paramspmm=2 * ev["paramspmm"])
+    return per, {k: steps * per[k] + ev[k] for k in KERNELS}
+
+
+def _dist_case_inputs():
+    """The correctness cases of phase 17, drawn from seeds: an empty shard
+    (a 4,096-node ER graph whose rows [1024, 2048), shard 1 of a 4-way
+    contiguous split, hold no edge) and a halo-heavy ER graph (20,000
+    nodes, degree 16: most sources remote), edges valued in {1, 2, 3};
+    integer SpMM operands, normal GAT operands at 2 heads."""
+    from repro_torch.data.graphs import er
+    cases = []
+    for name, n, deg, seed in (("empty_shard", 4096, 8, 1),
+                               ("halo_heavy", 20000, 16, 2)):
+        g = er(n, deg, seed=seed)
+        rows = np.repeat(np.arange(n), np.diff(g.indptr))
+        keep = (rows < 1024) | (rows >= 2048) if name == "empty_shard" \
+            else np.ones(g.nnz, bool)
+        rng = np.random.default_rng(seed)
+        csr = CSRMatrix.from_coo(rows[keep], g.indices[keep],
+                                 rng.integers(1, 4, int(keep.sum())), n, n)
+        d = DIST_CASE_DIM
+        ints = lambda *s: rng.integers(-3, 4, s).astype(np.float32)
+        normal = lambda *s: rng.standard_normal(s).astype(np.float32)
+        cases.append(dict(name=name, csr=csr, B=ints(n, d), G=ints(n, d),
+                          Q=normal(2, n, 32), K=normal(2, n, 32),
+                          Vf=normal(2, n, 32), dO=normal(2, n, 32)))
+    return cases
+
+
+def _integral(*ts):
+    """True where every tensor given (None: none) holds whole numbers."""
+    return all(t is None or bool(torch.equal(t, torch.round(t)))
+               for t in ts)
+
+
+@contextlib.contextmanager
+def _held_against_plain(into, name):
+    """While the block runs, every launch of the three kernels is also
+    computed by its plain version on the same CUDA tensors and held
+    against it.  It wraps ``ops._call``, ``sddmm_ops._stats_call`` and
+    ``sddmm_ops._call``, through which every wrapper and autograd function
+    of the distributed path launches, so the shapes are the path's own:
+    the rectangular shard packs, their transposes, overlap's local and
+    halo packs, the GAT message's vals and stats.  Bit-equal where every
+    operand is integer-valued and the epilogue exact (the sums are then
+    exact), else within ``RTOL``/``ATOL`` (``DIST_GAT_TOL``) with the
+    logits' −inf pattern equal; the raw SDDMM's masked slots exactly 0.
+    The kernel's result goes on.  The launch counts are set to 0 first,
+    and at the end every launch must have been held.  Stores, per kernel,
+    the calls (on any device), the launches held, those bit-equal, the
+    max abs difference and the shapes seen in ``into[name]``."""
+    rec = {k: {"calls": 0, "held": 0, "bit_equal": 0, "max_abs_err": 0.0,
+               "shapes": set()} for k in KERNELS}
+    spmm_call, stats_call = ops._call, sddmm_ops._stats_call
+    raw_call = sddmm_ops._call
+
+    def hold(kernel, run, plain, exact, shape):
+        rec[kernel]["calls"] += 1
+        n0 = _counts()[kernel]
+        got = run()
+        if _counts()[kernel] == n0:          # the plain version ran
+            return got
+        want = plain()
+        pairs = zip(got, want) if isinstance(got, tuple) else [(got, want)]
+        what = f"held {name}: {kernel} at {shape}"
+        for a, b in pairs:
+            check(a.shape == b.shape, f"{what}: shape {tuple(a.shape)}, "
+                  f"plain {tuple(b.shape)}")
+            if exact:
+                check(torch.equal(a, b), f"{what}: not bit-equal to its "
+                      "plain version on integer operands")
+            else:
+                torch.testing.assert_close(a, b, rtol=RTOL, atol=ATOL,
+                                           msg=lambda m: f"{what}: {m}")
+            fin = torch.isfinite(b)
+            if bool(fin.any()):
+                rec[kernel]["max_abs_err"] = max(
+                    rec[kernel]["max_abs_err"],
+                    float((a[fin] - b[fin]).abs().max()))
+        rec[kernel]["held"] += 1
+        rec[kernel]["bit_equal"] += int(exact)
+        rec[kernel]["shapes"].add(shape)
+        return got
+
+    def spmm(steer, B, **kw):
+        vals = kw.get("vals")
+        exact = (kw.get("rowmax") is None
+                 and kw.get("activation", "none") in ("none", "relu")
+                 and _integral(B, steer.vals if vals is None else vals,
+                               kw.get("scale"), kw.get("bias"),
+                               kw.get("residual")))
+        plain = {k: v for k, v in kw.items() if k != "dblk"}
+        return hold("paramspmm", lambda: spmm_call(steer, B, **kw),
+                    lambda: ops.paramspmm_plain(steer, B, **plain),
+                    exact, (kw["n_rows"],) + tuple(B.shape))
+
+    def heads(fn, Q, K_mat):
+        """``fn`` on ``(H, n, d)`` operands, for 2-D ones too."""
+        if Q.ndim == 3:
+            return fn(Q, K_mat)
+        out = fn(Q[None], K_mat[None])
+        return tuple(t[0] for t in out) if isinstance(out, tuple) \
+            else out[0]
+
+    def stats(steer, Q, K_mat, **kw):
+        kw.setdefault("slope", SLOPE)
+        return hold(
+            "sddmm_softmax", lambda: stats_call(steer, Q, K_mat, **kw),
+            lambda: heads(lambda q, k: sddmm_ops.sddmm_softmax_plain(
+                steer, q, k, **kw), Q, K_mat),
+            False, (kw["n_rows"],) + tuple(Q.shape) + (K_mat.shape[-2],))
+
+    def raw(steer, Q, K_mat, **kw):
+        plain = {k: v for k, v in kw.items() if k != "n_blocks"}
+        out = hold(
+            "sddmm", lambda: raw_call(steer, Q, K_mat, **kw),
+            lambda: heads(lambda q, k: sddmm_ops.sddmm_plain(
+                steer, q, k, **plain), Q, K_mat),
+            _integral(Q, K_mat),
+            (kw["n_rows"],) + tuple(Q.shape) + (K_mat.shape[-2],))
+        check(bool((out[..., steer.vals == 0] == 0).all()),
+              f"held {name}: a masked raw SDDMM slot is not exactly 0")
+        return out
+
+    _reset_counts()
+    ops._call, sddmm_ops._stats_call, sddmm_ops._call = spmm, stats, raw
+    try:
+        yield rec
+    finally:
+        ops._call, sddmm_ops._stats_call = spmm_call, stats_call
+        sddmm_ops._call = raw_call
+    counts = _counts()
+    check(all(rec[k]["held"] == counts[k] for k in KERNELS),
+          f"held {name}: {counts} launches, "
+          f"{ {k: rec[k]['held'] for k in KERNELS} } held")
+    into[name] = {k: dict(v, shapes=sorted(v["shapes"]))
+                  for k, v in rec.items()}
+
+
+def _dist_rank_held(task, device):
+    """Outside the main-path windows: one step and the evaluation of
+    every run of ``DIST_RUNS`` on ``task`` with each launch held against
+    its plain version (``_held_against_plain``): each model's shard
+    forward on ``[local | halo]``, its transpose-PCSR backward,
+    overlap's local and halo packs, the GAT message both ways."""
+    held = {}
+    for tag, model, heads, strategy, overlap in DIST_RUNS:
+        hidden, layers = TRAIN_SHAPES[model]
+        with _held_against_plain(held, tag):
+            train_gnn(task, model=model, hidden=hidden, n_layers=layers,
+                      steps=1, seed=0, heads=heads, partitions=DIST_PARTS,
+                      partition_strategy=strategy, overlap=overlap,
+                      dist_backend="gloo", device=device)
+    return held
+
+
+def _dist_rank_cases(device):
+    """This rank's correctness cases: distributed SpMM (overlap off and
+    on) and the 2-head GAT message, forward and gradients, gathered to
+    the global layout (``unpad``)."""
+    from repro_torch.dist import DistGraph
+    out = {}
+    for c in _dist_case_inputs():
+        t = lambda a: torch.as_tensor(a)
+        res = {}
+        for overlap in (False, True):
+            g = DistGraph(c["csr"], DIST_CASE_DIM, DIST_PARTS,
+                          strategy="contiguous", overlap=overlap,
+                          device=device)
+            B = g.pad(t(c["B"])).requires_grad_()
+            y = g.spmm(B)
+            y.backward(g.pad(t(c["G"])))
+            key = "overlap" if overlap else "joint"
+            res[f"{key}_out"], res[f"{key}_dB"] = g.unpad(y), g.unpad(B.grad)
+        g = DistGraph(c["csr"], 32, DIST_PARTS, strategy="contiguous",
+                      op="gat", heads=2, device=device)
+        q, k, v = (g.pad_heads(t(c[x])).requires_grad_()
+                   for x in ("Q", "K", "Vf"))
+        y = g.gat_message(q, k, v)
+        y.backward(g.pad_heads(t(c["dO"])))
+        res.update(gat_out=g.unpad_heads(y), gat_dQ=g.unpad_heads(q.grad),
+                   gat_dK=g.unpad_heads(k.grad),
+                   gat_dVf=g.unpad_heads(v.grad))
+        out[c["name"]] = {
+            "tensors": {k: v.cpu() for k, v in res.items()},
+            "shard_nnz": g.shard.csr.nnz, "n_halo": g.shard.n_halo}
+    return out
+
+
+def _dist_rank_adapt(device):
+    """Per-shard adaptivity on ``corpus("large")``'s rmat17 (GCN-style
+    normalised edges) at d = 64, both strategies: this shard's config,
+    nonzeros, halo rows, and its SpMM on the extended operand timed with
+    CUDA events, one rank at a time (the others wait at a barrier)."""
+    import torch.distributed as dist
+    from repro_torch.dist import DistGraph
+    g17 = _normalized(rmat(17, 6, seed=22))
+    rank = dist.get_rank()
+    rows = []
+    for strategy in ("balanced", "contiguous"):
+        g = DistGraph(g17, 64, DIST_PARTS, strategy=strategy, device=device)
+        gen = torch.Generator().manual_seed(rank)
+        B = torch.randn(g.part.rows_pad, 64, generator=gen).to(device)
+        b_ext = torch.cat([B, g.halo_plan.gather(B)])
+        t0 = time.perf_counter()
+        for _ in range(5):
+            g.halo_plan.gather(B)
+        exch_ms = (time.perf_counter() - t0) / 5 * 1e3
+        ms = None
+        for r in range(DIST_PARTS):
+            g.comm.barrier()
+            if r == rank and device.type == "cuda":
+                ms = cuda_ms(lambda: ops.paramspmm(g.pack.op.pcsr, b_ext))
+        g.comm.barrier()
+        rows.append({"strategy": strategy, "rank": rank,
+                     "config": list(g.config.astuple()),
+                     "rows": g.shard.n_local_rows, "nnz": g.shard.csr.nnz,
+                     "halo_rows": g.shard.n_halo,
+                     "gathered_rows": g.halo.gathered_rows,
+                     "kernel_ms": ms, "exchange_host_ms": exch_ms})
+    return rows
+
+
+def _dist_rank_transport(device, reps=5):
+    """Host ms of one all-gather of a 131k exchange's send buffer
+    (20,000 rows × 64 float32 a rank): gloo on the CUDA tensors directly
+    against ``Comm``'s staging through pinned host buffers; both must
+    give the same rows."""
+    import torch.distributed as dist
+    from repro_torch.dist import comm
+    c = comm.Comm()
+    x = torch.full((20000, 64), float(c.rank + 1), device=device)
+    gather = dist.all_gather_into_tensor        # as Comm calls it
+    ms = {}
+    for name, fn in (
+            ("gloo_cuda", lambda: gather(torch.empty(
+                c.world * x.shape[0], 64, device=device), x)),
+            ("staged", lambda: c.all_gather(x))):
+        fn()
+        torch.cuda.synchronize(device)
+        c.barrier()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize(device)
+        ms[name] = (time.perf_counter() - t0) / reps * 1e3
+    out = torch.empty(c.world * x.shape[0], 64, device=device)
+    gather(out, x)
+    check(torch.equal(out, c.all_gather(x)), "gloo's CUDA all-gather and "
+          "the staged one disagree")
+    return ms
+
+
+def _dist_rank(device_type="cuda"):
+    """Phase 17 on one of the gloo ranks sharing the card: every
+    (task, run) of ``DIST_RUNS`` through ``train_gnn(partitions=4)``
+    inside the group (launch counts set to 0 just before each and read
+    just after; the 131k runs' steady steps under ``torch.profiler``),
+    then, outside those windows, one step of each run at 131k and the
+    correctness cases with every launch held against its plain version,
+    and the rmat17 adaptivity table.
+    ``device_type="cpu"`` rehearses it on the CPU (no profiler, no
+    timing)."""
+    from torch.profiler import ProfilerActivity, profile, schedule
+
+    from repro_torch.dist import comm
+    on_card = device_type == "cuda"
+    device = (torch.device("cuda", torch.cuda.current_device()) if on_card
+              else torch.device("cpu"))
+    if on_card:
+        with profile(activities=[ProfilerActivity.CUDA]):   # CUPTI
+            torch.ones(1, device=device).add_(1)            # start-up,
+            torch.cuda.synchronize()                        # outside a run
+    runs = []
+    for task_tag, steps in DIST_TASKS:
+        task = _dist_task(task_tag)
+        for tag, model, heads, strategy, overlap in DIST_RUNS:
+            hidden, layers = TRAIN_SHAPES[model]
+            marks, saved = [], []
+            profiled = task_tag == "131k" and on_card
+            ctx = (profile(activities=[ProfilerActivity.CUDA],
+                           schedule=schedule(wait=0, warmup=1,
+                                             active=steps - 1, repeat=1),
+                           on_trace_ready=lambda p: saved.append(
+                               p.key_averages()))
+                   if profiled else contextlib.nullcontext())
+            t0 = time.perf_counter()
+            with ctx as prof:
+                def on_step(step):
+                    marks.append((time.perf_counter(), comm.stats()))
+                    if prof is not None:
+                        prof.step()
+                _reset_counts()
+                comm.reset_stats()
+                res = train_gnn(task, model=model, hidden=hidden,
+                                n_layers=layers, steps=steps, seed=0,
+                                heads=heads, partitions=DIST_PARTS,
+                                partition_strategy=strategy, overlap=overlap,
+                                dist_backend="gloo", device=device,
+                                on_step=on_step)
+                counts = _counts()
+            wall = time.perf_counter() - t0
+            (ta, sa), (tb, sb) = marks[0], marks[-1]
+            per = lambda k, f: (sb[k][f] - sa[k][f]) / (steps - 1)
+            kern = None
+            if profiled:
+                kern = dict.fromkeys(KERNELS, 0.0)
+                for e in saved[0]:
+                    t = getattr(e, "device_time_total", None)
+                    if t is None:
+                        t = getattr(e, "cuda_time_total", 0.0)
+                    fam, _ = _kernel_family(e.key)
+                    if fam in kern:
+                        kern[fam] += t / 1e3 / (steps - 1)
+            runs.append({
+                "task": task_tag, "tag": tag, "steps": steps,
+                "losses": res.losses, "val_acc": res.val_acc,
+                "config": [list(c.astuple()) for c in res.config],
+                "params": res.params, "launches": counts,
+                "ms_per_step_max_over_ranks": res.seconds_per_step * 1e3,
+                "ms_per_step": (tb - ta) / (steps - 1) * 1e3,
+                "profiled": profiled, "kernel_device_ms_per_step": kern,
+                "halo_bytes_per_step": {
+                    "gather": sb["all_gather"]["bytes"] / steps,
+                    "scatter": sb["reduce_scatter"]["bytes"] / steps},
+                "collective_host_ms_per_step": {
+                    k: per(k, "seconds") * 1e3 for k in comm.COLLECTIVES},
+                "wall_s": wall})
+        if task_tag == "131k":
+            held = _dist_rank_held(task, device)
+    with _held_against_plain(held, "cases"):
+        cases = _dist_rank_cases(device)
+    return {"rank": torch.distributed.get_rank(), "runs": runs,
+            "cases": cases, "held": held,
+            "adapt": _dist_rank_adapt(device),
+            "transport": _dist_rank_transport(device) if on_card else None}
+
+
+def _dist_single(device):
+    """Single-device card training, reorder off (the partitioned runs'
+    node order), per (task, model): the reference of phase 17."""
+    out = {}
+    for task_tag, steps in DIST_TASKS:
+        task = _dist_task(task_tag)
+        for name in ("gcn", "gin", "gat", "gat_mh"):
+            model, heads = name.split("_")[0], TRAIN_HEADS.get(name, 1)
+            hidden, layers = TRAIN_SHAPES[model]
+            out[task_tag, name] = train_gnn(
+                task, model=model, hidden=hidden, n_layers=layers,
+                steps=steps, seed=0, heads=heads, device=device,
+                spmm_kwargs={"reorder": False})
+    return out
+
+
+def _dist_check_losses(tag, losses, val_acc, want, n_val):
+    """Loss trajectories within TRAIN_RTOL of ``want``'s, and equal
+    val_acc.  GAT_MH: losses within TRAIN_RTOL over its first
+    MH_HELD_STEPS and MH_RTOL over all, and val_acc within MH_VAL_FLIPS
+    of the ``n_val`` validation nodes.  Returns the losses' relative
+    differences."""
+    a, b = np.array(losses), np.array(want.losses)
+    mh = tag.endswith("_mh")
+    held = MH_HELD_STEPS if mh else len(b)
+    np.testing.assert_allclose(a[:held], b[:held], rtol=TRAIN_RTOL, atol=0,
+                               err_msg=f"{tag} losses")
+    np.testing.assert_allclose(a, b, rtol=MH_RTOL, atol=0,
+                               err_msg=f"{tag} losses")
+    flips = round(abs(val_acc - want.val_acc) * n_val)
+    check(flips <= (MH_VAL_FLIPS if mh else 0),
+          f"{tag}: val_acc {val_acc}, single device {want.val_acc} "
+          f"({flips} of {n_val} validation nodes)")
+    return np.abs(a - b) / np.abs(b)
+
+
+def _dist_single_case(c, device):
+    """The correctness case on one device: the same kernels on the whole
+    graph's pack."""
+    t = lambda a: torch.as_tensor(a, device=device)
+    want = {}
+    op = ParamSpMM(c["csr"], DIST_CASE_DIM, reorder=False, device=device)
+    B = t(c["B"]).requires_grad_()
+    y = op(B)
+    y.backward(t(c["G"]))
+    want["out"], want["dB"] = y.detach(), B.grad
+    p = ParamSpMM(c["csr"], 32, reorder=False, op="gat", heads=2,
+                  device=device)
+    fn = engine.make_gat_message_fn(p.op.pcsr, p.op.pcsr_t)
+    q, k, v = (t(c[x]).requires_grad_() for x in ("Q", "K", "Vf"))
+    y = fn(q, k, v)
+    y.backward(t(c["dO"]))
+    want.update(gat_out=y.detach(), gat_dQ=q.grad, gat_dK=k.grad,
+                gat_dVf=v.grad)
+    return {k: v.cpu() for k, v in want.items()}
+
+
+# a correctness case's kernel calls on a rank: SpMM forward and backward
+# joint (1 + 1) and under overlap (2 + 2); the GAT message forward (stats,
+# prologue SpMM) and backward (raw SDDMM; dQ, dK, dVf)
+DIST_CASE_CALLS = {"paramspmm": 10, "sddmm_softmax": 1, "sddmm": 1}
+
+
+def _dist_check_held(ranks, device):
+    """Every rank's held runs: their kernel calls equal to the path's
+    structure (one step and the evaluation of each run; each case's
+    ``DIST_CASE_CALLS``), on the card every call launched and held.
+    Prints one line per run and returns (rows summed over the ranks,
+    launches held per kernel)."""
+    rows, total = {}, dict.fromkeys(KERNELS, 0)
+    for name in ranks[0]["held"]:
+        if name == "cases":
+            want = {k: 2 * v for k, v in DIST_CASE_CALLS.items()}
+        else:
+            run = DIST_RUNS[[r[0] for r in DIST_RUNS].index(name)]
+            want = _dist_structure(run[1], run[4], 1)[1]
+        mine = [r["held"][name] for r in ranks]
+        for rk, h in enumerate(mine):
+            calls = {k: h[k]["calls"] for k in KERNELS}
+            check(calls == want, f"held {name} rank {rk}: kernel calls "
+                  f"{calls}, the structure gives {want}")
+            if device.type == "cuda":
+                check(all(h[k]["held"] == want[k] for k in KERNELS),
+                      f"held {name} rank {rk}: a call ran no kernel")
+        rows[name] = {k: {
+            "calls": sum(h[k]["calls"] for h in mine),
+            "held": sum(h[k]["held"] for h in mine),
+            "bit_equal": sum(h[k]["bit_equal"] for h in mine),
+            "max_abs_err": max(h[k]["max_abs_err"] for h in mine),
+            "shapes": sorted({tuple(x) for h in mine
+                              for x in h[k]["shapes"]})} for k in KERNELS}
+        for k in KERNELS:
+            total[k] += rows[name][k]["held"]
+        print(f"[dist held] {name}: every launch on the {DIST_PARTS} ranks "
+              "held against its plain version on the same tensors "
+              "(outside the main-path windows): " + "; ".join(
+                  f"{k} {r['held']} of {r['calls']} calls "
+                  f"({r['bit_equal']} bit-equal on integer "
+                  f"operands, else rtol={RTOL}, atol={ATOL}; max abs "
+                  f"difference {r['max_abs_err']:.3e}; "
+                  f"{len(r['shapes'])} shapes)"
+                  for k, r in rows[name].items() if r["calls"]))
+    print(f"[dist held] launches held, not counted on the main path: "
+          f"{total}")
+    return rows, total
+
+
+def _dist_plan_line(task_tag, strategy):
+    """Shard rows, nonzeros and halo rows of a task's training matrix."""
+    from repro_torch.dist import build_halo, partition_csr
+    task = _dist_task(task_tag)
+    part = partition_csr(task.csr.gcn_normalize(), DIST_PARTS, strategy)
+    halo = build_halo(part)
+    return {"task": task_tag, "strategy": strategy,
+            "val_nodes": int(task.val_mask.sum()),
+            "rows": [s.n_local_rows for s in part.shards],
+            "nnz": [s.csr.nnz for s in part.shards],
+            "halo_rows": [s.n_halo for s in part.shards],
+            "gathered_rows": halo.gathered_rows}
+
+
+def phase_dist(device, *, rank_device="cuda"):
+    """Phase 17: partitioned training (``repro_torch.dist``) on 4 gloo
+    ranks sharing the card, against single-device card training; the
+    empty-shard and halo-heavy correctness cases; per-shard adaptivity on
+    rmat17; a one-rank NCCL run.  Returns (json rows, launches summed
+    over the ranks' main-path runs).  With ``device`` and ``rank_device``
+    the CPU it rehearses the same on the plain versions (no NCCL run)."""
+    from repro_torch.core.cost_model import NVLINK_BW, halo_exchange_cost
+    from repro_torch.dist import comm
+    t0 = time.perf_counter()
+    single = _dist_single(device)
+    print(f"[dist] single-device references (reorder off) in "
+          f"{time.perf_counter() - t0:.1f} s")
+    plans = [_dist_plan_line(t, s) for t, _ in DIST_TASKS
+             for s in ("balanced", "contiguous")]
+    val_nodes = {p["task"]: p["val_nodes"] for p in plans}
+    for p in plans:
+        print(f"[dist plan] {p['task']} {p['strategy']}: rows {p['rows']}, "
+              f"nonzeros {p['nnz']}, halo rows {p['halo_rows']}, "
+              f"gathered rows per exchange {p['gathered_rows']}")
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    ranks = comm.spawn(_dist_rank, DIST_PARTS, (rank_device,),
+                       backend="gloo", device=rank_device, threads=2)
+    print(f"[dist] {DIST_PARTS} gloo ranks sharing the card: "
+          f"{time.perf_counter() - t0:.1f} s")
+    launches = dict.fromkeys(KERNELS, 0)
+    rows = []
+    for i, run in enumerate(ranks[0]["runs"]):
+        tag, task_tag, steps = run["tag"], run["task"], run["steps"]
+        model = DIST_RUNS[[r[0] for r in DIST_RUNS].index(tag)][1]
+        overlap = DIST_RUNS[[r[0] for r in DIST_RUNS].index(tag)][4]
+        per, want = _dist_structure(model, overlap, steps)
+        if device.type != "cuda":           # the plain versions launch
+            per = want = dict.fromkeys(KERNELS, 0)      # nothing
+        mine = [r["runs"][i] for r in ranks]
+        for rk, m in enumerate(mine):
+            check(m["launches"] == want, f"dist {task_tag} {tag} rank {rk}: "
+                  f"launches {m['launches']}, the structure gives {want}")
+            check(all(m["launches"][k] > 0 for k in KERNELS if per[k]),
+                  f"dist {task_tag} {tag} rank {rk}: a kernel never ran")
+            check(m["losses"] == run["losses"], f"dist {tag}: rank {rk}'s "
+                  "losses differ from rank 0's")
+            for la, lb in zip(m["params"], run["params"]):
+                check(all(torch.equal(la[k], lb[k]) for k in la),
+                      f"dist {task_tag} {tag}: rank {rk}'s parameters "
+                      "differ from rank 0's")
+            for k in KERNELS:
+                launches[k] += m["launches"][k]
+        ref_name = "gat_mh" if tag == "gat_mh" else model
+        rel = _dist_check_losses(tag, run["losses"], run["val_acc"],
+                                 single[task_tag, ref_name],
+                                 val_nodes[task_tag])
+        gath = max(m["halo_bytes_per_step"]["gather"] for m in mine)
+        scat = max(m["halo_bytes_per_step"]["scatter"] for m in mine)
+        # the step's exchanges priced: their float32 values over the
+        # data-sheet link rate
+        priced = halo_exchange_cost((gath + scat) // 4, 1) * 1e3
+        host = [sum(m["collective_host_ms_per_step"].values()) for m in mine]
+        kern = [None if m["kernel_device_ms_per_step"] is None else
+                sum(m["kernel_device_ms_per_step"].values()) for m in mine]
+        single_ms = single[task_tag, ref_name].seconds_per_step * 1e3
+        print(f"[dist] {task_tag} {tag}: configs {run['config']}; "
+              f"{run['ms_per_step_max_over_ranks']:.3f} ms/step (max over "
+              f"ranks{', under torch.profiler' if run['profiled'] else ''}; "
+              f"single device {single_ms:.3f}); per rank "
+              f"{[round(m['ms_per_step'], 3) for m in mine]} ms/step; "
+              f"losses held against single-device card training (max "
+              f"relative difference {rel.max():.3e}, per step "
+              f"{np.array2string(rel, precision=2)}), val_acc "
+              f"{run['val_acc']:.6f} (single device "
+              f"{single[task_tag, ref_name].val_acc:.6f}); parameters "
+              f"bit-equal on all {DIST_PARTS} ranks; launches per rank "
+              f"{want}")
+        print(f"[dist] {task_tag} {tag}: our kernels' device ms per step "
+              f"per rank {[None if x is None else round(x, 4) for x in kern]}"
+              f"; halo bytes per step per rank (max) gather {gath:.0f}, "
+              f"scatter {scat:.0f}; host ms per step inside the gloo "
+              f"collectives per rank {[round(h, 3) for h in host]} "
+              "(host-staged gloo, 4 ranks on one card: not an interconnect "
+              f"figure); priced at the data-sheet NVLink rate "
+              f"({NVLINK_BW / 1e9:.0f} GB/s in) {priced:.4f} ms per step")
+        rows.append({"task": task_tag, "tag": tag, "steps": steps,
+                     "configs": run["config"],
+                     "ms_per_step_max_over_ranks":
+                         run["ms_per_step_max_over_ranks"],
+                     "ms_per_step_per_rank": [m["ms_per_step"]
+                                              for m in mine],
+                     "profiled": run["profiled"],
+                     "single_device_ms_per_step": single_ms,
+                     "kernel_device_ms_per_step_per_rank": [
+                         m["kernel_device_ms_per_step"] for m in mine],
+                     "halo_bytes_per_step_per_rank": [
+                         m["halo_bytes_per_step"] for m in mine],
+                     "collective_host_ms_per_step_per_rank": [
+                         m["collective_host_ms_per_step"] for m in mine],
+                     "priced_exchange_ms_per_step": priced,
+                     "launches_per_rank": want,
+                     "max_rel_loss_diff": float(rel.max()),
+                     "rel_loss_diff_per_step": rel.tolist(),
+                     "val_acc": run["val_acc"],
+                     "single_device_val_acc":
+                         single[task_tag, ref_name].val_acc,
+                     "wall_s": [m["wall_s"]
+                                                           for m in mine]})
+    # the correctness cases: 4 shards against one pack, on the card
+    err = 0.0
+    for c in _dist_case_inputs():
+        got = ranks[0]["cases"][c["name"]]
+        for r in ranks[1:]:
+            for k, v in r["cases"][c["name"]]["tensors"].items():
+                check(torch.equal(v, got["tensors"][k]),
+                      f"dist case {c['name']}: ranks disagree on {k}")
+        want = _dist_single_case(c, device)
+        for key in ("joint", "overlap"):
+            for k in ("out", "dB"):
+                check(torch.equal(got["tensors"][f"{key}_{k}"], want[k]),
+                      f"dist case {c['name']} ({key}): {k} differs from "
+                      "the single-device kernel")
+        for k in ("gat_out", "gat_dQ", "gat_dK", "gat_dVf"):
+            torch.testing.assert_close(got["tensors"][k], want[k],
+                                       **DIST_GAT_TOL)
+            err = max(err, float((got["tensors"][k] - want[k]).abs().max()))
+        nnz = [r["cases"][c["name"]]["shard_nnz"] for r in ranks]
+        halo = [r["cases"][c["name"]]["n_halo"] for r in ranks]
+        if c["name"] == "empty_shard":
+            check(min(nnz) == 0, f"no empty shard: {nnz}")
+        print(f"[dist case] {c['name']}: {c['csr'].n_rows} nodes, shard "
+              f"nonzeros {nnz}, halo rows {halo}: SpMM (overlap off and "
+              "on) forward and dB bit-equal to the single-device kernel on "
+              "integer operands; the 2-head GAT message and its dQ, dK, dVf "
+              f"within rtol={DIST_GAT_TOL['rtol']}, "
+              f"atol={DIST_GAT_TOL['atol']}")
+    held, held_launches = _dist_check_held(ranks, device)
+    adapt = sorted((row for r in ranks for row in r["adapt"]),
+                   key=lambda x: (x["strategy"], x["rank"]))
+    for a in adapt:
+        print(f"[dist adapt] rmat17 d=64 {a['strategy']} shard {a['rank']}: "
+              f"config {tuple(a['config'])}, {a['rows']} rows, {a['nnz']} "
+              f"nonzeros, {a['halo_rows']} halo rows; its SpMM "
+              f"{_ms(a['kernel_ms'])} ms (CUDA events, alone on the card); "
+              f"exchange {a['exchange_host_ms']:.3f} ms host-staged gloo")
+    out = {"runs": rows, "plans": plans, "adapt": adapt,
+           "gat_case_max_abs_err": err, "held": held,
+           "held_launches": held_launches,
+           "held_max_abs_err": {k: max(h[k]["max_abs_err"]
+                                       for h in held.values())
+                                for k in KERNELS}}
+    if device.type != "cuda":
+        return out, launches
+    out["transport"] = [r["transport"] for r in ranks]
+    print("[dist transport] one all-gather of 20,000 × 64 float32 a rank, "
+          "4 ranks on one card, host ms per rank: gloo on CUDA tensors "
+          f"{[round(t['gloo_cuda'], 3) for t in out['transport']]}, staged "
+          "through pinned host buffers (dist/comm.py) "
+          f"{[round(t['staged'], 3) for t in out['transport']]}")
+    # NCCL with CUDA tensors: one rank, a card of its own
+    t0 = time.perf_counter()
+    task_tag, steps = DIST_TASKS[0]
+    hidden, layers = TRAIN_SHAPES["gcn"]
+    res = train_gnn(_dist_task(task_tag), model="gcn", hidden=hidden,
+                    n_layers=layers, steps=steps, seed=0, partitions=1,
+                    dist_backend="nccl", device=device)
+    rel = _dist_check_losses("gcn", res.losses, res.val_acc,
+                             single[task_tag, "gcn"], val_nodes[task_tag])
+    print(f"[dist nccl] {task_tag} gcn, 1 rank over nccl: losses within "
+          f"rtol {TRAIN_RTOL} of single-device card training (max relative "
+          f"difference {rel.max():.3e}), val_acc {res.val_acc:.4f} equal; "
+          f"{res.seconds_per_step * 1e3:.3f} ms/step; "
+          f"{time.perf_counter() - t0:.1f} s with its spawn")
+    out["nccl"] = {"losses": res.losses, "val_acc": res.val_acc,
+                   "ms_per_step": res.seconds_per_step * 1e3,
+                   "max_rel_loss_diff": float(rel.max())}
+    return out, launches
+
+
 # ------------------------------------------------------------ LM (Hymba)
 SCAN_ATOL, SCAN_RTOL = 1e-5, 1e-5   # kernel vs plain: FMA, other Σ_n order
 HYMBA_SHAPE = (2, 2048, 16, 3200)   # (B, S, N, Di) of a B=2, S=2048 prefill
@@ -2760,6 +3458,10 @@ def main() -> int:
     baseline_rows, pack_row, baseline_launches = phase_baselines(device)
     print(f"[baselines] in {time.perf_counter() - t0:.1f} s")
     print("[baselines json] " + json.dumps(baseline_rows + [pack_row]))
+    t0 = time.perf_counter()
+    dist_json, dist_launches = phase_dist(device)
+    print(f"[dist] phase 17 in {time.perf_counter() - t0:.1f} s")
+    print("[dist json] " + json.dumps(dist_json))
     raw_by_shape = [{"H": h, "n_rows": n, "d": d, "launches": c}
                     for (h, n, d), c in sorted(raw_shapes.items())]
     check(sum(raw_shapes.values())
@@ -2796,7 +3498,8 @@ def main() -> int:
                                      "consistency_max_abs_diff":
                                          consist_diff}))
     launches = {k: train_launches[k] + large_launches[k]
-                + oracle_launches[k] + baseline_launches[k] for k in KERNELS}
+                + oracle_launches[k] + baseline_launches[k]
+                + dist_launches[k] for k in KERNELS}
     launches["paramspmm"] += (spmm_launches + graph_launches[True][0]
                               + graph_launches[False][0])
     launches["sddmm_softmax"] += (gat_launches[1] + graph_launches[True][1]
@@ -2823,9 +3526,13 @@ def main() -> int:
                              + large_launches["paramspmm"],
                              "oracle": oracle_launches["paramspmm"],
                              "baselines_comparison":
-                                 baseline_launches["paramspmm"]},
+                                 baseline_launches["paramspmm"],
+                             "distributed": dist_launches["paramspmm"],
+                             "distributed_held_comparison":
+                                 dist_json["held_launches"]["paramspmm"]},
         "max_abs_err": max(max_err, err_prologue, err_autograd, err_tiny,
-                           err_tiny_out, err_hub, err_tiny_graph),
+                           err_tiny_out, err_hub, err_tiny_graph,
+                           dist_json["held_max_abs_err"]["paramspmm"]),
         "ms": main_row["ms"], "plain_ms": main_row["plain_ms"],
         "bound_ms": main_row["bound_ms"], "bound_by": main_row["bound_by"],
         "library_ms": main_row["library_ms"], "at": at(main_row),
@@ -2841,8 +3548,12 @@ def main() -> int:
                                  graph_launches[False][1],
                              "training": train_launches["sddmm_softmax"]
                              + large_launches["sddmm_softmax"],
-                             "oracle": oracle_launches["sddmm_softmax"]},
-        "max_abs_err": max(err_logits, err_tiny_lg, err_hub_lg),
+                             "oracle": oracle_launches["sddmm_softmax"],
+                             "distributed": dist_launches["sddmm_softmax"],
+                             "distributed_held_comparison":
+                                 dist_json["held_launches"]["sddmm_softmax"]},
+        "max_abs_err": max(err_logits, err_tiny_lg, err_hub_lg,
+                           dist_json["held_max_abs_err"]["sddmm_softmax"]),
         "ms": sm_row["ms"], "plain_ms": sm_row["plain_ms"],
         "bound_ms": sm_row["bound_ms"], "bound_by": sm_row["bound_by"],
         "library_ms": sm_row["library_ms"], "at": at(sm_row),
@@ -2854,9 +3565,13 @@ def main() -> int:
         "launches": launches["sddmm"],
         "launches_by_path": {"training": train_launches["sddmm"]
                              + large_launches["sddmm"],
-                             "oracle": oracle_launches["sddmm"]},
+                             "oracle": oracle_launches["sddmm"],
+                             "distributed": dist_launches["sddmm"],
+                             "distributed_held_comparison":
+                                 dist_json["held_launches"]["sddmm"]},
         "launches_by_shape": raw_by_shape,
-        "max_abs_err": err_sddmm,
+        "max_abs_err": max(err_sddmm,
+                           dist_json["held_max_abs_err"]["sddmm"]),
         "ms": raw_row["ms"], "plain_ms": raw_row["plain_ms"],
         "bound_ms": raw_row["bound_ms"], "bound_by": raw_row["bound_by"],
         "library_ms": raw_row["library_ms"], "at": at(raw_row),

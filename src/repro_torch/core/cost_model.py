@@ -49,6 +49,12 @@ class Hardware:
 # placeholders until calibrated on the card.
 H100 = Hardware(hbm_bw=3.35e12, flops=67e12, step_overhead=0.0,
                 chunk_setup=0.0)
+# The halo exchange's link rate (``halo_exchange_cost``), same data sheet:
+# NVLink 4, 900 GB/s per GPU over both directions of its 18 links, so
+# 450 GB/s into one GPU.  Not a measurement; a collective's fixed latency
+# has no data-sheet figure and is 0, as the kernel overheads are.
+NVLINK_BW = 450e9
+COLLECTIVE_LATENCY = 0.0
 
 
 @dataclass
@@ -298,3 +304,26 @@ class CostModel:
 def useful_flops(nnz: int, dim: int) -> float:
     """MAC count of the mathematical SpMM (2·nnz·dim)."""
     return 2.0 * nnz * dim
+
+
+# --------------------------------------------------- distributed terms
+
+
+def halo_exchange_cost(gathered_rows: int, dim: int, dtype_bytes: int = 4,
+                       link_bw: float = NVLINK_BW,
+                       latency: float = COLLECTIVE_LATENCY) -> float:
+    """Seconds one compacted halo ``all_gather`` keeps a GPU's links
+    busy: every rank receives the full ``(P·max_send, dim)`` send buffer,
+    so the time is its bytes over the inbound link rate plus a fixed
+    collective latency.  The overlap path (``dist.DistGraph(overlap=
+    True)``) hides this behind the shard-local SpMM."""
+    return (gathered_rows * dim * dtype_bytes) / link_bw + latency
+
+
+def overlap_exposed_cost(local_time: float, halo_time: float,
+                         exchange_time: float) -> float:
+    """Predicted per-shard time under the overlap decomposition: the
+    gather runs while the local SpMM does (the longer one bounds), then
+    the halo SpMM runs on the landed rows.  The serialized schedule takes
+    ``local_time + halo_time + exchange_time``."""
+    return max(local_time, exchange_time) + halo_time

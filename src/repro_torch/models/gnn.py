@@ -148,11 +148,15 @@ def gat_forward(params, X, gat_msg, heads: int = 1):
 
 
 # ------------------------------------------------------------------- loss
-def node_ce_loss(logits, labels, mask):
-    """Mean cross-entropy over the nodes where ``mask`` is 1."""
+def node_ce_loss(logits, labels, mask, total: float | None = None):
+    """Cross-entropy summed over the nodes where ``mask`` is 1, over
+    ``total`` (default: their count, the mean).  A row shard passes the
+    global count, so the shards' losses add up to the mean."""
     logp = torch.log_softmax(logits, dim=-1)
     ll = logp.gather(-1, labels[:, None].long())[:, 0]
-    return -(ll * mask).sum() / torch.clamp_min(mask.sum(), 1.0)
+    if total is None:
+        return -(ll * mask).sum() / torch.clamp_min(mask.sum(), 1.0)
+    return -(ll * mask).sum() / max(total, 1.0)
 
 
 def accuracy(logits, labels, mask):

@@ -9,7 +9,7 @@ from repro_torch.obs.trace import (
     export_trace, trace_events,
 )
 from repro_torch.obs.metrics import (
-    counter, histogram, metrics_snapshot, reset_metrics,
+    counter, gauge, histogram, metrics_snapshot, reset_metrics,
 )
 from repro_torch.obs.decisions import (
     DecisionRecord, DriftAdvisory, DRIFT_FEATURES, DRIFT_THRESHOLD,
@@ -20,7 +20,7 @@ from repro_torch.obs.decisions import (
 __all__ = [
     "tracing", "start_tracing", "stop_tracing", "trace_enabled", "span",
     "instant", "export_trace", "trace_events",
-    "counter", "histogram", "metrics_snapshot", "reset_metrics",
+    "counter", "gauge", "histogram", "metrics_snapshot", "reset_metrics",
     "DecisionRecord", "DriftAdvisory", "DRIFT_FEATURES", "DRIFT_THRESHOLD",
     "record_decision", "decision_log", "clear_decisions",
     "graph_snapshot", "check_drift", "resolve_drift_thresholds",

@@ -1,8 +1,8 @@
-"""Labeled counter/histogram registry for the obs layer.
+"""Labeled counter/gauge/histogram registry for the obs layer.
 
 Instruments are cheap named handles — ``counter("pack_cache_hits_total")``
 returns the same object every call — and every mutating method
-(``inc``/``observe``) is a no-op unless a tracing session is active, so
+(``inc``/``set``/``observe``) is a no-op unless a tracing session is active, so
 instrumented hot paths cost a dict lookup and a boolean check when the
 layer is off.  Label sets distinguish series within one instrument;
 ``metrics_snapshot()`` renders everything into plain JSON-ready dicts
@@ -14,7 +14,8 @@ import threading
 
 from repro_torch.obs import trace as _trace
 
-__all__ = ["counter", "histogram", "metrics_snapshot", "reset_metrics"]
+__all__ = ["counter", "gauge", "histogram", "metrics_snapshot",
+           "reset_metrics"]
 
 _LOCK = threading.Lock()
 _REGISTRY: dict[str, "_Instrument"] = {}
@@ -43,6 +44,18 @@ class Counter(_Instrument):
         key = _label_key(labels)
         with _LOCK:
             self._series[key] = self._series.get(key, 0.0) + value
+
+
+class Gauge(_Instrument):
+    """Last-write-wins per-label-set values."""
+
+    kind = "gauge"
+
+    def set(self, value: float, **labels) -> None:
+        if not _trace.trace_enabled():
+            return
+        with _LOCK:
+            self._series[_label_key(labels)] = float(value)
 
 
 class Histogram(_Instrument):
@@ -81,6 +94,11 @@ def _get(name: str, cls) -> _Instrument:
 def counter(name: str) -> Counter:
     """Get-or-create the named counter."""
     return _get(name, Counter)
+
+
+def gauge(name: str) -> Gauge:
+    """Get-or-create the named gauge."""
+    return _get(name, Gauge)
 
 
 def histogram(name: str) -> Histogram:

@@ -57,8 +57,10 @@ def test_every_module_imports_without_jax():
                          capture_output=True, text=True, timeout=120)
     assert res.returncode == 0, res.stderr
     assert int(res.stdout.split()[-1]) >= 56
-    # the decider path, the baselines and the capture path are among them
-    assert set(DECIDER_PATH) | set(CAPTURE_PATH) <= set(res.stdout.split())
+    # the decider path, the baselines, the capture path and the
+    # distributed path are among them
+    assert set(DECIDER_PATH) | set(CAPTURE_PATH) | set(DIST_PATH) <= \
+        set(res.stdout.split())
 
 
 DECIDER_PATH = ("repro_torch.obs.decisions", "repro_torch.core.features",
@@ -72,6 +74,24 @@ DECIDER_PATH = ("repro_torch.obs.decisions", "repro_torch.core.features",
 # but is the reference's all the same)
 CAPTURE_PATH = ("repro_torch.kernels.capture", "repro_torch.apps.obs_report",
                 "repro_torch.serve.forward", "repro_torch.launch.serve")
+
+
+# the distributed slice: partitioned training over torch.distributed
+DIST_PATH = ("repro_torch.dist", "repro_torch.dist.partition",
+             "repro_torch.dist.halo", "repro_torch.dist.comm",
+             "repro_torch.dist.packing", "repro_torch.dist.spmm",
+             "repro_torch.dist.gat")
+
+
+@pytest.mark.parametrize("name", DIST_PATH)
+def test_dist_path_modules_are_checked(name):
+    rel = name.split(".", 1)[1].replace(".", "/")
+    path = PORT / (rel + ("/__init__.py" if name == "repro_torch.dist"
+                          else ".py"))
+    assert path in PORT_FILES
+    bad = [m for m in _imported_modules(path)
+           if m.split(".")[0] in ("jax", "jaxlib", "repro")]
+    assert not bad, f"{path.name} imports {bad}"
 
 
 @pytest.mark.parametrize("name", CAPTURE_PATH)

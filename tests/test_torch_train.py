@@ -14,7 +14,9 @@
 * How far weight perturbations of about one float32 ulp move the port's
   own GAT trajectory, at 1 and 4 heads (the card's 4-head tolerance is
   set from it).
-* ``python -m repro_torch.apps.gnn --device cpu`` runs.
+* ``python -m repro_torch.apps.gnn --device cpu`` runs, also with
+  ``--partitions 2``; ``train_gnn(partitions=2)`` trains and returns one
+  config per shard.
 """
 import jax
 import numpy as np
@@ -224,8 +226,12 @@ def test_train_gnn_multihead_gat_and_unported_options():
     res = train_gnn(task, model="gat", hidden=16, n_layers=3, steps=4,
                     heads=4, device="cpu")
     assert np.isfinite(res.losses).all() and res.losses[-1] < res.losses[0]
-    with pytest.raises(NotImplementedError, match="item 8"):
-        train_gnn(task, steps=1, device="cpu", partitions=2)
+    # partitioned training: two spawned gloo ranks, one config per shard
+    # (tests/test_torch_dist.py holds it against single-device training)
+    res = train_gnn(task, steps=2, device="cpu", partitions=2)
+    assert isinstance(res.config, list) and len(res.config) == 2
+    assert all(isinstance(c, tp.SpMMConfig) for c in res.config)
+    assert np.isfinite(res.losses).all() and len(res.losses) == 2
     # the baselines train GCN / GIN (tests/test_torch_baselines.py holds
     # them against the reference); GAT needs the PCSR message fn
     for mode in ("cusparse", "gespmm"):
@@ -245,3 +251,11 @@ def test_gnn_cli_runs_on_cpu(capsys):
     out = capsys.readouterr().out
     assert "val_acc=" in out and "(cpu)" in out
     assert len(res.losses) == 4 and res.losses[-1] < res.losses[0]
+
+
+def test_gnn_cli_partitioned_on_cpu(capsys):
+    res = main(["--device", "cpu", "--steps", "3", "--layers", "2",
+                "--partitions", "2", "--overlap", "--dist-backend", "gloo"])
+    out = capsys.readouterr().out
+    assert "partition 0: W=" in out and "partition 1: W=" in out
+    assert len(res.losses) == 3 and res.losses[-1] < res.losses[0]
