@@ -173,13 +173,40 @@ Runs from the root of a checkout and drives ``src/repro_torch`` only
     ``DIST_GAT_TOL``), each shard's config,
     nonzeros, halo rows and SpMM time (CUDA events, one rank at a time)
     on rmat17 at d = 64 under both strategies, and GCN over NCCL at one
-    rank against single-device training.
+    rank against single-device training;
+18. dynamic graphs (runs after phase 17) — ``DynamicGraph`` at d = 64 on
+    phase 6's 131,072-node graph, GCN-normalised: four churn batches of
+    ≈1% of the edges inserted and ≈1% deleted (whole blocks and whole
+    rows first), each with the governor's verdict and the host ms of the
+    mutation, ``evaluate``, the view and ``Steering`` + H2D; after each,
+    ``spmm`` and the GAT message at 1 and 4 heads, forward and backward,
+    against a fresh pack of the mutated edges on the card (``RTOL``/
+    ``ATOL``, ``DYN_GAT_TOL``; rows without edges 0), and the degraded
+    layout's kernel against the fresh pack's (CUDA events, and device
+    time with the stream held) as a measured ratio beside the priced
+    ones; one forced ``repack()`` timed against ``pack_setup_seconds``;
+    the same ratio under three heavier churn batches (10% of the edges
+    deleted, as many inserted into 64 rows); the ``PackSetup`` fit over
+    re-packs at four sizes.  The same on the 1,024-node task with integer edges
+    (bit-exact), the kernels on every degraded view and on
+    ``tests/test_dynamic.py``'s block-birth, block-death and fat-row
+    layouts at the wrapper's cap and at ``TINY_CAP``; ``apps.gnn
+    --mutate 3 --trace`` on the card; ``DistGraph.refresh`` on 4 gloo
+    ranks (the 1k task and the 131k graph, integer edges: a mutation
+    inside one shard, a forced re-pick, a mutation that grows
+    ``halo_pad``, overlap mode), each followed by the partitioned SpMM
+    forward and backward, bit-equal to the single-device kernels, with
+    the same report, configs and result bits on every rank.  Every
+    launch of the phase is held against its plain version on the same
+    CUDA tensors (``_held_against_plain``), the kernels' timing runs
+    excepted.
 
 Each main path (serving per model, each pass of each phase-15 service,
 training per model, each oracle search, each 131k baseline-comparison
-run, each distributed run on each rank, LM prefill, each decode run and
-the consistency forward) runs with the launch counts set to 0 just
-before it and read just after.  A
+run, each distributed run on each rank, each dynamic batch's operators,
+the ``--mutate`` CLI run, each refresh case's SpMM on each rank, LM
+prefill, each decode run and the consistency forward) runs with the
+launch counts set to 0 just before it and read just after.  A
 replayed graph adds the launches its capture recorded
 (``kernels/capture.py``).
 
@@ -2832,6 +2859,817 @@ def phase_dist(device, *, rank_device="cuda"):
     return out, launches
 
 
+# ------------------------------------------------------ dynamic (18)
+DYN_DIM = 64
+DYN_BATCHES = 4
+# one churn batch on the 131k graph: ≈1% of its edges inserted and ≈1%
+# deleted (the reference demo's ratio, apps/gnn.py --mutate); the deletes
+# take whole blocks and whole rows first
+DYN_INSERT_FRAC, DYN_DELETE_FRAC = 0.0099, 0.0085
+DYN_DEAD_BLOCKS, DYN_DEAD_ROWS = 2, 20
+DYN_HEADS = (1, 4)
+# re-packs timed for the PackSetup fit: the 131k graph cut to its first
+# n nodes
+DYN_PACK_NODES = (16_384, 32_768, 65_536, 131_072)
+# heavier churn for the degraded/fresh ratio: per batch ≈10% of the edges
+# deleted at random and as many inserted into DYN_HUB_ROWS rows (their
+# blocks overflow into delta chunks, their groups grow long)
+DYN_STRESS_BATCHES, DYN_STRESS_FRAC, DYN_HUB_ROWS = 3, 0.10, 64
+DYN_PACK_REPS = 2
+# the GAT message on a degraded view against a fresh pack, both on the
+# card: the same kernels, the sums in another order (phase 3's autograd
+# tolerance)
+DYN_GAT_TOL = dict(rtol=1e-5, atol=1e-4)
+# a dynamic batch's main-path launches: spmm forward + backward (1 + 1),
+# then per head count the GAT message forward (stats, prologue SpMM) and
+# backward (raw SDDMM; dQ, dK, dVf)
+DYN_BATCH_CALLS = {"paramspmm": 2 + 4 * len(DYN_HEADS),
+                   "sddmm_softmax": len(DYN_HEADS),
+                   "sddmm": len(DYN_HEADS)}
+# (name, overlap, mutated shard — None: edges from shard 0 to remote
+# columns that outgrow halo_pad — and drift threshold); the non-overlap
+# cases run in order on one DistGraph, each refreshing the last
+DYN_DIST_CASES = (("one_shard", False, 1, None),
+                  ("repick", False, 2, 1e-6),
+                  ("halo_grows", False, None, None),
+                  ("overlap", True, 3, None))
+
+
+def _dyn_calls(device):
+    """A batch's main-path launches: none where the plain versions run."""
+    return (DYN_BATCH_CALLS if device.type == "cuda"
+            else dict.fromkeys(KERNELS, 0))
+
+
+def _churn(rng, g, inserts, deletes, integer):
+    """One batch through ``g`` (a ``DynamicGraph``): ``inserts`` random
+    edges, then ``deletes`` of the live edges — every edge of
+    ``DYN_DEAD_BLOCKS`` output blocks and ``DYN_DEAD_ROWS`` rows first,
+    random ones after.  Host ms of the mutations, of the governor's
+    evaluations and of a re-pack it fired; the dead rows."""
+    n = g.dyn.n_rows
+    spent = {"evaluate": 0.0, "repack": 0.0}
+
+    def timed(name, fn):
+        def run(*a, **kw):
+            t0 = time.perf_counter()
+            try:
+                return fn(*a, **kw)
+            finally:
+                spent[name] += (time.perf_counter() - t0) * 1e3
+        return run
+    evaluate, repack = g.governor.evaluate, g.repack
+    g.governor.evaluate = timed("evaluate", evaluate)
+    g.repack = timed("repack", repack)
+    t0 = time.perf_counter()
+    try:
+        vals = (rng.integers(1, 4, inserts) if integer
+                else rng.uniform(0.01, 0.1, inserts)).astype(np.float32)
+        g.insert_edges(*rng.integers(0, n, (2, inserts)), vals)
+        live = g.dyn.to_csr()
+        rows = np.repeat(np.arange(n), live.degrees)
+        R = g.config.R
+        blocks = rng.choice(n // R, DYN_DEAD_BLOCKS, replace=False)
+        dead = np.union1d((blocks[:, None] * R + np.arange(R)).ravel(),
+                          rng.choice(n, DYN_DEAD_ROWS, replace=False))
+        sel = np.isin(rows, dead)
+        rest = np.flatnonzero(~sel)
+        pick = np.concatenate([np.flatnonzero(sel), rng.choice(
+            rest, max(0, deletes - int(sel.sum())), replace=False)])
+        g.delete_edges(rows[pick], live.indices[pick])
+    finally:
+        del g.governor.evaluate, g.repack
+    total = (time.perf_counter() - t0) * 1e3
+    return dict(spent, mutation=total - spent["evaluate"]
+                - spent["repack"]), dead
+
+
+def _dyn_operands(rng, n, integer, device):
+    draw = ((lambda *s: rng.integers(-3, 4, s).astype(np.float32))
+            if integer else
+            (lambda *s: rng.standard_normal(s).astype(np.float32)))
+    t = lambda *s: torch.from_numpy(draw(*s)).to(device)
+    ops_ = {"X": t(n, DYN_DIM), "G": t(n, DYN_DIM)}
+    for H in DYN_HEADS:
+        lead, d = ((H,) if H > 1 else ()), DYN_DIM // H
+        # the GAT operands are float either way: softmax is not exact
+        for k in ("Q", "K", "Vf", "dO"):
+            ops_[k, H] = torch.from_numpy(rng.standard_normal(
+                lead + (n, d)).astype(np.float32)).to(device)
+    return ops_
+
+
+def _dyn_main_path(g, o):
+    """The ``DynamicGraph``'s operators on the live layout: ``spmm``
+    forward and backward, ``gat`` forward and backward at each head count
+    of ``DYN_HEADS``.  Returns their outputs and gradients."""
+    X = o["X"].clone().requires_grad_()
+    y = g.spmm(X)
+    y.backward(o["G"])
+    res = {"spmm": y.detach(), "spmm_dB": X.grad}
+    for H in DYN_HEADS:
+        q, k, v = (o[x, H].clone().requires_grad_() for x in ("Q", "K", "Vf"))
+        out = g.gat(q, k, v)
+        out.backward(o["dO", H])
+        res.update({("gat", H): out.detach(), ("gat_dQ", H): q.grad,
+                    ("gat_dK", H): k.grad, ("gat_dVf", H): v.grad})
+    return res
+
+
+def _dyn_fresh(g, o, got, integer, dead, what):
+    """The same operators on a fresh pack of the mutated edges (and its
+    transpose) at the graph's config, on the card: SpMM and its gradient
+    bit-equal on integer operands, else ``RTOL``/``ATOL``; the GAT
+    message and its gradients within ``DYN_GAT_TOL``; the dead rows 0.
+    Returns (the fresh PCSR, the max abs SpMM and GAT differences)."""
+    cur = g.dyn.to_csr()
+    fresh = build_pcsr(cur.indptr, cur.indices, cur.data, cur.n_rows,
+                       cur.n_cols, g.config)
+    t = cur.transpose()
+    fresh_t = build_pcsr(t.indptr, t.indices, t.data, t.n_rows, t.n_cols,
+                         g.config)
+    errs = {"spmm": 0.0, "gat": 0.0}
+    for key, want in (("spmm", ops.paramspmm(fresh, o["X"])),
+                      ("spmm_dB", ops.paramspmm(fresh_t, o["G"]))):
+        want = want.detach()
+        a = got[key]
+        if integer:
+            check(torch.equal(a, want), f"{what}: {key} not bit-equal to "
+                  "a fresh pack on integer operands")
+        else:
+            torch.testing.assert_close(a, want, rtol=RTOL, atol=ATOL,
+                                       msg=lambda m: f"{what} {key}: {m}")
+        errs["spmm"] = max(errs["spmm"], float((a - want).abs().max()))
+    check(bool((got["spmm"][dead] == 0).all()),
+          f"{what}: a row without edges is not 0")
+    fn = engine.make_gat_message_fn(fresh, fresh_t)
+    for H in DYN_HEADS:
+        q, k, v = (o[x, H].clone().requires_grad_() for x in ("Q", "K", "Vf"))
+        out = fn(q, k, v)
+        out.backward(o["dO", H])
+        for key, want in (("gat", out), ("gat_dQ", q.grad),
+                          ("gat_dK", k.grad), ("gat_dVf", v.grad)):
+            a, want = got[key, H], want.detach()
+            check(bool(torch.isfinite(a).all()), f"{what}: {key} at "
+                  f"{H} heads not finite")
+            torch.testing.assert_close(a, want, **DYN_GAT_TOL,
+                                       msg=lambda m: f"{what} {key} H={H}: "
+                                       f"{m}")
+            errs["gat"] = max(errs["gat"], float((a - want).abs().max()))
+        check(bool((got["gat", H][..., dead, :] == 0).all()),
+              f"{what}: GAT output of a row without edges is not 0")
+    return fresh, errs
+
+
+def _priced_ratio(dyn, cfg, cur):
+    """The priced time of ``dyn``'s degraded layout over a fresh pack's of
+    its live edges ``cur`` at the same config, both at the data-sheet
+    ``H100``."""
+    from repro_torch.core.cost_model import degraded_kernel_cost, \
+        kernel_cost
+    from repro_torch.core.pcsr import pcsr_stats
+    deg = degraded_kernel_cost(DYN_DIM, cfg, C=dyn.num_chunks, K=dyn.K,
+                               n_blocks_visited=dyn.n_visited_blocks)
+    st = pcsr_stats(cur.indptr, cur.indices, cur.n_rows, cur.n_cols,
+                    cfg.V, cfg.W)
+    return deg.total / kernel_cost(st, DYN_DIM, cfg).total
+
+
+def _ratio_stress(csr, config, device, o, time_fn):
+    """The degraded/fresh kernel ratio under heavier churn
+    (``DYN_STRESS_*``) on a ``DynamicPCSR`` at ``config``: per batch the
+    degraded view's kernel held against its plain version, its device time
+    against a fresh pack's (``time_fn``, ABBA), and the priced same-config
+    ratio.  Returns the rows."""
+    from repro_torch.dynamic import DynamicPCSR
+    rng = np.random.default_rng(19)
+    dyn = DynamicPCSR.from_csr(csr, config)
+    n, m = csr.n_rows, round(DYN_STRESS_FRAC * csr.nnz)
+    hubs = rng.choice(n, DYN_HUB_ROWS, replace=False)
+    rows = []
+    for b in range(DYN_STRESS_BATCHES):
+        live = dyn.to_csr()
+        src = np.repeat(np.arange(n), live.degrees)
+        pick = rng.choice(live.nnz, m, replace=False)
+        dyn.delete_edges(src[pick], live.indices[pick])
+        dyn.insert_edges(rng.choice(hubs, m), rng.integers(0, n, m),
+                         rng.uniform(0.01, 0.1, m).astype(np.float32))
+        view, cur = dyn.pcsr, dyn.to_csr()
+        fresh = build_pcsr(cur.indptr, cur.indices, cur.data, n, n, config)
+        _compare(view, o["X"], {}, False, device)
+        dev = [time_fn(lambda p=p: ops.paramspmm(p, o["X"]), reps=20,
+                       warmup=3, device=device) * 1e3
+               for p in (view, fresh, fresh, view)]
+        steer = ops.device_steering(view, device)
+        fsteer = ops.device_steering(fresh, device)
+        row = {"batch": b, "nnz": int(dyn.nnz), "chunks": dyn.num_chunks,
+               "fresh_chunks": fresh.num_chunks,
+               "delta_chunks": dyn.n_delta_chunks,
+               "slot_fill": dyn.slot_fill, "device_ms_degraded": dev[::3],
+               "device_ms_fresh": dev[1:3],
+               "device_ratio": (dev[0] + dev[3]) / (dev[1] + dev[2]),
+               "priced_ratio_same_config": _priced_ratio(dyn, config, cur),
+               "units_degraded": _units(steer), "span_degraded": steer.span,
+               "units_fresh": _units(fsteer), "span_fresh": fsteer.span}
+        rows.append(row)
+        print(f"[dynamic stress] batch {b}: {m} deleted at random, {m} "
+              f"inserted into {DYN_HUB_ROWS} rows; {row['chunks']} chunks "
+              f"({row['delta_chunks']} delta) against a fresh pack's "
+              f"{row['fresh_chunks']}, slot fill {row['slot_fill']:.4f}; "
+              f"the degraded view's kernel held against its plain version; "
+              f"device ms (events, stream held) {dev[0]:.4f} / "
+              f"{dev[3]:.4f} against {dev[1]:.4f} / {dev[2]:.4f}: ratio "
+              f"{row['device_ratio']:.4f}, priced "
+              f"{row['priced_ratio_same_config']:.4f}; units degraded "
+              f"{steer.n_units} (largest {steer.most}, longest span "
+              f"{steer.span}), fresh {fsteer.n_units} (largest "
+              f"{fsteer.most}, span {fsteer.span})")
+        del fresh
+    return rows
+
+
+def _dyn_cut(csr, n):
+    """``csr``'s subgraph on its first ``n`` nodes."""
+    rows = np.repeat(np.arange(csr.n_rows), csr.degrees)
+    keep = (rows < n) & (csr.indices < n)
+    return CSRMatrix.from_coo(rows[keep], csr.indices[keep],
+                              csr.data[keep], n, n, sum_duplicates=False)
+
+
+def _pack_setup_fit(csr, config, device, smi):
+    """Full re-packs of a ``DynamicPCSR`` (to CSR, ``build_pcsr``, the
+    re-seat), the new view, its ``Steering`` and the copy to the card,
+    synchronised, at each size of ``DYN_PACK_NODES``; a least-squares
+    ``fixed + per_nnz · nnz`` through them (per_nnz alone if the fixed
+    term comes out negative)."""
+    from repro_torch.core.cost_model import PackSetup
+    from repro_torch.dynamic import DynamicPCSR
+    pts = []
+    for n in DYN_PACK_NODES:
+        dyn = DynamicPCSR.from_csr(_dyn_cut(csr, n), config)
+        for _ in range(DYN_PACK_REPS):
+            dyn.insert_edges([0], [n - 1], [1.0])     # a new edge set
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            dyn.repack()
+            ops.Steering.from_pcsr(dyn.pcsr, device)
+            torch.cuda.synchronize()
+            pts.append((dyn.nnz, time.perf_counter() - t0))
+    x, y = np.array(pts, np.float64).T
+    (fixed, per), *_ = np.linalg.lstsq(np.stack([np.ones_like(x), x], 1), y,
+                                       rcond=None)
+    if fixed < 0:
+        fixed, per = 0.0, float((x * y).sum() / (x * x).sum())
+    fit = PackSetup(fixed=float(fixed), per_nnz=float(per))
+    print(f"[dynamic pack setup] re-pack + view + Steering + H2D, "
+          f"synchronised, {DYN_PACK_REPS} each at {len(DYN_PACK_NODES)} "
+          f"sizes (nnz, ms): "
+          + ", ".join(f"({int(a)}, {b * 1e3:.2f})" for a, b in pts)
+          + f"; least squares: PackSetup(fixed={fit.fixed:.6e}, "
+          f"per_nnz={fit.per_nnz:.6e}) on {smi}")
+    return fit, pts
+
+
+def phase_dynamic_large(device, smi):
+    """Phase 18 at full width and real size: a ``DynamicGraph`` at d = 64
+    on the 131,072-node GCN-normalised community graph, four churn
+    batches (``_churn``), each followed by the main path
+    (``_dyn_main_path``) with the launch counts set to 0 just before and
+    read just after, every launch held against its plain version; then
+    the same operators on a fresh pack (``_dyn_fresh``), and the degraded
+    layout's kernel against the fresh pack's (CUDA events, in the order
+    degraded, fresh, fresh, degraded, back to back and with the stream
+    held) beside the priced ratios; one
+    forced ``repack()`` timed against ``pack_setup_seconds``; the
+    ``PackSetup`` fit.  Returns (json, main-path launches, held rows,
+    max abs differences)."""
+    from repro_torch.core.autotune import time_fn
+    from repro_torch.core.cost_model import pack_setup_seconds
+    from repro_torch.dynamic import DynamicGraph
+    t0 = time.perf_counter()
+    csr = _large_task().csr.gcn_normalize()
+    g = DynamicGraph(csr, DYN_DIM, device=device)
+    print(f"[dynamic] 131k: {csr.n_rows} nodes, {csr.nnz} nonzeros, "
+          f"config {g.config.astuple()}, K {g.dyn.K}, {g.dyn.num_chunks} "
+          f"chunks; DynamicGraph built in "
+          f"{(time.perf_counter() - t0) * 1e3:.0f} ms host")
+    rng = np.random.default_rng(18)
+    o = _dyn_operands(rng, csr.n_rows, False, device)
+    launches, held = dict.fromkeys(KERNELS, 0), {}
+    errs = {"spmm": 0.0, "gat": 0.0}
+    rows = []
+    for b in range(DYN_BATCHES + 1):
+        forced = b == DYN_BATCHES
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if forced:
+            host = {"repack": 0.0}
+            g.repack()
+            dead = np.zeros(0, np.int64)
+            dec = None
+        else:
+            host, dead = _churn(rng, g, round(DYN_INSERT_FRAC * csr.nnz),
+                                round(DYN_DELETE_FRAC * csr.nnz), False)
+            dec = g.decisions[-1]
+        t1 = time.perf_counter()
+        view = g.dyn.pcsr
+        t2 = time.perf_counter()
+        steer = ops.device_steering(view, device)
+        torch.cuda.synchronize()
+        t3 = time.perf_counter()
+        host.update(view=(t2 - t1) * 1e3, steering_h2d=(t3 - t2) * 1e3)
+        if forced:
+            host["repack"] = (t3 - t0) * 1e3
+        # the version's transpose pack, which the first backward builds
+        # (g._transpose is that lazy builder), and the GAT backward's slot
+        # map onto it, timed here once each (the map is built again inside
+        # the first GAT backward)
+        g._refresh()
+        t4 = time.perf_counter()
+        view_t = g._transpose()
+        ops.device_steering(view_t, device)
+        torch.cuda.synchronize()
+        t5 = time.perf_counter()
+        engine.TransposeSide.build(view, view_t, device)
+        torch.cuda.synchronize()
+        host.update(transpose_pack_h2d=(t5 - t4) * 1e3,
+                    gat_slot_map_h2d=(time.perf_counter() - t5) * 1e3)
+        what = f"dynamic 131k {'forced repack' if forced else f'batch {b}'}"
+        with _held_against_plain(held, what):
+            got = _dyn_main_path(g, o)
+            counts = _counts()
+        check(counts == _dyn_calls(device), f"{what}: launches {counts}, "
+              f"the path gives {_dyn_calls(device)}")
+        for k in KERNELS:
+            launches[k] += counts[k]
+        cur = g.dyn.to_csr()
+        with _held_against_plain(held, what + " fresh"):
+            fresh, e = _dyn_fresh(g, o, got, False, dead, what)
+        for k in errs:
+            errs[k] = max(errs[k], e[k])
+        # device time without the host's dispatch: CUDA events per call
+        # with the stream held while the calls are enqueued (the measured
+        # oracle's timer), median of 20, in the same ABBA order
+        dev_ms = [time_fn(lambda p=p: ops.paramspmm(p, o["X"]), reps=20,
+                          warmup=3, device=device) * 1e3
+                  for p in (view, fresh, fresh, view)]
+        dev_deg, dev_fresh = (dev_ms[0] + dev_ms[3]) / 2, \
+            (dev_ms[1] + dev_ms[2]) / 2
+        fresh_units = ops.device_steering(fresh, device)
+        row = {"batch": b, "forced_repack": forced,
+               "action": dec.action if dec else "repack (forced)",
+               "reason": dec.reason if dec else None,
+               "config": list(g.config.astuple()), "nnz": int(g.dyn.nnz),
+               "chunks": g.dyn.num_chunks, "slot_fill": g.dyn.slot_fill,
+               "delta_chunks": g.dyn.n_delta_chunks,
+               "tombstones": g.dyn.n_tombstones,
+               "dead_rows": int(dead.size), "host_ms": host,
+               "device_ms_degraded": dev_ms[::3],
+               "device_ms_fresh": dev_ms[1:3],
+               "device_ratio": dev_deg / dev_fresh,
+               "priced_ratio_same_config": _priced_ratio(g.dyn, g.config,
+                                                         cur),
+               "governor_ratio": (dec.degraded_seconds / dec.fresh_seconds
+                                  if dec else None),
+               "units_degraded": _units(steer),
+               "units_fresh": _units(fresh_units),
+               "launches": counts}
+        if forced:
+            row["pack_setup_priced_ms"] = pack_setup_seconds(g.dyn.nnz) * 1e3
+        rows.append(row)
+        print(f"[dynamic] {what}: {row['action']} "
+              f"({row['reason'] or 'DynamicGraph.repack()'}); config "
+              f"{tuple(row['config'])}, nnz {row['nnz']}, chunks "
+              f"{row['chunks']}, slot fill {row['slot_fill']:.4f}, "
+              f"{row['delta_chunks']} delta chunks, {row['tombstones']} "
+              f"tombstones, {row['dead_rows']} rows without edges; host ms "
+              + ", ".join(f"{k} {v:.1f}" for k, v in host.items())
+              + f"; kernel device ms on the degraded layout (events, "
+              f"stream held) {dev_ms[0]:.4f} / {dev_ms[3]:.4f} against the "
+              f"fresh pack's {dev_ms[1]:.4f} / {dev_ms[2]:.4f} at the same "
+              f"config, measured ratio "
+              f"{row['device_ratio']:.4f}; priced same-config ratio "
+              f"{row['priced_ratio_same_config']:.4f}, governor's priced "
+              f"ratio {_ms(row['governor_ratio'])}; units degraded "
+              f"{steer.n_units} (largest {steer.most}), fresh "
+              f"{fresh_units.n_units} (largest {fresh_units.most}); "
+              f"launches {counts}, each held against its plain version; "
+              "spmm and its gradient against a fresh pack within "
+              f"rtol={RTOL}, atol={ATOL}, the GAT message at {DYN_HEADS} "
+              f"heads and its gradients within {DYN_GAT_TOL}")
+        if forced:
+            print(f"[dynamic] forced repack: {host['repack']:.1f} ms host "
+                  "(re-pack, view, Steering + H2D, synchronised) against "
+                  f"pack_setup_seconds {row['pack_setup_priced_ms']:.1f} "
+                  "ms")
+        del fresh, fresh_units, got
+    stress = _ratio_stress(csr, g.config, device, o, time_fn)
+    rank = lambda x: np.argsort(np.argsort(x))
+    meas = [r["device_ratio"] for r in rows + stress]
+    priced = [r["priced_ratio_same_config"] for r in rows + stress]
+    rho = float(np.corrcoef(rank(meas), rank(priced))[0, 1])
+    print(f"[dynamic] degraded/fresh kernel ratios (batches 0-"
+          f"{DYN_BATCHES - 1}, the forced repack, stress batches 0-"
+          f"{DYN_STRESS_BATCHES - 1}): measured (device) "
+          f"{[round(x, 4) for x in meas]}, priced (same config) "
+          f"{[round(x, 4) for x in priced]}: Spearman ρ {rho:.3f}")
+    fit, pts = _pack_setup_fit(csr, g.config, device, smi)
+    del g
+    torch.cuda.empty_cache()
+    return ({"rows": rows, "stress": stress, "ratio_spearman": rho,
+             "pack_setup_fit": {
+        "fixed": fit.fixed, "per_nnz": fit.per_nnz,
+        "points_nnz_seconds": pts}}, launches, held, errs)
+
+
+def _small_base(seed=0):
+    """``community_task()``'s pattern (1,024 nodes) with edge values in
+    {1, 2, 3}: sums stay exact."""
+    c = community_task().csr
+    rng = np.random.default_rng(seed)
+    return CSRMatrix(c.indptr, c.indices,
+                     rng.integers(1, 4, c.nnz).astype(np.float32), c.n_rows,
+                     c.n_cols)
+
+
+def _reference_cases():
+    """``tests/test_dynamic.py``'s block-birth, block-death and fat-row
+    layouts (as ``DynamicPCSR``s), under several configs each."""
+    from repro_torch.dynamic import DynamicPCSR
+    rng = np.random.default_rng(0)
+    n = 64
+    A = np.zeros((n, n), np.float32)
+    A[:16] = (rng.random((16, n)) < 0.3) * rng.integers(1, 5, (16, n))
+    out = []
+    for cfg in (SpMMConfig(V=2, S=True, W=4), SpMMConfig(V=1, S=False, W=8),
+                SpMMConfig(V=2, S=True, W=16, B=True)):
+        d = DynamicPCSR.from_csr(CSRMatrix.from_dense(A), cfg)
+        d.insert_edges([40, 41, 47], [3, 9, 60], [2.0, 3.0, 1.0])
+        out.append((f"block birth {cfg.astuple()}", d, np.zeros(0, int)))
+        d = DynamicPCSR.from_csr(CSRMatrix.from_dense(A), cfg)
+        d.insert_edges([40, 41, 47], [3, 9, 60], [2.0, 3.0, 1.0])
+        live = d.to_csr()
+        rows = np.repeat(np.arange(n), live.degrees)
+        d.delete_edges(rows[rows < 8], live.indices[rows < 8])
+        out.append((f"block death {cfg.astuple()}", d, np.arange(8)))
+    m = 48
+    B = ((rng.random((m, m)) < 0.05) * rng.integers(1, 8, (m, m))).astype(
+        np.float32)
+    for cfg in (SpMMConfig(V=1, S=True, W=8), SpMMConfig(V=2, S=True, W=4,
+                                                          B=True)):
+        d = DynamicPCSR.from_csr(CSRMatrix.from_dense(B), cfg)
+        d.insert_edges(np.full(40, 3), rng.permutation(m)[:40],
+                       rng.integers(1, 6, 40).astype(np.float32))
+        check(d.n_delta_chunks > 0, "fat row: no delta chunk")
+        out.append((f"fat row {cfg.astuple()}", d, np.zeros(0, int)))
+    return out
+
+
+def _view_grid(p, dead, device, rng, what):
+    """One degraded view's kernels against their plain versions on the
+    same CUDA tensors, at the wrapper's cap and with ``TINY_CAP`` units:
+    ParamSpMM with the full epilogue (integer operands, bit-exact), the
+    SDDMM → softmax pair at 1 and 4 heads, the raw SDDMM (integer,
+    bit-exact, masked cells exactly 0); a fresh pack's SpMM bit-equal to
+    the view's.  Returns (cases, max abs differences)."""
+    err = dict.fromkeys(KERNELS, 0.0)
+    cases = 0
+    spec = {"scale": True, "bias": True, "residual": True,
+            "activation": "relu"}
+    for cap in (None, TINY_CAP):
+        B, epi = _operands(rng, p.n_cols, 16, spec, True, device)
+        err["paramspmm"] = max(err["paramspmm"],
+                               _compare(p, B, epi, True, device, cap))
+        B, _ = _operands(rng, p.n_cols, 16, {}, True, device)
+        out = (ops.paramspmm(p, B) if cap is None else ops._call(
+            _steering(p, device, cap), B, dblk=p.config.dblk, **_geo(p)))
+        check(bool((out[dead] == 0).all()), f"{what}: a dead row is not 0")
+        for H in DYN_HEADS:
+            lg, pro = _gat_compare(p, device, rng, 16, H, False, cap)
+            err["sddmm_softmax"] = max(err["sddmm_softmax"], lg)
+            err["paramspmm"] = max(err["paramspmm"], pro)
+            err["sddmm"] = max(err["sddmm"], _raw_sddmm_compare(
+                p, device, rng, 16, H, True, cap))
+        cases += 1
+    return cases, err
+
+
+def phase_dynamic_small(device):
+    """Phase 18's small cases: a ``DynamicGraph`` on the 1,024-node task
+    with integer edges, four churn batches at the 131k phase's ratio,
+    each with the main path (counted, every launch held against its plain
+    version) and the fresh-pack check (SpMM bit-exact); the kernels on
+    every degraded view and on ``tests/test_dynamic.py``'s block-birth,
+    block-death and fat-row layouts at the wrapper's cap and at
+    ``TINY_CAP`` (``_view_grid``).  Returns (main-path launches, held
+    rows, grid cases, max abs differences)."""
+    from repro_torch.dynamic import DynamicGraph
+    base = _small_base()
+    g = DynamicGraph(base, DYN_DIM, device=device)
+    rng = np.random.default_rng(180)
+    o = _dyn_operands(rng, base.n_rows, True, device)
+    launches, held, cases = dict.fromkeys(KERNELS, 0), {}, 0
+    err = dict.fromkeys(KERNELS, 0.0)
+    for b in range(DYN_BATCHES):
+        _, dead = _churn(rng, g, round(DYN_INSERT_FRAC * base.nnz),
+                         round(DYN_DELETE_FRAC * base.nnz), True)
+        what = f"dynamic 1k batch {b}"
+        with _held_against_plain(held, what):
+            got = _dyn_main_path(g, o)
+            counts = _counts()
+        check(counts == _dyn_calls(device), f"{what}: launches {counts}")
+        for k in KERNELS:
+            launches[k] += counts[k]
+        with _held_against_plain(held, what + " fresh"):
+            _dyn_fresh(g, o, got, True, dead, what)
+        c, e = _view_grid(g.dyn.pcsr, dead, device, rng, what)
+        cases += c
+        for k in KERNELS:
+            err[k] = max(err[k], e[k])
+        print(f"[dynamic] {what}: {g.decisions[-1].action}, config "
+              f"{g.config.astuple()}, {g.dyn.n_delta_chunks} delta chunks, "
+              f"{g.dyn.n_tombstones} tombstones, {dead.size} rows without "
+              f"edges; launches {counts} held against the plain versions; "
+              "spmm and its gradient bit-equal to a fresh pack")
+    for name, d, dead in _reference_cases():
+        c, e = _view_grid(d.pcsr, dead, device, rng, name)
+        cases += c
+        for k in KERNELS:
+            err[k] = max(err[k], e[k])
+        live = d.to_csr()
+        fresh = build_pcsr(live.indptr, live.indices, live.data,
+                           live.n_rows, live.n_cols, d.config)
+        B, _ = _operands(rng, live.n_cols, 16, {}, True, device)
+        check(torch.equal(ops.paramspmm(d.pcsr, B), ops.paramspmm(fresh, B)),
+              f"{name}: the degraded view's SpMM is not bit-equal to a "
+              "fresh pack")
+    print(f"[dynamic] {cases} degraded views × (wrapper's cap, TINY_CAP="
+          f"{TINY_CAP}) against the plain versions (1k batches, block "
+          f"birth, block death, fat row); max abs differences {err}")
+    return launches, held, cases, err
+
+
+def phase_dynamic_cli(device):
+    """``apps.gnn.main(["--mutate", "3", "--trace", path])`` on the card:
+    GCN training and three churn batches, every launch held against its
+    plain version; each verdict printed, the aggregation within ``ATOL``
+    of a fresh re-pack, the trace read back by ``apps.obs_report``.
+    Returns (launches, held rows)."""
+    import io
+    import tempfile
+
+    from repro_torch.apps import obs_report
+    from repro_torch.apps.gnn import main as gnn_main
+    held = {}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
+        path = str(Path(tmp) / "gnn_mutate.json")
+        buf = io.StringIO()
+        with _held_against_plain(held, "cli"):
+            with contextlib.redirect_stdout(buf):
+                gnn_main(["--mutate", "3", "--trace", path]
+                         + ([] if device.type == "cuda"
+                            else ["--device", "cpu"]))
+            counts = _counts()
+        text = buf.getvalue()
+        verdicts = [ln for ln in text.splitlines()
+                    if ln.startswith("mutate[")]
+        check(len(verdicts) == 3, f"--mutate 3 printed {len(verdicts)} "
+              "verdicts")
+        err = float(text.split("max |Δ| = ")[1].split(",")[0])
+        check(f"on {device.type}" in text and err <= ATOL,
+              f"--mutate: aggregation {err} from a fresh re-pack")
+        rep = io.StringIO()
+        with open(path) as f:
+            obs_report.report(json.load(f), out=rep)
+        check("governor" in rep.getvalue()
+              and "dynamic_mutations_total" in rep.getvalue(),
+              "obs_report could not read the --mutate trace")
+    for ln in verdicts:
+        print(f"[dynamic cli] {ln}")
+    print(f"[dynamic cli] apps.gnn --mutate 3 --trace on the card: "
+          f"aggregation within {err:.2e} of a fresh re-pack, trace read by "
+          f"obs_report; launches {counts}, each held against its plain "
+          "version")
+    return counts, held
+
+
+def _dyn_dist_base(task_tag):
+    """The task's GCN matrix pattern with edge values in {1, 2, 3}."""
+    c = _dist_task(task_tag).csr.gcn_normalize()
+    rng = np.random.default_rng(18)
+    return CSRMatrix(c.indptr, c.indices,
+                     rng.integers(1, 4, c.nnz).astype(np.float32), c.n_rows,
+                     c.n_cols)
+
+
+def _dyn_dist_mutation(csr, part, shard, seed):
+    """``csr`` with ≈1% of one shard's inside edges (rows and columns in
+    its range) deleted and as many added there; ``shard=None``: edges
+    from shard 0's rows to remote columns outside its halo, 64 more than
+    it takes to outgrow ``halo_pad``.  Integer values (a duplicate sums
+    to at most 6)."""
+    rng = np.random.default_rng(seed)
+    n = csr.n_rows
+    rows = np.repeat(np.arange(n), csr.degrees)
+    keep = np.ones(csr.nnz, bool)
+    if shard is None:
+        lo, hi = int(part.starts[0]), int(part.starts[1])
+        remote = np.setdiff1d(np.arange(hi, n), part.shards[0].halo_global)
+        m = part.halo_pad - part.shards[0].n_halo + 64
+        new_r, new_c = rng.integers(lo, hi, m), rng.choice(remote, m,
+                                                           replace=False)
+    else:
+        lo, hi = int(part.starts[shard]), int(part.starts[shard + 1])
+        inside = np.flatnonzero((rows >= lo) & (rows < hi)
+                                & (csr.indices >= lo) & (csr.indices < hi))
+        m = max(8, inside.size // 100)
+        keep[rng.choice(inside, m, replace=False)] = False
+        new_r, new_c = rng.integers(lo, hi, (2, m))
+    return CSRMatrix.from_coo(
+        np.concatenate([rows[keep], new_r]),
+        np.concatenate([csr.indices[keep], new_c]),
+        np.concatenate([csr.data[keep],
+                        rng.integers(1, 4, new_r.size).astype(np.float32)]),
+        n, n)
+
+
+def _dyn_rank(device_type="cuda"):
+    """Phase 18 on one of the gloo ranks sharing the card: for the 1k
+    task and the 131k graph (integer edges), ``DYN_DIST_CASES`` through
+    ``DistGraph.refresh``; after each, the partitioned SpMM forward and
+    backward (counted, every launch held against its plain version) and,
+    on rank 0, the single-device kernels on the mutated graph, which must
+    give the same bits.  Returns per case the report, configs, what was
+    kept by identity, launches and a digest of the results."""
+    import hashlib
+
+    import torch.distributed as dist
+    from repro_torch.dist import DistGraph
+    on_card = device_type == "cuda"
+    device = (torch.device("cuda", torch.cuda.current_device()) if on_card
+              else torch.device("cpu"))
+    rank = dist.get_rank()
+    rows, held = [], {}
+    for task_tag, _ in DIST_TASKS:
+        base = _dyn_dist_base(task_tag)
+        rng = np.random.default_rng(7)
+        B, G = (torch.from_numpy(rng.integers(-3, 4, (base.n_rows, DYN_DIM))
+                                 .astype(np.float32)) for _ in range(2))
+        graphs = {}
+        for i, (name, overlap, shard, thr) in enumerate(DYN_DIST_CASES):
+            if overlap not in graphs:
+                g = DistGraph(base, DYN_DIM, DIST_PARTS, overlap=overlap,
+                              device=device)
+                g.spmm(g.pad(B))
+                graphs[overlap] = (g, base)
+            g, cur = graphs[overlap]
+            new = _dyn_dist_mutation(cur, g.part, shard, 100 + i)
+            pack, plan, shards = g.pack, g.halo_plan, list(g.part.shards)
+            t0 = time.perf_counter()
+            rep = g.refresh(new, threshold=thr)
+            refresh_ms = (time.perf_counter() - t0) * 1e3
+            graphs[overlap] = (g, new)
+            what = f"dynamic dist {task_tag} {name}"
+            with _held_against_plain(held, what):
+                Bp = g.pad(B).requires_grad_()
+                y = g.spmm(Bp)
+                y.backward(g.pad(G))
+                counts = _counts()
+            out, dB = g.unpad(y), g.unpad(Bp.grad)
+            digest = hashlib.sha256(out.cpu().numpy().tobytes()
+                                    + dB.cpu().numpy().tobytes()).hexdigest()
+            single = None
+            if rank == 0:
+                with _held_against_plain(held, what + " single"):
+                    op = engine.ParamSpMMOperator(
+                        new, SpMMConfig(V=1, S=True, W=8), device=device)
+                    X = B.clone().to(device).requires_grad_()
+                    want = op(X)
+                    want.backward(G.to(device))
+                single = (bool(torch.equal(out, want.detach()))
+                          and bool(torch.equal(dB, X.grad)))
+            g.comm.barrier()
+            rows.append({
+                "task": task_tag, "case": name, "overlap": overlap,
+                "threshold": thr, "n_rows": new.n_rows, "nnz": new.nnz,
+                "report": {"changed": rep.changed, "repicked": rep.repicked,
+                           "reused": rep.reused,
+                           "halo_pad_grew": bool(rep.halo_pad_grew),
+                           "advisories": {p: sorted(a.drifted) for p, a
+                                          in rep.advisories.items()}},
+                "configs": [list(c.astuple()) for c in g.configs],
+                "halo_pad": g.part.halo_pad,
+                "pack_kept": g.pack is pack,
+                "shards_kept": [a is b for a, b in
+                                zip(g.part.shards, shards)],
+                "plan_rebuilt": g.halo_plan is not plan,
+                "refresh_ms": refresh_ms, "launches": counts,
+                "digest": digest, "single_device_equal": single})
+    return {"rank": rank, "rows": rows, "held": held}
+
+
+def phase_dynamic_dist(device, *, rank_device="cuda"):
+    """Phase 18, partitioned: ``_dyn_rank`` on 4 gloo ranks sharing the
+    card.  Every case: the same report, configs and result bits on every
+    rank; the changed shards' ranks re-packed, the others kept their pack
+    (and its device steering) by identity; the launches the path's
+    (2 per rank, 4 under overlap); rank 0's result bit-equal to the
+    single-device kernels.  Returns (launches, held rows)."""
+    from repro_torch.dist import comm
+    t0 = time.perf_counter()
+    ranks = comm.spawn(_dyn_rank, DIST_PARTS, (rank_device,),
+                       backend="gloo", device=rank_device, threads=2)
+    print(f"[dynamic dist] {DIST_PARTS} gloo ranks sharing the card: "
+          f"{time.perf_counter() - t0:.1f} s")
+    launches, held = dict.fromkeys(KERNELS, 0), {}
+    for i, row in enumerate(ranks[0]["rows"]):
+        mine = [r["rows"][i] for r in ranks]
+        what = f"dynamic dist {row['task']} {row['case']}"
+        want = {"paramspmm": 4 if row["overlap"] else 2, "sddmm_softmax": 0,
+                "sddmm": 0}
+        if device.type != "cuda":
+            want = dict.fromkeys(KERNELS, 0)
+        for rk, m in enumerate(mine):
+            for k in ("report", "configs", "halo_pad", "digest"):
+                check(m[k] == row[k], f"{what}: rank {rk}'s {k} differs "
+                      "from rank 0's")
+            check(m["pack_kept"] == (rk in row["report"]["reused"]),
+                  f"{what}: rank {rk} kept its pack: {m['pack_kept']}")
+            check(m["shards_kept"] == [p in row["report"]["reused"]
+                                       for p in range(DIST_PARTS)],
+                  f"{what}: shards kept {m['shards_kept']}")
+            check(m["plan_rebuilt"], f"{what}: halo plan not rebuilt")
+            check(m["launches"] == want, f"{what}: rank {rk} launches "
+                  f"{m['launches']}, the path gives {want}")
+            for k in KERNELS:
+                launches[k] += m["launches"][k]
+        check(row["single_device_equal"], f"{what}: not bit-equal to the "
+              "single-device kernels on the mutated graph")
+        rep = row["report"]
+        case = {"one_shard": rep["changed"] == [1] and not rep["repicked"],
+                "repick": rep["changed"] == rep["repicked"] == [2],
+                "halo_grows": rep["halo_pad_grew"]
+                and rep["changed"] == list(range(DIST_PARTS)),
+                "overlap": rep["changed"] == [3]}[row["case"]]
+        check(case, f"{what}: report {rep}")
+        print(f"[dynamic dist] {row['task']} {row['case']}: {row['nnz']} "
+              f"nonzeros; changed {rep['changed']}, re-picked "
+              f"{rep['repicked']} (drifted {rep['advisories']}), reused "
+              f"{rep['reused']}, halo_pad {row['halo_pad']} (grew: "
+              f"{rep['halo_pad_grew']}); configs {row['configs']}; refresh "
+              f"{[round(m['refresh_ms'], 1) for m in mine]} ms host per "
+              "rank; the same report, configs and result bits on all "
+              f"{DIST_PARTS} ranks, unchanged shards' packs kept by "
+              "identity; SpMM forward and dB bit-equal to the "
+              f"single-device kernels; launches per rank {want}, held")
+    for r in ranks:
+        for name, rec in r["held"].items():
+            held[f"{name} rank {r['rank']}"] = rec
+    return launches, held
+
+
+def _held_total(*helds):
+    """Launches held and the max abs differences over ``helds``' rows."""
+    total = dict.fromkeys(KERNELS, 0)
+    err = dict.fromkeys(KERNELS, 0.0)
+    for h in helds:
+        for rec in h.values():
+            for k in KERNELS:
+                total[k] += rec[k]["held"]
+                err[k] = max(err[k], rec[k]["max_abs_err"])
+    return total, err
+
+
+def phase_dynamic(device, smi, *, rank_device="cuda"):
+    """Phase 18: dynamic graphs (``repro_torch.dynamic``)."""
+    t0 = time.perf_counter()
+    large, l_launch, l_held, l_err = phase_dynamic_large(device, smi)
+    print(f"[dynamic] 131k in {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    s_launch, s_held, cases, s_err = phase_dynamic_small(device)
+    print(f"[dynamic] small cases in {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    c_launch, c_held = phase_dynamic_cli(device)
+    print(f"[dynamic] cli in {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    d_launch, d_held = phase_dynamic_dist(device, rank_device=rank_device)
+    print(f"[dynamic] distributed in {time.perf_counter() - t0:.1f} s")
+    held, held_err = _held_total(l_held, s_held, c_held, d_held)
+    print(f"[dynamic] launches held against their plain versions: {held}; "
+          f"max abs differences {held_err}")
+    out = {"large": large, "small_grid_cases": cases,
+           "launches": {"dynamic": {k: l_launch[k] + s_launch[k]
+                                    for k in KERNELS},
+                        "dynamic_cli": c_launch,
+                        "dynamic_distributed": d_launch},
+           "held_launches": held,
+           "max_abs_err": {k: max(held_err[k], s_err[k], l_err["spmm"]
+                                  if k == "paramspmm" else 0.0)
+                           for k in KERNELS},
+           "fresh_max_abs_err": l_err}
+    return out
+
+
 # ------------------------------------------------------------ LM (Hymba)
 SCAN_ATOL, SCAN_RTOL = 1e-5, 1e-5   # kernel vs plain: FMA, other Σ_n order
 HYMBA_SHAPE = (2, 2048, 16, 3200)   # (B, S, N, Di) of a B=2, S=2048 prefill
@@ -3462,6 +4300,10 @@ def main() -> int:
     dist_json, dist_launches = phase_dist(device)
     print(f"[dist] phase 17 in {time.perf_counter() - t0:.1f} s")
     print("[dist json] " + json.dumps(dist_json))
+    t0 = time.perf_counter()
+    dyn = phase_dynamic(device, smi)
+    print(f"[dynamic] phase 18 in {time.perf_counter() - t0:.1f} s")
+    print("[dynamic json] " + json.dumps(dyn))
     raw_by_shape = [{"H": h, "n_rows": n, "d": d, "launches": c}
                     for (h, n, d), c in sorted(raw_shapes.items())]
     check(sum(raw_shapes.values())
@@ -3499,7 +4341,12 @@ def main() -> int:
                                          consist_diff}))
     launches = {k: train_launches[k] + large_launches[k]
                 + oracle_launches[k] + baseline_launches[k]
-                + dist_launches[k] for k in KERNELS}
+                + dist_launches[k] + sum(v[k] for v in
+                                         dyn["launches"].values())
+                for k in KERNELS}
+    dyn_paths = lambda k: {**{p: v[k] for p, v in dyn["launches"].items()},
+                           "dynamic_held_against_plain":
+                               dyn["held_launches"][k]}
     launches["paramspmm"] += (spmm_launches + graph_launches[True][0]
                               + graph_launches[False][0])
     launches["sddmm_softmax"] += (gat_launches[1] + graph_launches[True][1]
@@ -3529,10 +4376,12 @@ def main() -> int:
                                  baseline_launches["paramspmm"],
                              "distributed": dist_launches["paramspmm"],
                              "distributed_held_comparison":
-                                 dist_json["held_launches"]["paramspmm"]},
+                                 dist_json["held_launches"]["paramspmm"],
+                             **dyn_paths("paramspmm")},
         "max_abs_err": max(max_err, err_prologue, err_autograd, err_tiny,
                            err_tiny_out, err_hub, err_tiny_graph,
-                           dist_json["held_max_abs_err"]["paramspmm"]),
+                           dist_json["held_max_abs_err"]["paramspmm"],
+                           dyn["max_abs_err"]["paramspmm"]),
         "ms": main_row["ms"], "plain_ms": main_row["plain_ms"],
         "bound_ms": main_row["bound_ms"], "bound_by": main_row["bound_by"],
         "library_ms": main_row["library_ms"], "at": at(main_row),
@@ -3551,9 +4400,11 @@ def main() -> int:
                              "oracle": oracle_launches["sddmm_softmax"],
                              "distributed": dist_launches["sddmm_softmax"],
                              "distributed_held_comparison":
-                                 dist_json["held_launches"]["sddmm_softmax"]},
+                                 dist_json["held_launches"]["sddmm_softmax"],
+                             **dyn_paths("sddmm_softmax")},
         "max_abs_err": max(err_logits, err_tiny_lg, err_hub_lg,
-                           dist_json["held_max_abs_err"]["sddmm_softmax"]),
+                           dist_json["held_max_abs_err"]["sddmm_softmax"],
+                           dyn["max_abs_err"]["sddmm_softmax"]),
         "ms": sm_row["ms"], "plain_ms": sm_row["plain_ms"],
         "bound_ms": sm_row["bound_ms"], "bound_by": sm_row["bound_by"],
         "library_ms": sm_row["library_ms"], "at": at(sm_row),
@@ -3568,10 +4419,12 @@ def main() -> int:
                              "oracle": oracle_launches["sddmm"],
                              "distributed": dist_launches["sddmm"],
                              "distributed_held_comparison":
-                                 dist_json["held_launches"]["sddmm"]},
+                                 dist_json["held_launches"]["sddmm"],
+                             **dyn_paths("sddmm")},
         "launches_by_shape": raw_by_shape,
         "max_abs_err": max(err_sddmm,
-                           dist_json["held_max_abs_err"]["sddmm"]),
+                           dist_json["held_max_abs_err"]["sddmm"],
+                           dyn["max_abs_err"]["sddmm"]),
         "ms": raw_row["ms"], "plain_ms": raw_row["plain_ms"],
         "bound_ms": raw_row["bound_ms"], "bound_by": raw_row["bound_by"],
         "library_ms": raw_row["library_ms"], "at": at(raw_row),

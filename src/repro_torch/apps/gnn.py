@@ -31,9 +31,20 @@ the collectives staged through the host):
     PYTHONPATH=src python -m repro_torch.apps.gnn --partitions 4 \
         --dist-backend gloo
 
-Spans (``repro_torch.obs``): ``gnn.pack`` (reorder, config pick, PCSR of
-A and Aᵀ), ``gnn.first_step`` (step 0: kernel build and load, allocator
-growth), ``gnn.step`` per later step, ``gnn.eval``.
+``--mutate N`` then streams N insert/delete churn batches through a
+self-healing ``dynamic.DynamicGraph`` on the task's adjacency
+(``run_mutation_stream``): one governor verdict a batch, and at the end
+the degraded layout's aggregation against a fresh re-pack of the mutated
+edges on the same device:
+
+    PYTHONPATH=src python -m repro_torch.apps.gnn --device cpu --mutate 3
+
+Spans (``repro_torch.obs``; ``--trace PATH`` writes them as Chrome-trace
+JSON, which ``repro_torch.apps.obs_report`` reads): ``gnn.pack``
+(reorder, config pick, PCSR of A and Aᵀ), ``gnn.first_step`` (step 0:
+kernel build and load, allocator growth), ``gnn.step`` per later step,
+``gnn.eval``; with ``--mutate`` a ``gnn.mutate`` instant a batch and
+``dynamic.repack`` per re-pack.
 """
 from __future__ import annotations
 
@@ -52,7 +63,7 @@ from repro_torch.device import resolve_device
 from repro_torch.models.gnn import (accuracy, gat_forward, gcn_forward,
                                     gin_forward, init_gat, init_gcn,
                                     init_gin, node_ce_loss)
-from repro_torch.obs import span
+from repro_torch.obs import instant, span, tracing
 from repro_torch.optim import AdamWConfig, adamw_init, adamw_update
 from repro_torch.pipeline import ParamSpMM
 
@@ -300,6 +311,48 @@ def train_gnn(task: NodeTask, *, model: str = "gcn", hidden: int = 64,
     return res
 
 
+def run_mutation_stream(csr, dim: int, batches: int, *, seed: int = 0,
+                        inserts: int = 150, deletes: int = 130,
+                        slack: float = 1.1, amortize_steps: int = 20,
+                        device=None):
+    """Churn ``csr`` through a self-healing ``DynamicGraph`` on ``device``
+    (default CUDA) and report each governor verdict; ends with the
+    degraded layout's aggregation against a fresh re-pack of the mutated
+    edges, on the same device."""
+    from repro_torch.core.pcsr import build_pcsr
+    from repro_torch.dynamic import DynamicGraph
+    from repro_torch.kernels.paramspmm.ops import paramspmm
+
+    device = resolve_device(device)
+    rng = np.random.default_rng(seed)
+    g = DynamicGraph(csr, dim, slack=slack, amortize_steps=amortize_steps,
+                     device=device)
+    X = torch.as_tensor(rng.standard_normal((csr.n_cols, dim)),
+                        dtype=torch.float32, device=device)
+    for step in range(batches):
+        r, c = rng.integers(0, csr.n_rows, (2, inserts))
+        g.insert_edges(r, c,
+                       rng.uniform(0.5, 1.5, inserts).astype(np.float32))
+        m = g.dyn.to_csr()
+        rows = np.repeat(np.arange(m.n_rows), np.diff(m.indptr))
+        pick = rng.permutation(m.nnz)[:deletes]
+        _, dec = g.delete_edges(rows[pick], m.indices[pick])
+        instant("gnn.mutate", step=step, action=dec.action)
+        print(f"mutate[{step}]: nnz={g.dyn.nnz} chunks={g.dyn.num_chunks} "
+              f"slot_fill={g.dyn.slot_fill:.2f} -> {dec.action} "
+              f"({dec.reason})")
+    out = g.spmm(X)
+    m = g.dyn.to_csr()
+    fresh = build_pcsr(m.indptr, m.indices, m.data, m.n_rows, m.n_cols,
+                       g.config)
+    err = float((out - paramspmm(fresh, X)).abs().max())
+    n_repack = sum(d.action == "repack" for d in g.decisions)
+    print(f"mutate: aggregation matches a fresh re-pack on {device} "
+          f"(max |Δ| = {err:.2e}, summation-order noise only); "
+          f"repacks={n_repack}")
+    return g
+
+
 def main(argv=None):
     from repro_torch.data.tasks import community_task
 
@@ -328,22 +381,31 @@ def main(argv=None):
                     help="torch.distributed backend of the ranks (default "
                     "nccl on CUDA, gloo on the CPU)")
     ap.add_argument("--mutate", type=int, default=0, metavar="N",
-                    help="dynamic-graph churn after training (not ported)")
+                    help="after training, stream N random insert/delete "
+                    "churn batches through a self-healing DynamicGraph "
+                    "on the task's adjacency (repro_torch.dynamic)")
+    ap.add_argument("--trace", default=None, metavar="PATH",
+                    help="write a Chrome-trace JSON of the run (read it "
+                    "with repro_torch.apps.obs_report or Perfetto)")
     args = ap.parse_args(argv)
-    if args.mutate:
-        raise NotImplementedError(
-            "dynamic graphs (--mutate) are not ported yet (ROADMAP Queue 1 "
-            "item 9)")
 
+    import contextlib
     device = resolve_device(args.device)
-    task = community_task(seed=args.seed)
-    res = train_gnn(task, model=args.model, hidden=args.hidden,
-                    n_layers=args.layers, steps=args.steps,
-                    heads=args.heads, seed=args.seed,
-                    spmm_mode=args.spmm, partitions=args.partitions,
-                    partition_strategy=args.partition_strategy,
-                    overlap=args.overlap, dist_backend=args.dist_backend,
-                    device=device)
+    ctx = tracing(args.trace) if args.trace else contextlib.nullcontext()
+    with ctx:
+        task = community_task(seed=args.seed)
+        res = train_gnn(task, model=args.model, hidden=args.hidden,
+                        n_layers=args.layers, steps=args.steps,
+                        heads=args.heads, seed=args.seed,
+                        spmm_mode=args.spmm, partitions=args.partitions,
+                        partition_strategy=args.partition_strategy,
+                        overlap=args.overlap,
+                        dist_backend=args.dist_backend, device=device)
+        if args.mutate:
+            run_mutation_stream(task.csr.gcn_normalize(), args.hidden,
+                                args.mutate, seed=args.seed, device=device)
+    if args.trace:
+        print(f"trace written to {args.trace}")
     print(f"losses: {res.losses[0]:.4f} → {res.losses[-1]:.4f} over "
           f"{len(res.losses)} steps")
     print(f"val_acc={res.val_acc:.3f} "

@@ -57,6 +57,35 @@ NVLINK_BW = 450e9
 COLLECTIVE_LATENCY = 0.0
 
 
+@dataclass(frozen=True)
+class PackSetup:
+    """Host time of one full re-pack of a mutated graph, as ``fixed +
+    per_nnz · nnz`` seconds: the live edge set to CSR, ``build_pcsr``,
+    the view's ``Steering`` (group and work-unit tables) and its copy to
+    the device, synchronised — what ``dynamic.DynamicGraph.repack`` costs
+    before its next launch."""
+
+    fixed: float           # s per re-pack
+    per_nnz: float         # s per live nonzero
+
+
+# Least-squares fit printed on the ``[dynamic pack setup]`` line of a
+# full ``chip_smoke.py`` run (phase 18) on an NVIDIA H100 80GB HBM3 at
+# 700.00 W: two synchronised re-packs each of the 131,072-node community
+# graph cut to 16k, 32k, 64k and 131k nodes, 0.35M to 2.94M nonzeros,
+# 78.7 to 876.8 ms (one outlier of 322.1 ms at 0.35M).  Four other runs
+# of the phase on that machine, whose host is shared, fitted per_nnz from
+# 2.87e-07 to 4.02e-07; the cost grows faster than linearly (sorts),
+# which a line does not capture.
+PACK_SETUP_H100 = PackSetup(fixed=2.165492e-02, per_nnz=2.775608e-07)
+
+
+def pack_setup_seconds(nnz: int, setup: PackSetup = PACK_SETUP_H100
+                       ) -> float:
+    """Priced host time of one full re-pack of ``nnz`` live nonzeros."""
+    return setup.fixed + setup.per_nnz * max(0, int(nnz))
+
+
 @dataclass
 class CostBreakdown:
     t_mem: float
@@ -110,6 +139,45 @@ def kernel_cost(stats: PCSRStats, dim: int, config: SpMMConfig,
     # per-chunk metadata (vals block + colidx/lrow/trow scalars), per j pass
     bytes_meta = J * C * K * (config.V * 4 + 4 + 4)
     # output blocks written once per (j, block)
+    bytes_out = J * n_blocks * config.R * dblk * dtype_bytes
+    flops = 2.0 * steps * config.V * dblk
+    if epilogue:
+        bytes_meta += (n_blocks * config.R + J * n_blocks * dblk
+                       ) * dtype_bytes
+        flops += 3.0 * n_blocks * config.R * d_head
+    if residual:
+        bytes_meta += J * n_blocks * config.R * dblk * dtype_bytes
+        flops += 1.0 * n_blocks * config.R * d_head
+    return CostBreakdown(
+        t_mem=(bytes_gather + bytes_meta + bytes_out) / hw.hbm_bw,
+        t_compute=flops / hw.flops,
+        t_overhead=steps * hw.step_overhead + J * C * hw.chunk_setup,
+        bytes_gather=bytes_gather, bytes_meta=bytes_meta, bytes_out=bytes_out,
+        flops=flops, steps=steps, chunk_setups=J * C)
+
+
+def degraded_kernel_cost(dim: int, config: SpMMConfig, *, C: int, K: int,
+                         n_blocks_visited: int, hw: Hardware = H100,
+                         heads: int = 1, epilogue: bool = False,
+                         residual: bool = False) -> CostBreakdown:
+    """Price the grid a mutated ``dynamic.DynamicPCSR`` actually runs.
+
+    ``kernel_cost`` prices the grid a fresh pack of the matrix would
+    have; after slack-slot inserts, tombstoned deletes and appended delta
+    chunks the live steering runs a larger one.  This takes the live
+    extents (``C`` chunks of ``K`` slots; the distinct blocks they
+    target, which bound the output traffic, fully deleted blocks
+    included) and prices the same terms as ``kernel_cost`` on ``hw``, so
+    a degraded and a fresh price compare like for like."""
+    dtype_bytes = hw.dtype_bytes
+    dblk = config.dblk
+    d_head = _head_dim(dim, heads)
+    J = -(-d_head // dblk)
+    C = int(C) * heads
+    n_blocks = int(n_blocks_visited) * heads
+    steps = J * C * K
+    bytes_gather = steps * dblk * dtype_bytes
+    bytes_meta = J * C * K * (config.V * 4 + 4 + 4)
     bytes_out = J * n_blocks * config.R * dblk * dtype_bytes
     flops = 2.0 * steps * config.V * dblk
     if epilogue:

@@ -324,8 +324,8 @@ def make_gat_message_fn(pcsr: PCSR, pcsr_t: PCSR | None = None, *,
     scale 1/√d → LeakyReLU(slope) → edge softmax → SpMM, as two kernel
     launches (``gat_message``) on the inputs' device, with the
     flash-recompute backward (``_GATMessage``).  ``pcsr_t`` is Aᵀ's PCSR
-    (``ParamSpMMOperator.pcsr_t``); without it the transpose is packed at
-    the first backward."""
+    (``ParamSpMMOperator.pcsr_t``), or a function returning it; without
+    it the transpose is packed at the first backward."""
     from repro_torch.kernels.paramspmm.ops import device_steering
     sides: dict = {}
 
@@ -335,6 +335,8 @@ def make_gat_message_fn(pcsr: PCSR, pcsr_t: PCSR | None = None, *,
         if key not in sides:
             if pcsr_t is None:
                 pcsr_t = transpose_pcsr(pcsr)
+            elif callable(pcsr_t):
+                pcsr_t = pcsr_t()
             sides[key] = TransposeSide.build(pcsr, pcsr_t, device)
         return sides[key]
 
@@ -346,11 +348,14 @@ def make_gat_message_fn(pcsr: PCSR, pcsr_t: PCSR | None = None, *,
 
 
 def _transpose_spmm(pcsr_t, dC, n_rows: int):
-    """``dB = SpMM(pcsrᵀ, dC)``, padded to ``n_rows`` rows."""
+    """``dB = SpMM(pcsrᵀ, dC)``, padded to ``n_rows`` rows; ``pcsr_t`` is
+    Aᵀ's PCSR or a function returning it."""
     from repro_torch.kernels.paramspmm.ops import paramspmm
     if pcsr_t is None:
         raise ValueError("the SpMM backward needs the transpose PCSR: build "
                          "the operator with build_transpose=True")
+    if callable(pcsr_t):
+        pcsr_t = pcsr_t()
     return _pad_rows(paramspmm(pcsr_t, dC.contiguous()), n_rows)
 
 
@@ -404,8 +409,9 @@ class _FusedSpMM(torch.autograd.Function):
 
 def make_spmm_fn(pcsr: PCSR, pcsr_t: PCSR | None = None):
     """Differentiable ``f(B) = A·B`` over ``pcsr``: one ParamSpMM launch
-    forward, and backward one launch on Aᵀ's PCSR ``pcsr_t`` (required
-    for gradients: the backward raises without it)."""
+    forward, and backward one launch on Aᵀ's PCSR ``pcsr_t``, or on what
+    a function ``pcsr_t`` returns at the first backward (required for
+    gradients: the backward raises without it)."""
     def f(B):
         return _SpMM.apply(B, pcsr, pcsr_t)
     return f

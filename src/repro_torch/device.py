@@ -13,3 +13,21 @@ def resolve_device(device=None) -> torch.device:
         raise RuntimeError(
             "CUDA is not available; pass device='cpu' to run on the CPU")
     return dev
+
+
+# the JAX package's ``backend`` keyword: its kernels or its plain
+# traversal; the port picks by device instead
+BACKENDS = ("engine", "pallas")
+
+
+def check_backend(backend, device=None) -> None:
+    """Raise unless ``backend`` is ``None``, ``"pallas"`` (the CUDA kernels
+    on the card, their plain versions on the CPU) or ``"engine"`` (the
+    plain traversal: the CPU path, refused on a CUDA ``device``)."""
+    if backend not in (None,) + BACKENDS:
+        raise ValueError(f"backend must be one of {BACKENDS}, got "
+                         f"{backend!r}")
+    if (device is not None and torch.device(device).type == "cuda"
+            and backend == "engine"):
+        raise ValueError("backend='engine' is the plain CPU path; the "
+                         "card runs the kernels (backend='pallas')")

@@ -54,13 +54,12 @@ from repro_torch.core.engine import apply_epilogue
 from repro_torch.core.features import extract_features
 from repro_torch.core.pcsr import SpMMConfig, config_space
 from repro_torch.core.sparse import CSRMatrix
+from repro_torch.device import check_backend
 from repro_torch.obs import metrics as _obs_metrics, trace as _obs_trace
 
 from .halo import HaloPlan, HaloSpec, build_halo, halo_exchange
 from .packing import ShardPack, pack_shard
 from .partition import RowPartition, partition_csr, split_local_halo
-
-BACKENDS = ("engine", "pallas")
 
 
 class _OverlapSpMM(torch.autograd.Function):
@@ -149,9 +148,7 @@ class DistGraph:
         if mesh is not None:
             raise ValueError("the port has no mesh: each rank of the "
                              "process group (group=) holds one shard")
-        if backend not in (None,) + BACKENDS:
-            raise ValueError(f"backend must be one of {BACKENDS}, got "
-                             f"{backend!r}")
+        check_backend(backend)
         self.csr = csr
         self.dim = dim
         self.backend = backend
@@ -247,9 +244,7 @@ class DistGraph:
                              f"group of {self.part.n_parts} ranks, not "
                              f"{comm.world}")
         device = resolve_device(self._device)
-        if device.type == "cuda" and self.backend == "engine":
-            raise ValueError("backend='engine' is the plain CPU path; the "
-                             "card runs the kernels (backend='pallas')")
+        check_backend(self.backend, device)
         r = comm.rank
         split = split_configs = None
         if self.overlap:
@@ -309,10 +304,13 @@ class DistGraph:
 
     # -------------------------------------------------------- dynamics
     def refresh(self, new_csr: CSRMatrix, *, threshold=None):
-        """Per-shard re-pack of a mutated adjacency: not ported yet."""
-        raise NotImplementedError(
-            "DistGraph.refresh (dynamic graphs) is not ported yet (ROADMAP "
-            "Queue 1 item 9)")
+        """Swap in a mutated adjacency over the same nodes, re-packing
+        only the shards whose edges changed (this rank's own, if it did);
+        per-shard config re-pick on drift past ``threshold``.  Every rank
+        must call it with the same ``new_csr``.  Returns a
+        ``ShardRefreshReport`` — see ``repro_torch.dynamic.dist``."""
+        from repro_torch.dynamic.dist import refresh_dist_graph
+        return refresh_dist_graph(self, new_csr, threshold=threshold)
 
     # ------------------------------------------------------- operators
     def _extended(self, B):

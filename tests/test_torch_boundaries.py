@@ -56,11 +56,11 @@ def test_every_module_imports_without_jax():
                               "PATH": "/usr/bin:/bin"},
                          capture_output=True, text=True, timeout=120)
     assert res.returncode == 0, res.stderr
-    assert int(res.stdout.split()[-1]) >= 56
-    # the decider path, the baselines, the capture path and the
-    # distributed path are among them
-    assert set(DECIDER_PATH) | set(CAPTURE_PATH) | set(DIST_PATH) <= \
-        set(res.stdout.split())
+    assert int(res.stdout.split()[-1]) >= 61
+    # the decider path, the baselines, the capture path, the distributed
+    # path and the dynamic-graph path are among them
+    assert set(DECIDER_PATH) | set(CAPTURE_PATH) | set(DIST_PATH) \
+        | set(DYNAMIC_PATH) <= set(res.stdout.split())
 
 
 DECIDER_PATH = ("repro_torch.obs.decisions", "repro_torch.core.features",
@@ -83,10 +83,17 @@ DIST_PATH = ("repro_torch.dist", "repro_torch.dist.partition",
              "repro_torch.dist.gat")
 
 
-@pytest.mark.parametrize("name", DIST_PATH)
+# the dynamic-graph slice: mutated layouts, the governor, DistGraph.refresh
+DYNAMIC_PATH = ("repro_torch.dynamic", "repro_torch.dynamic.pcsr",
+                "repro_torch.dynamic.governor", "repro_torch.dynamic.graph",
+                "repro_torch.dynamic.dist")
+
+
+@pytest.mark.parametrize("name", DIST_PATH + DYNAMIC_PATH)
 def test_dist_path_modules_are_checked(name):
     rel = name.split(".", 1)[1].replace(".", "/")
-    path = PORT / (rel + ("/__init__.py" if name == "repro_torch.dist"
+    path = PORT / (rel + ("/__init__.py" if name in ("repro_torch.dist",
+                                                     "repro_torch.dynamic")
                           else ".py"))
     assert path in PORT_FILES
     bad = [m for m in _imported_modules(path)

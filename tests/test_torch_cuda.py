@@ -31,7 +31,11 @@ within ``atol = rtol = 5e-2`` of the port on the CPU (bf16).  CUDA graphs:
 a captured bucket forward replayed on a second batch gives the eager
 forward's bits and launch counts (GCN, GIN, GAT), a batch past its
 bucket's schedule bounds raises, and the captured Hymba decode step gives
-the eager step's bits.
+the eager step's bits.  Dynamic graphs: the three GNN kernels over
+mutated views (delta chunks, tombstones, a born and a dead block, a fat
+row) against their plain versions, at the wrapper's cap and at 4 real
+slots a unit, and ``DynamicGraph`` on the card bit-exact against a fresh
+pack over a churn stream, forward and gradient.
 """
 import numpy as np
 import pytest
@@ -43,6 +47,7 @@ from repro_torch.core.pcsr import SpMMConfig, build_pcsr, transpose_pcsr
 from repro_torch.core.sparse import CSRMatrix
 from repro_torch.data.tasks import community_task
 from repro_torch.data.graphs import rmat
+from repro_torch.dynamic import DynamicGraph, DynamicPCSR
 from repro_torch.kernels.paramspmm import ops
 from repro_torch.kernels.sddmm import ops as sddmm_ops
 from repro_torch.models.gnn import init_gat, init_gcn
@@ -835,3 +840,106 @@ def test_serving_with_a_decider_on_card(cuda_device):
         out[str(dev)] = [r.outputs for r in res]
     for a, b in zip(out["cuda"], out["cpu"]):
         np.testing.assert_array_equal(a, b)
+
+
+# --------------------------------------------- dynamic graphs (mutated views)
+def _dyn_ints(rng, n, d):
+    return rng.integers(-3, 4, (n, d)).astype(np.float32)
+
+
+def _dyn_edges(csr):
+    rows = np.repeat(np.arange(csr.n_rows, dtype=np.int64), csr.degrees)
+    return rows, csr.indices
+
+
+DYN_CONFIGS = [SpMMConfig(V=v, S=s, B=b, W=8 // v)
+               for v in (1, 2) for s, b in ((False, False), (True, False),
+                                            (True, True))]
+
+
+def _degraded(cfg, seed=3, n=96):
+    """A numpy-only degraded layout: churn, block birth (rows 80..95 had
+    no edge), a fully deleted block (rows 0..7) and a fat row."""
+    rng = np.random.default_rng(seed)
+    A = ((rng.random((n, n)) < 0.08)
+         * rng.integers(1, 8, (n, n))).astype(np.float32)
+    A[80:] = 0.0
+    d = DynamicPCSR.from_csr(CSRMatrix.from_dense(A), cfg)
+    d.insert_edges(np.full(60, 81), rng.permutation(n)[:60],
+                   rng.integers(1, 5, 60).astype(np.float32))
+    rows, cols = _dyn_edges(d.to_csr())
+    sel = (rows < 8) | (rng.random(rows.size) < 0.2)
+    d.delete_edges(rows[sel], cols[sel])
+    d.insert_edges(rng.integers(8, n, 40), rng.integers(0, n, 40),
+                   rng.integers(1, 5, 40).astype(np.float32))
+    return d
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cfg", DYN_CONFIGS, ids=lambda c: str(c.astuple()))
+@pytest.mark.parametrize("cap", [None, 4])
+def test_kernels_on_degraded_views_match_plain(cuda_device, cfg, cap):
+    """ParamSpMM, the SDDMM → softmax pair and the raw SDDMM over a
+    degraded view on the card, against their plain versions on the same
+    tensors: SpMM and raw SDDMM bit-exact on integer operands, the GAT
+    message forward and gradients within ``rtol=1e-5, atol=1e-4``."""
+    d = _degraded(cfg)
+    p = d.pcsr
+    steer = ops.Steering.from_pcsr(p, cuda_device, cap=cap)
+    geo = dict(n_blocks=p.n_blocks, R=cfg.R, V=cfg.V, K=p.K,
+               n_rows=p.n_rows)
+    rng = np.random.default_rng(0)
+    B = torch.as_tensor(_dyn_ints(rng, p.n_cols, 16), device=cuda_device)
+    n0 = ops.launch_count()
+    out = ops._call(steer, B, dblk=cfg.dblk, **geo)
+    assert ops.launch_count() == n0 + 1
+    assert torch.equal(out, ops.paramspmm_plain(steer, B, **geo))
+    Q = torch.as_tensor(_dyn_ints(rng, p.n_rows, 16), device=cuda_device)
+    raw = sddmm_ops._call(steer, Q, B, **geo)
+    plain = sddmm_ops.sddmm_plain(steer, Q[None], B[None], V=cfg.V, R=cfg.R,
+                                  K=p.K, n_rows=p.n_rows)[0]
+    assert torch.equal(raw, plain)
+    assert bool((raw[steer.vals == 0] == 0).all())
+    x = [torch.as_tensor(rng.standard_normal((p.n_rows, 16)),
+                         dtype=torch.float32) for _ in range(4)]
+    res = {}
+    for dev in ("cpu", cuda_device):
+        ts = [t.to(dev, copy=True).requires_grad_() for t in x[:3]]
+        y = engine.make_gat_message_fn(p)(*ts)
+        y.backward(x[3].to(dev))
+        res[str(dev)] = [y.detach().cpu()] + [t.grad.cpu() for t in ts]
+    for a, b in zip(res["cpu"], res[str(cuda_device)]):
+        torch.testing.assert_close(b, a, rtol=1e-5, atol=1e-4)
+    assert bool((res["cpu"][0][:8] == 0).all())
+
+
+@pytest.mark.cuda
+def test_dynamic_graph_on_card_matches_fresh_pack(cuda_device):
+    """``DynamicGraph`` on the card: its SpMM over every version of a
+    churn stream bit-exact against a fresh pack on the card, one kernel
+    launch a call, gradients through the version's transpose pack."""
+    rng = np.random.default_rng(1)
+    n = 256
+    A = ((rng.random((n, n)) < 0.04)
+         * rng.integers(1, 5, (n, n))).astype(np.float32)
+    g = DynamicGraph(CSRMatrix.from_dense(A), 16, slack=1.05,
+                     amortize_steps=5, device=cuda_device)
+    B = torch.as_tensor(_dyn_ints(rng, n, 16), device=cuda_device)
+    for _ in range(4):
+        g.insert_edges(rng.integers(0, n, 200), rng.integers(0, n, 200),
+                       rng.integers(1, 4, 200).astype(np.float32))
+        rows, cols = _dyn_edges(g.dyn.to_csr())
+        pick = rng.choice(rows.size, 150, replace=False)
+        g.delete_edges(rows[pick], cols[pick])
+        n0 = ops.launch_count()
+        Bg = B.clone().requires_grad_()
+        out = g.spmm(Bg)
+        out.backward(B)
+        assert ops.launch_count() == n0 + 2
+        cur = g.dyn.to_csr()
+        fresh = build_pcsr(cur.indptr, cur.indices, cur.data, n, n,
+                           g.config)
+        assert torch.equal(out, ops.paramspmm(fresh, B))
+        t = cur.transpose()
+        ft = build_pcsr(t.indptr, t.indices, t.data, n, n, g.config)
+        assert torch.equal(Bg.grad, ops.paramspmm(ft, B))

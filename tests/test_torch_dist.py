@@ -130,6 +130,16 @@ TRAIN_CASES = (
     ("gat", 4, 4, "contiguous", False, 10, True),
 )
 
+REFRESH_CASES = (
+    # name, rmat (log2 n, degree, seed), dim, overlap, mutated shard, new
+    # edges inside it (None: edges to remote columns that grow halo_pad),
+    # drift threshold
+    ("refresh_identity", (8, 6, 11), 16, False, 1, 10, None),
+    ("refresh_repick", (8, 7, 9), 16, False, 0, 40, 1e-6),
+    ("refresh_overlap", (8, 6, 21), 12, True, 3, 12, None),
+    ("refresh_halo_grows", (8, 6, 5), 16, False, 0, None, None),
+)
+
 
 def _train_id(c):
     model, heads, parts, strategy, overlap, _, fused = c
@@ -138,10 +148,32 @@ def _train_id(c):
             + ("" if fused else "-unfused"))
 
 
+def _mutated(csr, rng, shard, n_new):
+    """``csr`` with integer-valued edges added whose rows and columns lie
+    inside one shard's rows (the balanced 4-way split): only that shard's
+    edges change and no halo grows.  ``n_new=None``: edges from the
+    shard's rows to remote columns outside its halo, enough to outgrow
+    ``halo_pad``."""
+    from repro_torch.dist import partition_csr
+    part = partition_csr(csr, P, "balanced")
+    lo, hi = int(part.starts[shard]), int(part.starts[shard + 1])
+    A = csr.to_dense()
+    if n_new is None:
+        remote = np.setdiff1d(np.r_[0:lo, hi:csr.n_rows],
+                              part.shards[shard].halo_global)
+        n_new = part.halo_pad - part.shards[shard].n_halo + 8
+        c = rng.choice(remote, n_new, replace=False)
+    else:
+        c = rng.integers(lo, hi, n_new)
+    A[rng.integers(lo, hi, n_new), c] = rng.integers(1, 4, n_new)
+    return TCSR.from_dense(A.astype(np.float32))
+
+
 def _inputs():
     """Every operator case's graph and operands, drawn once with numpy."""
+    from repro_torch.data.graphs import rmat
     rng = np.random.default_rng(11)
-    spmm, gat = [], []
+    spmm, gat, refresh = [], [], []
     for name, kind, strategy, overlap, fused in SPMM_CASES:
         csr = _integer(_graph(kind, seed=5), np.random.default_rng(5))
         n, d = csr.n_rows, 16
@@ -159,7 +191,16 @@ def _inputs():
         gat.append(dict(name=name, csr=_csr_tuple(csr), heads=H,
                         strategy=strategy, dim=dk, Q=draw(dk), K=draw(dk),
                         Vf=draw(dv), G=draw(dv)))
-    return dict(spmm=spmm, gat=gat)
+    for name, (lg, deg, seed), d, overlap, shard, n_new, thr in \
+            REFRESH_CASES:
+        csr = _integer(rmat(lg, deg, seed=seed), np.random.default_rng(seed))
+        new = _mutated(csr, np.random.default_rng(seed + 1), shard, n_new)
+        n = csr.n_rows
+        ints = lambda *s: rng.integers(-3, 4, s).astype(np.float32)
+        refresh.append(dict(name=name, csr=_csr_tuple(csr),
+                            new=_csr_tuple(new), dim=d, overlap=overlap,
+                            threshold=thr, B=ints(n, d), G=ints(n, d)))
+    return dict(spmm=spmm, gat=gat, refresh=refresh)
 
 
 # ------------------------------------------- the ranks' side (spawned)
@@ -248,10 +289,68 @@ def _rank_obs(inputs, device):
                 "gathered_rows": g.halo.gathered_rows, "dim": c["dim"]}
 
 
+def _rank_refresh(inputs, hw, device):
+    """Every refresh case on this rank: the graph packed and run once,
+    ``refresh`` with the mutated graph under tracing, then the SpMM
+    forward and backward; what was kept by identity (the rank's pack and
+    its device steering), the report and the configs."""
+    from repro_torch import obs
+    from repro_torch.dist import DistGraph
+    from repro_torch.kernels.paramspmm.ops import device_steering
+    dev = torch.device(device)
+    t = lambda a: torch.as_tensor(a)
+    hw = {} if hw is None else {"hardware": hw}
+    out = {}
+    for c in inputs["refresh"]:
+        g = DistGraph(TCSR(*c["csr"]), c["dim"], P, overlap=c["overlap"],
+                      device=dev, **hw)
+        g.spmm(g.pad(t(c["B"])))
+        pack, plan, shards = g.pack, g.halo_plan, list(g.part.shards)
+        ops_of = lambda pk: ([pk.loc, pk.halo] if c["overlap"]
+                             else [pk.op])
+        steers = [device_steering(p, dev) for o in ops_of(pack)
+                  for p in (o.pcsr, o.pcsr_t)]
+        obs.reset_metrics()
+        with obs.tracing():
+            rep = g.refresh(TCSR(*c["new"]), threshold=c["threshold"])
+            spans = sorted({e["name"] for e in obs.trace_events()
+                            if e["ph"] == "X"})
+            repacks = obs.metrics_snapshot().get("dist_shard_repacks_total",
+                                                 {})
+        B = g.pad(t(c["B"])).requires_grad_()
+        y = g.spmm(B)
+        y.backward(g.pad(t(c["G"])))
+        out[c["name"]] = {
+            "out": g.unpad(y).cpu(), "dB": g.unpad(B.grad).cpu(),
+            "configs": [x.astuple() for x in g.configs],
+            "overlap_configs": [(a.astuple(), b.astuple())
+                                for a, b in g.overlap_configs],
+            "report": _report(rep), "spans": spans,
+            "repacks": sum(repacks.values()),
+            "shards_kept": [a is b for a, b in zip(g.part.shards, shards)],
+            "pack_kept": g.pack is pack,
+            "steering_kept": [device_steering(p, dev) is s for s, p in zip(
+                steers, [p for o in ops_of(g.pack)
+                         for p in (o.pcsr, o.pcsr_t)])],
+            "plan_rebuilt": g.halo_plan is not plan,
+            "halo_pad": g.part.halo_pad}
+    return out
+
+
+def _report(rep):
+    """A ``ShardRefreshReport`` as plain data (either package's)."""
+    return {"changed": list(rep.changed), "repicked": list(rep.repicked),
+            "reused": list(rep.reused),
+            "halo_pad_grew": bool(rep.halo_pad_grew),
+            "advisories": {int(p): sorted(a.drifted)
+                           for p, a in rep.advisories.items()}}
+
+
 def _rank_main(path, device, hw):
     with open(path, "rb") as f:
         inputs = pickle.load(f)
     out = {"ops": _rank_ops(inputs, hw, device),
+           "refresh": _rank_refresh(inputs, hw, device),
            "obs": _rank_obs(inputs, device)}
     if device == "cpu":
         out["train"] = _rank_train()
@@ -290,6 +389,25 @@ JAX_SCRIPT = textwrap.dedent('''
         dq, dk, dv = vjp(jnp.asarray(c["G"]))
         out[c["name"]] = {k: np.asarray(v) for k, v in
                           dict(out=y, dQ=dq, dK=dk, dVf=dv).items()}
+    for c in inputs["refresh"] if sys.argv[3] == "spmm" else ():
+        g = DistGraph(CSRMatrix(*c["csr"]), c["dim"], 4,
+                      overlap=c["overlap"])
+        B, G = jnp.asarray(c["B"]), jnp.asarray(c["G"])
+        dist_spmm(g, B)
+        rep = g.refresh(CSRMatrix(*c["new"]), threshold=c["threshold"])
+        y, vjp = jax.vjp(lambda b: dist_spmm(g, b), B)
+        out[c["name"]] = {
+            "out": np.asarray(y), "dB": np.asarray(vjp(G)[0]),
+            "configs": [x.astuple() for x in g.configs],
+            "overlap_configs": [(a.astuple(), b.astuple())
+                                for a, b in g.overlap_configs],
+            "report": {"changed": list(rep.changed),
+                       "repicked": list(rep.repicked),
+                       "reused": list(rep.reused),
+                       "halo_pad_grew": bool(rep.halo_pad_grew),
+                       "advisories": {int(p): sorted(a.drifted) for p, a
+                                      in rep.advisories.items()}},
+            "halo_pad": g.part.halo_pad}
     with open(sys.argv[2], "wb") as f:
         pickle.dump(out, f)
 ''')
@@ -402,8 +520,14 @@ def test_distgraph_configs_equal_reference(kind, op, heads, overlap):
     assert got.pack is None
     with pytest.raises(RuntimeError, match="process group"):
         got.spmm(torch.zeros(got.part.rows_pad, 32))
-    with pytest.raises(NotImplementedError, match="item 9"):
-        got.refresh(t)
+    # a refresh needs no process group either: the same graph changes no
+    # shard, so the plan keeps every shard as it was
+    shards = list(got.part.shards)
+    rep = got.refresh(t)
+    assert (rep.changed, rep.repicked, rep.reused, rep.halo_pad_grew) == \
+        ([], [], list(range(4)), False)
+    assert all(a is b for a, b in zip(got.part.shards, shards))
+    assert got.pack is None
 
 
 def test_power_law_shards_pick_different_configs():
@@ -492,6 +616,74 @@ def test_dist_gat_matches_reference(runs, name):
         assert max(r["ops"][name]["n_halo"] for r in ranks) > 40
     if name.startswith("empty"):
         assert min(r["ops"][name]["shard_nnz"] for r in ranks) == 0
+
+
+@pytest.mark.parametrize("name", [c[0] for c in REFRESH_CASES])
+def test_dist_refresh_matches_reference(runs, name):
+    """``DistGraph.refresh`` on the 4 ranks against the JAX ``DistGraph``'s
+    refresh: the same report and configs on every rank, the SpMM forward
+    and gradient after it bit-equal to the reference's and to the
+    reference's single-device engine on the mutated graph; unchanged
+    shards (and on their ranks the pack and its device steering) kept by
+    identity, the changed rank's pack rebuilt."""
+    inputs, ranks, ref = runs
+    c = _case(inputs, "refresh", name)
+    got = [r["refresh"][name] for r in ranks]
+    want = ref[name]
+    single = _spmm_ref_single(dict(c, csr=c["new"]), "spmm")
+    for rank, g in enumerate(got):
+        assert g["report"] == want["report"], rank
+        assert g["configs"] == want["configs"]
+        assert g["overlap_configs"] == want["overlap_configs"]
+        assert g["halo_pad"] == want["halo_pad"]
+        for k in ("out", "dB"):
+            assert np.array_equal(g[k].numpy(), want[k]), k
+            assert np.array_equal(g[k].numpy(), np.asarray(single[k])), k
+        assert "dynamic.shard_repack" in g["spans"]
+        assert g["repacks"] == len(want["report"]["changed"])
+        assert g["plan_rebuilt"]
+        rep = g["report"]
+        assert g["shards_kept"] == [p in rep["reused"] for p in range(P)]
+        kept = rank in rep["reused"]
+        assert g["pack_kept"] == kept
+        assert all(g["steering_kept"]) if kept \
+            else not any(g["steering_kept"])
+    rep = want["report"]
+    if name == "refresh_identity":
+        assert rep["changed"] == [1] and rep["reused"] == [0, 2, 3]
+        assert not rep["halo_pad_grew"] and rep["repicked"] == []
+    elif name == "refresh_repick":
+        assert rep["changed"] == rep["repicked"] == [0]
+        assert list(rep["advisories"]) == [0] and rep["advisories"][0]
+    elif name == "refresh_overlap":
+        assert rep["changed"] == [3]
+    else:
+        assert rep["halo_pad_grew"] and rep["changed"] == list(range(P))
+
+
+def test_shard_drift_equals_reference():
+    from repro.dist import DistGraph as RDistGraph
+    from repro.dynamic import shard_drift as r_shard_drift
+
+    from repro_torch.data.graphs import rmat
+    from repro_torch.dist import DistGraph
+    from repro_torch.dynamic import shard_drift
+    t = rmat(8, 6, seed=3)
+    rg, tg = RDistGraph(_ref(t), 16, P), DistGraph(t, 16, P,
+                                                   hardware=_ref_hw())
+    assert shard_drift(tg, t) == {} == r_shard_drift(rg, _ref(t))
+    new = _mutated(t, np.random.default_rng(4), 2, 6)
+    for thr in (None, 1e-6, {"nnz": 1e-6}):
+        a, b = shard_drift(tg, new, threshold=thr), r_shard_drift(
+            rg, _ref(new), threshold=thr)
+        assert list(a) == list(b) == [2]
+        assert (a[2] is None) == (b[2] is None)
+        if b[2] is not None:
+            assert sorted(a[2].drifted) == sorted(b[2].drifted)
+            assert a[2].message == b[2].message
+    assert shard_drift(tg, new, threshold=1e-6)[2].drifted
+    with pytest.raises(ValueError, match="fixed node set"):
+        tg.refresh(rmat(7, 6, seed=1))
 
 
 def test_every_rank_holds_the_same_results(runs):

@@ -18,6 +18,9 @@
   ``--partitions 2``; ``train_gnn(partitions=2)`` trains and returns one
   config per shard.
 """
+import io
+import json
+
 import jax
 import numpy as np
 import pytest
@@ -221,7 +224,7 @@ def test_gat_trajectory_sensitivity(heads):
         assert RTOL < drift[:, -1].max() < 1e-3
 
 
-def test_train_gnn_multihead_gat_and_unported_options():
+def test_train_gnn_multihead_gat_and_unported_options(capsys):
     task = community_task(**SMALL_TASK)
     res = train_gnn(task, model="gat", hidden=16, n_layers=3, steps=4,
                     heads=4, device="cpu")
@@ -242,8 +245,15 @@ def test_train_gnn_multihead_gat_and_unported_options():
                       spmm_mode=mode)
     with pytest.raises(ValueError, match="unknown model"):
         train_gnn(task, model="mlp", steps=1, device="cpu")
-    with pytest.raises(NotImplementedError, match="item 9"):
-        main(["--device", "cpu", "--mutate", "3"])
+    # dynamic graphs: the churn stream after training, one governor
+    # verdict a batch, then the degraded layout against a fresh re-pack
+    capsys.readouterr()
+    main(["--device", "cpu", "--steps", "2", "--mutate", "3"])
+    out = capsys.readouterr().out
+    assert [f"mutate[{i}]:" in out for i in range(3)] == [True] * 3
+    assert "aggregation matches a fresh re-pack on cpu" in out
+    err = float(out.split("max |Δ| = ")[1].split(",")[0])
+    assert err < 1e-4
 
 
 def test_gnn_cli_runs_on_cpu(capsys):
@@ -251,6 +261,20 @@ def test_gnn_cli_runs_on_cpu(capsys):
     out = capsys.readouterr().out
     assert "val_acc=" in out and "(cpu)" in out
     assert len(res.losses) == 4 and res.losses[-1] < res.losses[0]
+
+
+def test_gnn_cli_mutate_writes_a_trace_obs_report_reads(tmp_path, capsys):
+    from repro_torch.apps import obs_report
+    path = tmp_path / "gnn_trace.json"
+    main(["--device", "cpu", "--steps", "2", "--layers", "2", "--mutate",
+          "2", "--trace", str(path)])
+    assert f"trace written to {path}" in capsys.readouterr().out
+    buf = io.StringIO()
+    obs_report.report(json.loads(path.read_text()), out=buf)
+    report = buf.getvalue()
+    for name in ("gnn.first_step", "gnn.eval", "governor_decisions_total",
+                 "dynamic_mutations_total", "governor"):
+        assert name in report, name
 
 
 def test_gnn_cli_partitioned_on_cpu(capsys):
