@@ -1,7 +1,10 @@
-"""Selective scan (the Mamba recurrence): the CUDA kernel's wrapper and
-its plain version."""
-from .ops import launch_count, reset_launch_count, selective_scan
-from .ref import selective_scan_plain
+"""Selective scan (the Mamba recurrence): the CUDA kernels' wrappers
+(forward, and backward for training) and their plain versions."""
+from .ops import (launch_count, reset_launch_count, selective_scan,
+                  selective_scan_backward)
+from .ref import (selective_scan_backward_plain, selective_scan_plain,
+                  selective_scan_states_plain)
 
 __all__ = ["launch_count", "reset_launch_count", "selective_scan",
-           "selective_scan_plain"]
+           "selective_scan_backward", "selective_scan_backward_plain",
+           "selective_scan_plain", "selective_scan_states_plain"]

@@ -1,5 +1,6 @@
 """Shared transformer building blocks of the LM side (bf16 activations
-with float32 islands, as the JAX package computes them).
+with float32 islands, as the JAX package computes them), and the
+next-token loss.
 
 Not ported: the JAX package's cost mode and ``scan_layers`` (the port
 loops over layers in Python) and its perf-option registry: none of its
@@ -37,6 +38,10 @@ def apply_norm(x, p, kind="rmsnorm", plus_one=False):
     return rms_norm(x, p["w"], plus_one=plus_one)
 
 
+def softcap(x, cap: float):
+    return cap * torch.tanh(x / cap)
+
+
 # -------------------------------------------------------------------- RoPE
 def rope_tables(positions, head_dim: int, fraction: float = 1.0,
                 base: float = 10000.0):
@@ -68,3 +73,16 @@ def apply_rope(x, cos, sin, rot: int):
 def gated_mlp(x, wg, wu, wd, act="silu"):
     a = F.silu if act == "silu" else (lambda t: F.gelu(t, approximate="tanh"))
     return (a(x @ wg) * (x @ wu)) @ wd
+
+
+# -------------------------------------------------------------------- loss
+def softmax_xent(logits, labels, mask=None):
+    """Mean next-token CE.  logits (B, S, V) any dtype → float32
+    reduction; ``mask`` (B, S) weights the tokens."""
+    logits = logits.float()
+    lse = torch.logsumexp(logits, dim=-1)
+    ll = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
+    nll = lse - ll
+    if mask is not None:
+        return (nll * mask).sum() / torch.clamp_min(mask.sum(), 1.0)
+    return nll.mean()

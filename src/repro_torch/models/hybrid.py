@@ -7,13 +7,17 @@ the last ``n_global_layers`` attend globally (a full KV cache).
 The JAX package pins shardings inside the layer (``sharding_ctx``'s
 ``constrain_*``); without a mesh those are the identity, so the port
 leaves them out.  Parameters are dicts of stacked ``(L, …)`` tensors and
-the layers run in a Python loop.
+the layers run in a Python loop; with ``remat`` each layer runs under
+``torch.utils.checkpoint`` (non-reentrant), as the reference wraps it in
+``jax.checkpoint``: its activations are recomputed in the backward.
 """
 from __future__ import annotations
 
+import functools
 import math
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from .common import NEG_INF, apply_norm, apply_rope, gated_mlp, rope_tables
 from .ssm import mamba_branch, mamba_defs
@@ -107,22 +111,29 @@ def hybrid_layer(x, lp, cfg, *, cos, sin, rot, window, cache=None,
     return x + gated_mlp(h2, lp["wg"], lp["wu"], lp["wd"], cfg.act), new_state
 
 
-def _run_stack(x, stack, cfg, *, cos, sin, rot, window, chunk):
+def _layer_out(x, lp, cfg, **kw):
+    return hybrid_layer(x, lp, cfg, **kw)[0]
+
+
+def _run_stack(x, stack, cfg, *, cos, sin, rot, window, chunk, remat):
+    blk = functools.partial(_layer_out, cfg=cfg, cos=cos, sin=sin, rot=rot,
+                            window=window, chunk=chunk)
     for i in range(stack["wq"].shape[0]):
-        x = hybrid_layer(x, layer_params(stack, i), cfg, cos=cos, sin=sin,
-                         rot=rot, window=window, chunk=chunk)[0]
+        lp = layer_params(stack, i)
+        x = (checkpoint(blk, x, lp, use_reentrant=False) if remat
+             else blk(x, lp))
     return x
 
 
-def hybrid_forward(params, cfg, embeds, *, chunk=1024):
+def hybrid_forward(params, cfg, embeds, *, remat=True, chunk=1024):
     S = embeds.shape[1]
     positions = torch.arange(S, device=embeds.device)[None, :]
     cos, sin, rot = rope_tables(positions, cfg.head_dim, cfg.rope_fraction,
                                 cfg.rope_base)
     x = _run_stack(embeds, params["layers"], cfg, cos=cos, sin=sin, rot=rot,
-                   window=cfg.sliding_window, chunk=chunk)
+                   window=cfg.sliding_window, chunk=chunk, remat=remat)
     x = _run_stack(x, params["glayers"], cfg, cos=cos, sin=sin, rot=rot,
-                   window=0, chunk=chunk)
+                   window=0, chunk=chunk, remat=remat)
     return apply_norm(x, params["final_norm"], cfg.norm)
 
 

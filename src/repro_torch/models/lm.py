@@ -4,9 +4,11 @@ hybrid family, Hymba):
   * ``model_defs(cfg)``                  — dict of (shape, role) leaves;
   * ``init_params(cfg, generator=...)``  — materialised parameters;
   * ``forward_hidden(params, cfg, batch)`` → final hidden states;
+  * ``train_loss(params, cfg, batch)``   → mean next-token CE;
   * ``prefill(params, cfg, batch)``      → last-token logits;
   * ``decode_step(params, cfg, token, cache, pos)`` → (logits, cache);
-  * ``cache_specs(cfg, cell)`` / ``init_cache(cfg, cell)``.
+  * ``cache_specs(cfg, cell)`` / ``init_cache(cfg, cell)`` /
+    ``input_specs(cfg, cell)``.
 
 Parameters are a nested dict of tensors with stacked ``(L, …)`` layer
 leaves, in bf16 except ``a_log`` (float32), as the JAX package keeps
@@ -20,7 +22,7 @@ import torch
 
 from repro_torch.device import resolve_device
 from .hybrid import hybrid_decode_step, hybrid_forward, hybrid_model_defs
-from .transformer import logits_for
+from .transformer import chunked_xent, logits_for
 
 DTYPE = torch.bfloat16
 
@@ -91,17 +93,31 @@ def _embed_tokens(params, cfg, tokens):
     return params["embed"][tokens].to(DTYPE)
 
 
-def forward_hidden(params, cfg, batch, *, chunk=1024):
-    """→ final hidden states (B, S, D) of ``batch["tokens"]`` (B, S)."""
+def forward_hidden(params, cfg, batch, *, remat=True, chunk=1024):
+    """→ final hidden states (B, S, D) of ``batch["tokens"]`` (B, S);
+    ``remat`` recomputes each layer's activations in the backward."""
     _check_family(cfg)
     x = _embed_tokens(params, cfg, batch["tokens"])
-    return hybrid_forward(params, cfg, x, chunk=chunk)
+    return hybrid_forward(params, cfg, x, remat=remat, chunk=chunk)
+
+
+def train_loss(params, cfg, batch, *, remat=True, chunk=1024):
+    """Mean next-token CE of ``batch["tokens"]`` against
+    ``batch["labels"]`` (B, S), float32; ``chunk`` is the attention's
+    query chunk (the loss keeps ``chunked_xent``'s own, as the reference
+    does)."""
+    h = forward_hidden(params, cfg, batch, remat=remat, chunk=chunk)
+    return chunked_xent(h, params["embed"], batch["labels"],
+                        logit_softcap=cfg.logit_softcap,
+                        lm_head=params.get("lm_head"),
+                        valid_vocab=(cfg.vocab if cfg.vocab_padded
+                                     > cfg.vocab else None))
 
 
 # ---------------------------------------------------------------- serving
 def prefill(params, cfg, batch, *, chunk=1024):
     """Run the full prompt, return the last token's logits (B, 1, Vp)."""
-    h = forward_hidden(params, cfg, batch, chunk=chunk)
+    h = forward_hidden(params, cfg, batch, remat=False, chunk=chunk)
     return logits_for(h[:, -1:], params, cfg)
 
 
@@ -145,3 +161,14 @@ def init_cache(cfg, cell, dtype=DTYPE, device=None) -> dict:
     device = resolve_device(device)
     return {k: torch.zeros(shape, dtype=dt, device=device)
             for k, (shape, dt) in cache_specs(cfg, cell, dtype).items()}
+
+
+def input_specs(cfg, cell) -> dict:
+    """name → (shape, dtype) of every model input of ``cell``: the token
+    of a decode step, else tokens and labels."""
+    _check_family(cfg)
+    B, S = cell.global_batch, cell.seq_len
+    if cell.kind == "decode":
+        return {"token": ((B, 1), torch.int32)}
+    return {"tokens": ((B, S), torch.int32),
+            "labels": ((B, S), torch.int32)}

@@ -1,5 +1,6 @@
 """What the hybrid family needs of the JAX package's decoder-only
-transformer: query-chunked causal GQA attention and the tied unembedding.
+transformer: query-chunked causal GQA attention, the tied unembedding and
+the sequence-chunked training loss.
 
 Attention is plain PyTorch (``matmul`` + softmax) with the reference's
 masks and casts, as the JAX package leaves it to XLA: the bf16 score
@@ -13,7 +14,7 @@ import math
 
 import torch
 
-from .common import NEG_INF
+from .common import NEG_INF, softcap
 
 
 def chunked_attention(q, k, v, *, window=0, chunk=1024):
@@ -73,3 +74,38 @@ def logits_for(x, params, cfg):
         pad = torch.arange(cfg.vocab_padded, device=x.device) >= cfg.vocab
         logits = logits.masked_fill(pad, NEG_INF)
     return logits
+
+
+def chunked_xent(x, embed, labels, *, logit_softcap=0.0, chunk=512,
+                 lm_head=None, valid_vocab=None):
+    """Sequence-chunked mean CE of hidden states x (B, S, D) against the
+    tied embedding (``lm_head=None``) or an untied (D, V) head: the
+    logits are formed a chunk at a time (autograd keeps each chunk's for
+    the backward, as the reference's ``lax.scan`` keeps its residuals).
+    The chunk
+    count is ``S // chunk`` lowered until it divides S, as in the
+    reference; each chunk's logits are the bf16 product widened to
+    float32, soft-capped, masked past ``valid_vocab`` with ``NEG_INF``.
+    The label term is a gather, which picks the same float32 as the
+    reference's one-hot contraction.  The mean is over B·S."""
+    B, S, D = x.shape
+    W = embed.T if lm_head is None else lm_head          # (D, V)
+    V = W.shape[-1]
+    nc = max(1, S // chunk)
+    while S % nc:                     # largest divisor ≤ target count
+        nc -= 1
+    chunk = S // nc
+    W = W.to(x.dtype)
+    labels = labels.long()
+    total = torch.zeros((), dtype=torch.float32, device=x.device)
+    for i in range(0, S, chunk):
+        logits = (x[:, i:i + chunk] @ W).float()
+        if logit_softcap > 0:
+            logits = softcap(logits, logit_softcap)
+        if valid_vocab is not None and valid_vocab < V:
+            pad = torch.arange(V, device=x.device) >= valid_vocab
+            logits = logits.masked_fill(pad, NEG_INF)
+        lse = torch.logsumexp(logits, dim=-1)
+        ll = torch.gather(logits, -1, labels[:, i:i + chunk, None])[..., 0]
+        total = total + (lse - ll).sum()
+    return total / (B * S)

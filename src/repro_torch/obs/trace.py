@@ -188,3 +188,15 @@ def tracing(path: Optional[str] = None) -> _Tracing:
     """Context manager enabling the obs layer for its body; exports the
     Chrome-trace JSON to ``path`` on exit when one is given."""
     return _Tracing(path)
+
+
+def _env_autostart() -> None:
+    """``REPRO_TRACE=trace.json`` starts a process-lifetime session whose
+    trace is written at interpreter exit (called once from
+    ``repro_torch.obs.__init__``)."""
+    path = os.environ.get("REPRO_TRACE")
+    if not path or _STATE is not None:
+        return
+    import atexit
+    start_tracing(path)
+    atexit.register(stop_tracing)

@@ -1,11 +1,14 @@
-"""AdamW as plain functions on parameters held as lists of dicts of
-tensors (the models' layout), with float32 state.
+"""AdamW as plain functions on parameter trees of tensors, with float32
+state: a list of dicts (the GNN models' layout) or nested dicts (the LM
+side's), any nesting of dicts, lists and tuples.
 
 The arithmetic is the JAX package's, step for step: bias corrections
 ``b1c = 1 − b1^t`` and ``b2c = 1 − b2^t`` in float32, ``vh = v / b2c``
 and the update ``p − lr·(mh / (√vh + eps) + wd·p)``.  ``torch.optim.AdamW``
 divides ``√v`` by ``√b2c`` and applies the decay first, so its
-trajectories drift from the reference's; it is not used.
+trajectories drift from the reference's; it is not used.  Leaves are taken
+in ``jax.tree.leaves`` order (list items in turn, dict keys sorted at
+every level), which sets the global norm's summation order.
 """
 from __future__ import annotations
 
@@ -13,6 +16,27 @@ from dataclasses import dataclass
 
 import numpy as np
 import torch
+
+
+def tree_leaves(tree) -> list:
+    """The leaves of ``tree`` in ``jax.tree.leaves`` order."""
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree) for x in tree_leaves(tree[k])]
+    if isinstance(tree, (list, tuple)):
+        return [x for t in tree for x in tree_leaves(t)]
+    return [tree]
+
+
+def tree_map(fn, tree, *rest):
+    """``fn`` over the leaves of ``tree`` and the same leaves of ``rest``;
+    returns ``tree``'s nesting (dicts keep their key order)."""
+    if isinstance(tree, dict):
+        return {k: tree_map(fn, v, *(r[k] for r in rest))
+                for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(tree_map(fn, v, *(r[i] for r in rest))
+                          for i, v in enumerate(tree))
+    return fn(tree, *rest)
 
 
 @dataclass(frozen=True)
@@ -27,17 +51,16 @@ class AdamWConfig:
 
 def adamw_init(params):
     """Zero moments shaped like ``params`` and step 0."""
-    zeros = lambda layer: {k: torch.zeros_like(v, dtype=torch.float32)
-                           for k, v in layer.items()}
-    return {"m": [zeros(l) for l in params], "v": [zeros(l) for l in params],
+    zeros = lambda p: torch.zeros_like(p, dtype=torch.float32)
+    return {"m": tree_map(zeros, params), "v": tree_map(zeros, params),
             "step": 0}
 
 
 def global_norm(grads):
-    """√(Σ g²) over every tensor of a list of dicts, in float32, summed
-    in the reference's leaf order (layers in turn, keys sorted)."""
-    return torch.sqrt(sum(torch.sum(torch.square(layer[k].float()))
-                          for layer in grads for k in sorted(layer)))
+    """√(Σ g²) over every tensor of a tree, in float32, summed in the
+    reference's leaf order."""
+    return torch.sqrt(sum(torch.sum(torch.square(g.float()))
+                          for g in tree_leaves(grads)))
 
 
 @torch.no_grad()
@@ -49,28 +72,26 @@ def adamw_update(params, grads, state, cfg: AdamWConfig):
     if cfg.grad_clip > 0:
         gn = global_norm(grads)
         clip = torch.clamp_max(cfg.grad_clip / (gn + 1e-9), 1.0)
-        grads = [{k: g * clip for k, g in layer.items()} for layer in grads]
+        grads = tree_map(lambda g: g * clip, grads)
     # the bias corrections in float32, as tensors on the parameters'
     # device: CUDA divides by a host scalar through its reciprocal, which
     # rounds differently from the reference's division
     one = np.float32(1.0)
-    device = next(iter(params[0].values())).device
+    device = tree_leaves(params)[0].device
     b1c, b2c = (torch.tensor(one - np.float32(b) ** np.float32(step),
                              device=device) for b in (cfg.b1, cfg.b2))
-    new_p, new_m, new_v = [], [], []
-    for p_l, g_l, m_l, v_l in zip(params, grads, state["m"], state["v"]):
-        lp, lm, lv = {}, {}, {}
-        for k, p in p_l.items():
-            g = g_l[k].float()
-            m = cfg.b1 * m_l[k] + (1 - cfg.b1) * g
-            v = cfg.b2 * v_l[k] + (1 - cfg.b2) * g * g
-            mh = m / b1c
-            vh = v / b2c
-            p32 = p.float()
-            p32 = p32 - cfg.lr * (mh / (torch.sqrt(vh) + cfg.eps)
-                                  + cfg.weight_decay * p32)
-            lp[k], lm[k], lv[k] = p32.to(p.dtype), m, v
-        new_p.append(lp)
-        new_m.append(lm)
-        new_v.append(lv)
-    return new_p, {"m": new_m, "v": new_v, "step": step}
+
+    def upd(p, g, m, v):
+        g = g.float()
+        m = cfg.b1 * m + (1 - cfg.b1) * g
+        v = cfg.b2 * v + (1 - cfg.b2) * g * g
+        mh = m / b1c
+        vh = v / b2c
+        p32 = p.float()
+        p32 = p32 - cfg.lr * (mh / (torch.sqrt(vh) + cfg.eps)
+                              + cfg.weight_decay * p32)
+        return p32.to(p.dtype), m, v
+
+    out = tree_map(upd, params, grads, state["m"], state["v"])
+    pick = lambda i: tree_map(lambda _, o: o[i], params, out)
+    return pick(0), {"m": pick(1), "v": pick(2), "step": step}

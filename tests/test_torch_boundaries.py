@@ -60,7 +60,7 @@ def test_every_module_imports_without_jax():
     # the decider path, the baselines, the capture path, the distributed
     # path and the dynamic-graph path are among them
     assert set(DECIDER_PATH) | set(CAPTURE_PATH) | set(DIST_PATH) \
-        | set(DYNAMIC_PATH) <= set(res.stdout.split())
+        | set(DYNAMIC_PATH) | set(TRAIN_PATH) <= set(res.stdout.split())
 
 
 DECIDER_PATH = ("repro_torch.obs.decisions", "repro_torch.core.features",
@@ -87,6 +87,36 @@ DIST_PATH = ("repro_torch.dist", "repro_torch.dist.partition",
 DYNAMIC_PATH = ("repro_torch.dynamic", "repro_torch.dynamic.pcsr",
                 "repro_torch.dynamic.governor", "repro_torch.dynamic.graph",
                 "repro_torch.dynamic.dist")
+
+
+# the LM-training slice: loss, optimiser trees, compression, data,
+# checkpoints, the train entry point, the GNN config modules
+TRAIN_PATH = ("repro_torch.launch.train", "repro_torch.checkpoint",
+              "repro_torch.checkpoint.manager", "repro_torch.data.tokens",
+              "repro_torch.optim.compression", "repro_torch.optim.adamw",
+              "repro_torch.models.lm", "repro_torch.obs.trace",
+              "repro_torch.configs.gcn", "repro_torch.configs.gin",
+              "repro_torch.configs.gat")
+
+
+@pytest.mark.parametrize("name", TRAIN_PATH)
+def test_train_path_modules_are_checked(name):
+    rel = name.split(".", 1)[1].replace(".", "/")
+    path = PORT / (rel + ("/__init__.py" if name == "repro_torch.checkpoint"
+                          else ".py"))
+    assert path in PORT_FILES
+    bad = [m for m in _imported_modules(path)
+           if m.split(".")[0] in ("jax", "jaxlib", "repro")]
+    assert not bad, f"{path.name} imports {bad}"
+
+
+def test_train_entry_point_defaults_to_cuda(monkeypatch):
+    from repro_torch.launch import train
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for argv in (["--reduced", "--steps", "1"],
+                 ["--reduced", "--steps", "1", "--device", "cuda"]):
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            train.main(argv)
 
 
 @pytest.mark.parametrize("name", DIST_PATH + DYNAMIC_PATH)

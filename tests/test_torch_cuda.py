@@ -27,7 +27,11 @@ of its plain version (an FMA and another Σ_n order), an impulse at t = 0
 reaching the last of 1024 steps, and a CUDA tensor never reaching the
 plain version;
 the reduced Hymba's prefill (one launch per layer) and decode on the card
-within ``atol = rtol = 5e-2`` of the port on the CPU (bf16).  CUDA graphs:
+within ``atol = rtol = 5e-2`` of the port on the CPU (bf16).  The scan's
+backward kernel within ``1e-4 × max |g|`` of its plain version per operand
+(same bits on two launches), and a backward through ``mamba_branch`` and
+through the reduced Hymba's ``train_loss`` on the card against the CPU's
+gradients; ``launch/train.py`` on the card.  CUDA graphs:
 a captured bucket forward replayed on a second batch gives the eager
 forward's bits and launch counts (GCN, GIN, GAT), a batch past its
 bucket's schedule bounds raises, and the captured Hymba decode step gives
@@ -707,6 +711,187 @@ def test_selective_scan_on_cuda_never_takes_the_plain_version(cuda_device,
     torch.testing.assert_close(got, want, **SCAN_TOL)
     with pytest.raises(ValueError, match="N ≤ 32"):
         scan_ops.selective_scan(*_scan_operands((1, 4, 33, 8), cuda_device))
+
+
+SCAN_BWD_RTOL = 1e-4                    # × max |g| of each operand
+
+
+def _scan_grads_plain(dA, dBx, C, gy):
+    from repro_torch.kernels import selective_scan as scan
+    h = scan.selective_scan_states_plain(dA, dBx)
+    return scan.selective_scan_backward_plain(dA, C, h, gy)
+
+
+def _assert_grads_close(got, want, what=""):
+    for name, g, w in zip(("dA", "dBx", "C"), got, want):
+        assert g.shape == w.shape, (what, name)
+        top = float(w.abs().max())
+        err = float((g - w).abs().max())
+        assert err <= SCAN_BWD_RTOL * top, (what, name, err, top)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", SCAN_GRID, ids=str)
+def test_selective_scan_backward_kernel_matches_plain(cuda_device, shape):
+    """Through the autograd path: one forward and one backward launch;
+    the gradients against the plain backward and against autograd through
+    the plain loop on the same CUDA tensors."""
+    from repro_torch.kernels import selective_scan as scan
+    dA, dBx, C = _scan_operands(shape, cuda_device, seed=1)
+    gy = torch.randn(shape[:2] + shape[3:], device=cuda_device,
+                     generator=torch.Generator(device=cuda_device)
+                     .manual_seed(2))
+    ts = [t.clone().requires_grad_() for t in (dA, dBx, C)]
+    fwd, bwd = scan.launch_count("forward"), scan.launch_count("backward")
+    got = torch.autograd.grad(scan.selective_scan(*ts), ts, gy)
+    torch.cuda.synchronize()
+    assert scan.launch_count("forward") == fwd + 1
+    assert scan.launch_count("backward") == bwd + 1
+    _assert_grads_close(got, _scan_grads_plain(dA, dBx, C, gy), "plain")
+    ts = [t.clone().requires_grad_() for t in (dA, dBx, C)]
+    auto = torch.autograd.grad(scan.selective_scan_plain(*ts), ts, gy)
+    _assert_grads_close(got, auto, "autograd")
+
+
+@pytest.mark.cuda
+def test_selective_scan_backward_is_deterministic(cuda_device):
+    from repro_torch.kernels import selective_scan as scan
+    shape = (2, 300, 16, 200)
+    dA, dBx, C = _scan_operands(shape, cuda_device, seed=3)
+    h = scan.selective_scan_states_plain(dA, dBx)
+    gy = torch.randn((2, 300, 200), device=cuda_device)
+    one = scan.selective_scan_backward(dA, C, h, gy)
+    two = scan.selective_scan_backward(dA, C, h, gy)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(one, two))
+
+
+@pytest.mark.cuda
+def test_selective_scan_backward_impulse_reaches_step_zero(cuda_device):
+    from repro_torch.kernels import selective_scan as scan
+    B, S, N, Di = 1, 1024, 2, 130
+    dA = torch.full((B, S, N, Di), 0.999, device=cuda_device)
+    C = torch.ones((B, S, N), device=cuda_device)
+    gy = torch.zeros((B, S, Di), device=cuda_device)
+    gy[:, -1] = 1.0
+    h = scan.selective_scan_states_plain(dA, torch.ones_like(dA))
+    _, g_dBx, _ = scan.selective_scan_backward(dA, C, h, gy)
+    torch.cuda.synchronize()
+    want = torch.full((N, Di), 0.999 ** (S - 1), dtype=torch.float64)
+    torch.testing.assert_close(g_dBx[0, 0].double().cpu(), want, rtol=1e-4,
+                               atol=0)
+
+
+@pytest.mark.cuda
+def test_selective_scan_without_grad_keeps_no_states(cuda_device,
+                                                     monkeypatch):
+    """No input requiring grad, or grad disabled: the forward kernel alone,
+    as in serving."""
+    from repro_torch.kernels.selective_scan import ops as scan_ops
+    dA, dBx, C = _scan_operands((1, 40, 4, 96), cuda_device)
+
+    def refuse(*a):
+        raise AssertionError("a call without a gradient kept the states")
+
+    monkeypatch.setattr(scan_ops._Scan, "apply", refuse)
+    fwd = scan_ops.launch_count("forward")
+    scan_ops.selective_scan(dA, dBx, C)
+    with torch.no_grad():
+        scan_ops.selective_scan(dA.requires_grad_(), dBx, C)
+    torch.cuda.synchronize()
+    assert scan_ops.launch_count("forward") == fwd + 2
+
+
+def _live_mamba_params(cfg, g):
+    D, N = cfg.d_model, cfg.ssm_state
+    Di = cfg.ssm_expand * D
+    scales = {"in_proj": ((D, 2 * Di), D ** -0.5), "conv_w": ((4, Di), 0.5),
+              "dt_a": ((Di, 64), Di ** -0.5), "dt_proj": ((64, Di), 0.125),
+              "dt_b": ((Di,), 0.5), "bc_w": ((Di, 2 * N), Di ** -0.5),
+              "d_skip": ((Di,), 1.0), "out_proj": ((Di, D), Di ** -0.5)}
+    lp = {k: (torch.randn(s, generator=g) * sc).to(torch.bfloat16)
+          for k, (s, sc) in scales.items()}
+    lp["a_log"] = torch.log(torch.arange(1, N + 1, dtype=torch.float32)
+                            ).expand(Di, N).contiguous()
+    return lp
+
+
+def _rel_l2(got, want):
+    got, want = got.float().cpu(), want.float()
+    return float((got - want).norm() / want.norm().clamp_min(1e-30))
+
+
+@pytest.mark.cuda
+def test_mamba_branch_backward_on_card_matches_cpu(cuda_device):
+    """A backward through ``mamba_branch`` on the card reaches the scan's
+    backward kernel, and every parameter's and the input's gradient
+    matches the CPU's (bf16 model: 5e-2 relative L2, the LM training
+    tolerance)."""
+    from repro_torch.configs import get_reduced
+    from repro_torch.kernels import selective_scan as scan
+    from repro_torch.models import ssm
+    cfg = get_reduced("hymba-1.5b")
+    g = torch.Generator().manual_seed(0)
+    lp = _live_mamba_params(cfg, g)
+    x = torch.randn((2, 40, cfg.d_model), generator=g).to(torch.bfloat16)
+    gy = torch.randn((2, 40, cfg.d_model), generator=g).to(torch.bfloat16)
+    grads = {}
+    for dev in ("cpu", cuda_device):
+        p = {k: v.to(dev, copy=True).requires_grad_() for k, v in lp.items()}
+        xi = x.to(dev, copy=True).requires_grad_()
+        bwd = scan.launch_count("backward")
+        y = ssm.mamba_branch(xi, p, cfg)
+        y.backward(gy.to(dev))
+        if dev != "cpu":
+            torch.cuda.synchronize()
+            assert scan.launch_count("backward") == bwd + 1
+        grads[str(dev)] = {"x": xi.grad, **{k: v.grad for k, v in p.items()}}
+    cpu, card = grads["cpu"], grads[str(cuda_device)]
+    for k in cpu:
+        assert card[k] is not None and bool(card[k].abs().sum() > 0), k
+        assert _rel_l2(card[k], cpu[k]) <= 5e-2, (k, _rel_l2(card[k], cpu[k]))
+
+
+@pytest.mark.cuda
+def test_train_loss_and_entry_point_on_card(cuda_device, tmp_path):
+    """The reduced Hymba's ``train_loss`` gradients on the card against the
+    CPU's (loss rtol 1e-3, each leaf 5e-2 relative L2), launches per
+    backward (2 forward per layer under remat, 1 backward), and
+    ``launch/train.py`` on the card with a kill and resume."""
+    from repro_torch.configs import get_reduced
+    from repro_torch.data.tokens import batch_for_step
+    from repro_torch.kernels import selective_scan as scan
+    from repro_torch.launch import train
+    from repro_torch.models import lm
+    from repro_torch.optim.adamw import tree_leaves, tree_map
+    cfg = get_reduced("hymba-1.5b")
+    cpu = lm.init_params(cfg, generator=torch.Generator().manual_seed(1),
+                         device="cpu")
+    batch = {k: torch.as_tensor(v) for k, v in
+             batch_for_step(cfg, 2, 32, 0, seed=0).items()}
+    out = {}
+    for dev in ("cpu", cuda_device):
+        p = tree_map(lambda t: t.to(dev).detach().requires_grad_(), cpu)
+        scan.reset_launch_count()
+        loss = lm.train_loss(p, cfg, {k: v.to(dev) for k, v in
+                                      batch.items()}, chunk=16)
+        loss.backward()
+        out[str(dev)] = (float(loss), [t.grad for t in tree_leaves(p)],
+                         scan.launch_count("forward"),
+                         scan.launch_count("backward"))
+    (l0, g0, _, _), (l1, g1, f1, b1) = out["cpu"], out[str(cuda_device)]
+    assert (f1, b1) == (2 * cfg.n_layers, cfg.n_layers)
+    np.testing.assert_allclose(l1, l0, rtol=1e-3)
+    for a, b in zip(g1, g0):
+        assert _rel_l2(a, b) <= 5e-2
+    argv = ["--reduced", "--batch", "2", "--seq", "16", "--log-every", "100"]
+    full = train.main(argv + ["--steps", "6"])
+    ck = str(tmp_path / "ck")
+    train.main(argv + ["--steps", "4", "--ckpt-dir", ck])
+    resumed = train.main(argv + ["--steps", "6", "--ckpt-dir", ck,
+                                 "--resume"])
+    assert all(np.isfinite(full)) and len(resumed) == 2
+    np.testing.assert_allclose(resumed, full[4:], rtol=1e-3)
 
 
 def _to(tree, device):

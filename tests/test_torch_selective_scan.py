@@ -7,7 +7,13 @@ Di that need padding in the reference) and against the reference's
 associative-scan oracle ``selective_scan_ref`` over a seeded sweep of S, N
 and Di, at the reference test's own tolerance ``atol = rtol = 2e-4``.
 The impulse case checks that state carries across the whole sequence.
+
+Gradients: autograd through the plain version and the plain backward
+(``selective_scan_backward_plain``, the function the card's backward kernel
+is held against) each within ``1e-5 × max |g|`` of ``jax.grad`` of the
+reference's ``selective_scan_ref``, per operand.
 """
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -17,8 +23,9 @@ from repro.kernels.selective_scan import selective_scan as r_scan
 from repro.kernels.selective_scan import selective_scan_ref as r_scan_ref
 from _propcheck import integers, propcases, sampled_from
 
-from repro_torch.kernels.selective_scan import (launch_count, selective_scan,
-                                                selective_scan_plain)
+from repro_torch.kernels.selective_scan import (
+    launch_count, selective_scan, selective_scan_backward_plain,
+    selective_scan_plain, selective_scan_states_plain)
 
 TOL = dict(atol=2e-4, rtol=2e-4)        # tests/test_selective_scan.py
 
@@ -112,3 +119,69 @@ def test_cpu_tensors_take_the_plain_version():
     want = selective_scan_plain(dA, dBx, C)
     assert torch.equal(selective_scan(dA, dBx, C), want)
     assert launch_count() == before
+
+
+GRAD_SHAPES = [(1, 1, 2, 32), (2, 33, 4, 130), (1, 70, 8, 24),
+               (2, 17, 2, 16)]
+GRAD_RTOL = 1e-5                        # × max |g| of each operand
+
+
+def _ref_grads(dA, dBx, C, gy):
+    """jax.grad of Σ y ⊙ gy through the reference's associative scan."""
+    f = lambda a, x, c: jnp.sum(r_scan_ref(a, x, c) * gy)
+    return [np.asarray(g) for g in jax.grad(f, argnums=(0, 1, 2))(
+        jnp.asarray(dA), jnp.asarray(dBx), jnp.asarray(C))]
+
+
+def _close_to(got, want, what):
+    for name, g, w in zip(("dA", "dBx", "C"), got, want):
+        g = g.detach().numpy() if isinstance(g, torch.Tensor) else g
+        top = float(np.abs(w).max())
+        err = float(np.abs(g - w).max())
+        assert err <= GRAD_RTOL * top, (what, name, err, top)
+
+
+@pytest.mark.parametrize("shape", GRAD_SHAPES, ids=str)
+def test_plain_autograd_matches_reference_grad(shape):
+    B, S, N, Di = shape
+    rng = np.random.default_rng(sum(shape))
+    dA, dBx, C = _mk(rng, B, S, N, Di)
+    gy = rng.standard_normal((B, S, Di)).astype(np.float32)
+    ts = [torch.from_numpy(a).requires_grad_() for a in (dA, dBx, C)]
+    y = selective_scan(*ts)
+    got = torch.autograd.grad(y, ts, torch.from_numpy(gy))
+    _close_to(got, _ref_grads(dA, dBx, C, gy), "autograd")
+
+
+@pytest.mark.parametrize("shape", GRAD_SHAPES, ids=str)
+def test_plain_backward_matches_reference_grad_and_autograd(shape):
+    B, S, N, Di = shape
+    rng = np.random.default_rng(1 + sum(shape))
+    dA, dBx, C = _mk(rng, B, S, N, Di)
+    gy = rng.standard_normal((B, S, Di)).astype(np.float32)
+    tA, tX, tC, tg = (torch.from_numpy(a) for a in (dA, dBx, C, gy))
+    h = selective_scan_states_plain(tA, tX)
+    assert torch.equal((h * tC[..., None]).sum(2),
+                       selective_scan_plain(tA, tX, tC))
+    got = selective_scan_backward_plain(tA, tC, h, tg)
+    assert [tuple(g.shape) for g in got] == [(B, S, N, Di), (B, S, N, Di),
+                                             (B, S, N)]
+    _close_to(got, _ref_grads(dA, dBx, C, gy), "plain backward")
+    ts = [t.clone().requires_grad_() for t in (tA, tX, tC)]
+    auto = torch.autograd.grad(selective_scan_plain(*ts), ts, tg)
+    _close_to(got, [a.numpy() for a in auto], "plain backward vs autograd")
+
+
+def test_backward_impulse_reaches_step_zero():
+    """A cotangent at the last step only must reach dBx at step 0 through
+    S − 1 decays."""
+    B, S, N, Di = 1, 64, 2, 16
+    dA = torch.full((B, S, N, Di), 0.95)
+    C = torch.ones((B, S, N))
+    gy = torch.zeros((B, S, Di))
+    gy[:, -1] = 1.0
+    h = selective_scan_states_plain(dA, torch.ones_like(dA))
+    _, g_dBx, _ = selective_scan_backward_plain(dA, C, h, gy)
+    torch.testing.assert_close(g_dBx[0, 0], torch.full((N, Di),
+                                                       0.95 ** (S - 1)),
+                               rtol=1e-5, atol=0)
