@@ -4,6 +4,8 @@
     python3 chip_compare.py spmm ROOT [ROOT ...]
     python3 chip_compare.py sddmm ROOT [ROOT ...]
     python3 chip_compare.py serve ROOT [ROOT ...]
+    python3 chip_compare.py scan ROOT [ROOT ...]
+    python3 chip_compare.py gat ROOT [ROOT ...]
     python3 chip_compare.py sddmm-sum
 
 ``spmm`` times the ParamSpMM rows of ``chip_smoke.py``'s timing phase
@@ -253,6 +255,159 @@ def run_serve(roots: list) -> int:
     return 0
 
 
+# --------------------------------------------------------------- scan
+SCAN_SEED = 9
+
+
+def _profiled_ms(fn, reps=10):
+    """(device ms per call of the scan kernels, of every kernel) from one
+    ``torch.profiler`` window over ``reps`` calls after a warm-up."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    scan = every = 0.0
+    for e in prof.key_averages():
+        t = getattr(e, "device_time_total", None)
+        if t is None:
+            t = getattr(e, "cuda_time_total", 0.0)
+        every += t
+        if "selective_scan" in e.key:
+            scan += t
+    return scan / 1e3 / reps, every / 1e3 / reps
+
+
+def scan_rows(root: Path) -> list:
+    """The scan's three kernels of ``root`` at ``SCAN_BWD_TIMED``."""
+    import hashlib
+    import torch
+    device = _need_card()
+    cs = _smoke(root)
+    cs.build.build(["selective_scan"])
+    from repro_torch.core.autotune import time_fn
+    from repro_torch.kernels.selective_scan import ops
+    chunked = hasattr(ops, "CHUNK")            # chunk states, not every h
+    rows = []
+    for shape in cs.SCAN_BWD_TIMED:
+        B, S, N, Di = shape
+        g = torch.Generator(device=device).manual_seed(SCAN_SEED)
+        dA = torch.rand(shape, generator=g, device=device) * 0.79 + 0.2
+        dBx = torch.randn(shape, generator=g, device=device) * 0.1
+        C = torch.randn((B, S, N), generator=g, device=device)
+        gy = torch.randn((B, S, Di), generator=g, device=device)
+        fwd = lambda: ops._launch(dA, dBx, C)
+        if chunked:
+            train = lambda: ops._launch(dA, dBx, C, states=True)
+            kept = train()[1]
+            bwd = lambda: ops.selective_scan_backward(dA, dBx, C, kept, gy)
+        else:
+            train = lambda: ops._launch(dA, dBx, C, keep_h=True)
+            kept = train()[1]
+            bwd = lambda: ops.selective_scan_backward(dA, C, kept, gy)
+        y = fwd()[0]
+        torch.cuda.synchronize()
+        row = {"at": str(shape), "kept": "chunk states" if chunked
+               else "every h", "kept_bytes": kept.numel() * 4,
+               "y_sha256": hashlib.sha256(
+                   y.cpu().numpy().tobytes()).hexdigest(),
+               "train_y_equal": bool(torch.equal(train()[0], y))}
+        for name, fn in (("forward", fwd), ("train_forward", train),
+                         ("backward", bwd)):
+            row[f"{name}_ms"] = time_fn(fn, reps=20, warmup=3) * 1e3
+            (row[f"{name}_kernel_device_ms"],
+             row[f"{name}_all_device_ms"]) = _profiled_ms(fn)
+        rows.append(row)
+        del dA, dBx, C, gy, kept, y
+        torch.cuda.empty_cache()
+    return rows
+
+
+SCAN_COLS = ("forward", "train_forward", "backward")
+
+
+def _scan_cell(r, k):
+    return (f"{r[k + '_ms']:.4f} ({r[k + '_kernel_device_ms']:.4f} / "
+            f"{r[k + '_all_device_ms']:.4f})")
+
+
+def run_scan(roots: list) -> int:
+    import numpy as np
+    runs = _runs("scan", roots)
+    print("run | root | at | kept | " + " | ".join(
+        f"{k} ms (kernel / all, profiler)" for k in SCAN_COLS)
+        + " | y sha256 | training y equal")
+    for run in runs:
+        for r in run["rows"]:
+            print(f"{run['run']} | {run['root']} | {r['at']} | {r['kept']} | "
+                  + " | ".join(_scan_cell(r, k) for k in SCAN_COLS)
+                  + f" | {r['y_sha256'][:16]} | {r['train_y_equal']}")
+    print("root | at | rows | " + " | ".join(
+        f"median {k} ms (min–max)" for k in SCAN_COLS))
+    for root in dict.fromkeys(roots):
+        for at in dict.fromkeys(r["at"] for run in runs
+                                for r in run["rows"]):
+            rows = [r for run in runs if run["root"] == root
+                    for r in run["rows"] if r["at"] == at]
+            cols = [[r[k + "_ms"] for r in rows] for k in SCAN_COLS]
+            print(f"{root} | {at} | {len(rows)} | " + " | ".join(
+                f"{np.median(c):.4f} ({min(c):.4f}–{max(c):.4f})"
+                for c in cols))
+    for at in dict.fromkeys(r["at"] for run in runs for r in run["rows"]):
+        hashes = {r["y_sha256"] for run in runs for r in run["rows"]
+                  if r["at"] == at}
+        print(f"{at}: inference forward output "
+              + ("the same bits in every run" if len(hashes) == 1
+                 else f"{len(hashes)} different hashes"))
+    OUT.mkdir(parents=True, exist_ok=True)
+    (OUT / "compare_scan.json").write_text(json.dumps(runs, indent=1))
+    return 0
+
+
+# ---------------------------------------------------------------- gat
+def gat_rows(root: Path) -> list:
+    """``root``'s phase-6 GAT training on the 131k task: ms per step,
+    device ms per step by kernel family, and whether its two runs agree
+    bit for bit."""
+    device = _need_card()
+    cs = _smoke(root)
+    cs.build.build()
+    res, per_step, dev, spans, prof_ms, ran = cs.train_on_card(
+        cs._large_task(), "gat", device, 5)
+    return [{"model": "gat", "nodes": cs._large_task().csr.n_rows,
+             "ms_per_step": res.seconds_per_step * 1e3,
+             "device_ms_per_step": dev, "losses": res.losses,
+             "val_acc": res.val_acc}]
+
+
+def run_gat(roots: list) -> int:
+    import numpy as np
+    runs = _runs("gat", roots)
+    fams = list(runs[0]["rows"][0]["device_ms_per_step"])
+    print("run | root | ms/step | " + " | ".join(f"{k} device ms"
+                                                for k in fams))
+    for run in runs:
+        for r in run["rows"]:
+            print(f"{run['run']} | {run['root']} | {r['ms_per_step']:.3f} | "
+                  + " | ".join(f"{r['device_ms_per_step'][k]:.4f}"
+                               for k in fams))
+    print("root | rows | median other device ms (min–max) | losses of "
+          "every run the same bits")
+    for root in dict.fromkeys(roots):
+        rows = [r for run in runs if run["root"] == root
+                for r in run["rows"]]
+        other = [r["device_ms_per_step"]["other"] for r in rows]
+        same = len({tuple(r["losses"]) for r in rows}) == 1
+        print(f"{root} | {len(rows)} | {np.median(other):.4f} "
+              f"({min(other):.4f}–{max(other):.4f}) | {same}")
+    OUT.mkdir(parents=True, exist_ok=True)
+    (OUT / "compare_gat.json").write_text(json.dumps(runs, indent=1))
+    return 0
+
+
 # ---------------------------------------------------------- sddmm-sum
 def _sum_variant_libs(cs):
     """The shipped ``sddmm_softmax`` library and the same source built
@@ -346,7 +501,8 @@ def run_sddmm_sum() -> int:
 
 def main(argv) -> int:
     rows = {"_spmm_rows": spmm_rows, "_sddmm_rows": sddmm_rows,
-            "_serve_rows": serve_rows}
+            "_serve_rows": serve_rows, "_scan_rows": scan_rows,
+            "_gat_rows": gat_rows}
     if len(argv) == 2 and argv[0] in rows:
         print(json.dumps(rows[argv[0]](Path(argv[1]))))
         return 0
@@ -356,6 +512,10 @@ def main(argv) -> int:
         return run_sddmm(argv[1:])
     if len(argv) >= 2 and argv[0] == "serve":
         return run_serve(argv[1:])
+    if len(argv) >= 2 and argv[0] == "scan":
+        return run_scan(argv[1:])
+    if len(argv) >= 2 and argv[0] == "gat":
+        return run_gat(argv[1:])
     if argv == ["sddmm-sum"]:
         return run_sddmm_sum()
     sys.exit(__doc__)

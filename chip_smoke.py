@@ -57,12 +57,15 @@ Runs from the root of a checkout and drives ``src/repro_torch`` only
    GAT with 4 heads, see ``MH_RTOL``); kernel launches per step checked
    against the model's structure; ms per step from a run without the
    profiler, and the device time per step by kernel family from a second
-   run under ``torch.profiler``;
+   run under ``torch.profiler``; the two runs of GAT and GAT_MH give
+   bit-equal losses and the same val_acc;
 6. training at real size — the same models for 5 steps on
    ``community_task(n_blocks=16, block_size=8192, p_in=0.0025)`` (131,072
-   nodes): losses finite and falling, ms per step, the kernels' share;
-   the raw SDDMM's launches in phases 5 and 6 are counted by operand shape
-   (H, n_rows, d);
+   nodes): losses finite and falling, ms per step, the kernels' share,
+   GAT's two runs bit-equal as in phase 5, and the GAT message's backward
+   twice on the same inputs giving the same bits; the raw SDDMM's
+   launches in phases 5 and 6 are counted by operand shape (H, n_rows,
+   d);
 7. timing — CUDA events after warm-up, at a serving shape, on rmat17 and
    on ``corpus("large")``'s kreg150k (uniform degree), at dim 64, and the
    raw SDDMM also on the GAT training packs of phases 5 and 6 (1,024 and
@@ -204,14 +207,17 @@ Runs from the root of a checkout and drives ``src/repro_torch`` only
 19. LM training (runs after phase 12) — the scan's backward kernel
     through ``selective_scan``'s autograd path against
     ``selective_scan_backward_plain`` and against autograd through the
-    plain loop, over B ∈ {1, 2} × S ∈ {1, 33, 1024} × N ∈ {2, 16, 32} ×
-    Di ∈ {64, 130, 3200} plus (2, 2048, 16, 3200), (1, 4096, 16, 3200)
-    and the training paths' own shapes, within 1e-4 × max |g| per operand
-    (two launches bit-equal; a cotangent at the last step reaching step
-    0); Hymba-1.5B at full width and 4 layers, B = 2, S = 128, card vs CPU
-    on the same parameters: the loss within ``rtol=1e-3``, every gradient
-    leaf within 5e-2 relative L2, and three ``build_step`` steps within
-    ``rtol=1e-2``; at the live mamba weights of phases 9–11 the card's
+    plain loop, over B ∈ {1, 2} × S ∈ {1, 33, 63, 64, 65, 1024} × N ∈
+    {2, 16, 32} × Di ∈ {64, 130, 3200} (S around the 64-step chunk of the
+    training forward's states) plus (2, 2048, 16, 3200), (1, 4096, 16,
+    3200) and the training paths' own shapes, each also at B = 1, within
+    1e-4 × max |g| per operand; the training forward's chunk states
+    against the plain ones and its y the inference forward's bits (two
+    backward launches bit-equal; a cotangent at the last step reaching
+    step 0); Hymba-1.5B at full width and 4 layers, B = 2, S = 128, card
+    vs CPU on the same parameters: the loss within ``rtol=1e-3``, every
+    gradient leaf within 5e-2 relative L2, and three ``build_step`` steps
+    within ``rtol=1e-2``; at the live mamba weights of phases 9–11 the card's
     kernels against its plain scan at the same tolerances; ``launch/train.py``
     at full config with the reference CLI's B = 8, S = 64 for 10 steps
     (``FULL_LR``): losses finite and falling, ms/step, tokens/s, peak
@@ -225,7 +231,8 @@ Runs from the root of a checkout and drives ``src/repro_torch`` only
     held against the plain scan on its own operands (``_scan_held``; the
     CLI and resume runs start from ``init_params``, whose zero ``bc_w``
     leaves their scans at 0, as in the reference).  Then the backward
-    kernel's timings beside its bound.
+    kernel's, the training forward's and the inference forward's timings,
+    each beside its bound and its share of it.
 Each main path (serving per model, each pass of each phase-15 service,
 training per model, each oracle search, each 131k baseline-comparison
 run, each distributed run on each rank, each dynamic batch's operators,
@@ -274,7 +281,8 @@ from repro_torch.configs.base import SHAPES, ShapeCell  # noqa: E402
 from repro_torch.kernels import build  # noqa: E402
 from repro_torch.kernels import selective_scan as scan  # noqa: E402
 from repro_torch.kernels.selective_scan import (  # noqa: E402
-    selective_scan_backward_plain, selective_scan_plain,
+    selective_scan_backward_from_states_plain, selective_scan_backward_plain,
+    selective_scan_chunk_states_plain, selective_scan_plain,
     selective_scan_states_plain)
 from repro_torch.launch.serve import generate  # noqa: E402
 from repro_torch.models import lm  # noqa: E402
@@ -1549,6 +1557,15 @@ def train_on_card(task, name, device, steps):
         res_p, counts_p = _train_counted(task, name, device, steps,
                                          on_step=lambda _: prof.step())
     check(len(saved) == 1, f"{name}: {len(saved)} profiler windows")
+    if model == "gat":
+        # no atomic sum in the GAT backward: the second run repeats the
+        # first bit for bit
+        check(res_p.losses == res.losses and res_p.val_acc == res.val_acc,
+              f"{name}: two runs differ (losses {res.losses} and "
+              f"{res_p.losses}, val_acc {res.val_acc} and {res_p.val_acc})")
+        print(f"[determinism] {name} on {task.csr.n_rows} nodes: two runs "
+              f"of {steps} steps give bit-equal losses and the same val_acc "
+              f"({res.val_acc:.6f})")
     # device ms per steady step by kernel family: our kernels as the
     # profiler's time per wrapper launch (main kernel and merge together,
     # over the main kernel's count) × the launches a step makes (the
@@ -1654,6 +1671,29 @@ def phase_train(device, *, steps=10):
               f"{np.array2string(rel, precision=2)}), val_acc equal")
         rows.append(row)
     return rows, launches
+
+
+def gat_backward_twice(task, device, dim=64):
+    """The GAT message's backward twice on the same inputs on ``task``'s
+    GAT training pack at width ``dim``: the gradients must be the same
+    bits (the softmax vjp's row sum takes no atomic)."""
+    op = ParamSpMM(task.csr.gcn_normalize(), dim, op="gat", device=device)
+    f = engine.make_gat_message_fn(op.op.pcsr, op.op.pcsr_t)
+    g = torch.Generator(device=device).manual_seed(3)
+    n = op.op.pcsr.n_rows
+    Q, K, Vf, dOut = (torch.randn((n, dim), generator=g, device=device)
+                      for _ in range(4))
+    grads = []
+    for _ in range(2):
+        args = [t.clone().requires_grad_() for t in (Q, K, Vf)]
+        grads.append(torch.autograd.grad(f(*args), args, dOut))
+    torch.cuda.synchronize()
+    same = all(torch.equal(a, b) for a, b in zip(*grads))
+    check(same, f"GAT message backward on {n} nodes: two calls gave other "
+          "bits")
+    print(f"[determinism] GAT message backward on {n} nodes at width {dim}: "
+          "two calls give the same bits (dQ, dK, dVf)")
+    return same
 
 
 @functools.lru_cache(maxsize=1)
@@ -4239,7 +4279,8 @@ def time_scan(device):
 
 # ------------------------------------------------------- LM training (19)
 SCAN_BWD_RTOL = 1e-4                 # kernel grads vs plain, × max |g|
-SCAN_BWD_GRID = ((1, 2), (1, 33, 1024), (2, 16, 32), (64, 130, 3200))
+SCAN_BWD_GRID = ((1, 2), (1, 33, 63, 64, 65, 1024), (2, 16, 32),
+                 (64, 130, 3200))
 SCAN_BWD_TIMED = ((2, 2048, 16, 3200), (1, 4096, 16, 3200))
 
 
@@ -4249,16 +4290,22 @@ def _scan_shape(cfg, B, S):
 
 
 # beside the timed shapes, the training paths' own: (c)'s train CLI, (b)'s
-# card against the CPU, (e)'s reduced config
+# card against the CPU, (e)'s reduced config; each also at B = 1
 SCAN_BWD_SHAPES = SCAN_BWD_TIMED + (
     _scan_shape(get_config("hymba-1.5b"), 8, 64),
     _scan_shape(get_config("hymba-1.5b"), 2, 128),
     _scan_shape(get_reduced("hymba-1.5b"), 8, 64))
+SCAN_BWD_SHAPES += tuple(dict.fromkeys(
+    (1,) + s[1:] for s in SCAN_BWD_SHAPES if s[0] != 1))
 TRAIN_LOSS_RTOL = 1e-3               # card vs CPU, one loss
 TRAIN_GRAD_REL_L2 = 5e-2             # card vs CPU, each gradient leaf
 TRAIN_STEPS_RTOL = 1e-2              # card vs CPU, three AdamW steps
 RESUME_RTOL = 1e-3                   # resumed vs uninterrupted losses
 TRAIN_LR = 3e-3                      # launch/train.py's default
+# peak memory of the B = 1, S = 4096 step: the training forward that kept
+# every h (B, S, N, Di) for the backward peaked at 45.01 GiB on one H100;
+# keeping chunk states and dA/dBx instead may not add more than 1 GiB
+TRAIN_4K_PEAK_MAX = int((45.01 + 1) * 2 ** 30)
 # the full config at 32 layers from its N(0, 0.02) init: at the CLI's
 # default 3e-3 (sized for the reduced configs) AdamW's first steps
 # overshoot and the loss rises (10.658 → 11.751 over 10 steps at B = 8,
@@ -4291,9 +4338,10 @@ def _scan_held(into, name):
     """While the block runs, every launch of the scan's forward and
     backward kernels is also computed by its plain version on the same
     CUDA tensors and held against it: y within ``SCAN_RTOL`` × max |y|
-    (phase 11's rule), the kept hidden states within ``SCAN_RTOL`` ×
-    max |h|, each of the backward's three gradients within
-    ``SCAN_BWD_RTOL`` × max |g| (a zero maximum asks for exact zeros).  It
+    (phase 11's rule), the kept chunk states within ``SCAN_RTOL`` × their
+    max, each of the backward's three gradients (against the plain
+    backward from the same chunk states) within ``SCAN_BWD_RTOL`` × max
+    |g| (a zero maximum asks for exact zeros).  It
     wraps ``ops._launch`` and ``ops.selective_scan_backward``, through
     which ``selective_scan`` and its autograd function launch, so the
     operands are the path's own.  The kernel's result goes on.  Stores the
@@ -4314,21 +4362,22 @@ def _scan_held(into, name):
               f"{err:.3e} (max {top:.3e})")
         return (err / top if top else 0.0), top
 
-    def fwd(dA, dBx, C, keep_h=False):
-        y, h = launch(dA, dBx, C, keep_h=keep_h)
+    def fwd(dA, dBx, C, states=False):
+        y, st = launch(dA, dBx, C, states=states)
         r, top = held("y", y, selective_scan_plain(dA, dBx, C), SCAN_RTOL)
-        if h is not None:
-            r = max(r, held("h", h, selective_scan_states_plain(dA, dBx),
-                            SCAN_RTOL)[0])
+        if st is not None:
+            r = max(r, held("states", st, selective_scan_chunk_states_plain(
+                dA, dBx, scan.CHUNK), SCAN_RTOL)[0])
         rec["forward"] += 1
         rec["fwd_rel_err"] = max(rec["fwd_rel_err"], r)
         rec["max_abs_y"] = max(rec["max_abs_y"], top)
         rec["shapes"].add(tuple(dA.shape))
-        return y, h
+        return y, st
 
-    def bwd(dA, C, h, gy):
-        got = backward(dA, C, h, gy)
-        want = selective_scan_backward_plain(dA, C, h, gy)
+    def bwd(dA, dBx, C, states, gy):
+        got = backward(dA, dBx, C, states, gy)
+        want = selective_scan_backward_from_states_plain(dA, dBx, C, states,
+                                                         gy, scan.CHUNK)
         for what, a, b in zip(("g_dA", "g_dBx", "g_C"), got, want):
             r, top = held(what, a, b, SCAN_BWD_RTOL)
             rec["bwd_rel_err"] = max(rec["bwd_rel_err"], r)
@@ -4358,14 +4407,18 @@ def phase_scan_backward_grid(device):
     autograd path (one forward and one backward launch a call) against
     ``selective_scan_backward_plain`` and against autograd through
     ``selective_scan_plain`` on the same CUDA tensors, over B ∈ {1, 2} ×
-    S ∈ {1, 33, 1024} × N ∈ {2, 16, 32} × Di ∈ {64, 130, 3200}, plus
-    ``SCAN_BWD_SHAPES`` (the timed shapes and the training paths'): within
-    ``SCAN_BWD_RTOL`` × max |g| per operand.  Two backward launches give
-    the same bits; a cotangent at the last step reaches step 0.  Launches
-    here are comparisons, not a main path."""
+    S ∈ {1, 33, 63, 64, 65, 1024} × N ∈ {2, 16, 32} × Di ∈ {64, 130,
+    3200}, plus ``SCAN_BWD_SHAPES`` (the timed shapes and the training
+    paths', each also at B = 1): within
+    ``SCAN_BWD_RTOL`` × max |g| per operand; on each, the training
+    forward's chunk states within ``SCAN_RTOL`` × their max of the plain
+    ones and its y the inference forward's bits.  Two backward launches
+    give the same bits; a cotangent at the last step reaches step 0.
+    Launches here are comparisons, not a main path."""
     import itertools
+    from repro_torch.kernels.selective_scan import ops as scan_ops
     shapes = list(itertools.product(*SCAN_BWD_GRID)) + list(SCAN_BWD_SHAPES)
-    worst = {"plain": 0.0, "autograd": 0.0, "abs": 0.0}
+    worst = {"plain": 0.0, "autograd": 0.0, "abs": 0.0, "states": 0.0}
     for i, shape in enumerate(shapes):
         dA, dBx, C = _scan_operands(shape, device, seed=100 + i)
         gy = torch.randn(shape[:2] + shape[3:], device=device,
@@ -4386,23 +4439,35 @@ def phase_scan_backward_grid(device):
         a, r = _grad_errors(got, _scan_grads(selective_scan_plain, dA, dBx,
                                              C, gy), shape, "vs autograd")
         worst["autograd"] = max(worst["autograd"], r)
-        del dA, dBx, C, gy, got, h
+        y, st = scan_ops._launch(dA, dBx, C, states=True)
+        y0, _ = scan_ops._launch(dA, dBx, C)
+        want = selective_scan_chunk_states_plain(dA, dBx, scan.CHUNK)
+        torch.cuda.synchronize()
+        check(torch.equal(y, y0), f"scan {shape}: the training forward's y "
+              "is not the inference forward's")
+        top = float(want.abs().max())
+        err = float((st - want).abs().max())
+        check(st.shape == want.shape and err <= SCAN_RTOL * top,
+              f"scan {shape}: chunk states off by {err:.3e} (max {top:.3e})")
+        worst["states"] = max(worst["states"], err / top if top else err)
+        del dA, dBx, C, gy, got, h, y, y0, st, want
     dA, dBx, C = _scan_operands(SCAN_BWD_TIMED[0], device, seed=7)
-    h = selective_scan_states_plain(dA, dBx)
+    _, st = scan_ops._launch(dA, dBx, C, states=True)
     gy = torch.randn(dA.shape[:2] + dA.shape[3:], device=device)
-    one = scan.selective_scan_backward(dA, C, h, gy)
-    two = scan.selective_scan_backward(dA, C, h, gy)
+    one = scan.selective_scan_backward(dA, dBx, C, st, gy)
+    two = scan.selective_scan_backward(dA, dBx, C, st, gy)
     torch.cuda.synchronize()
     check(all(torch.equal(a, b) for a, b in zip(one, two)),
           "two backward launches gave other bits")
-    del dA, dBx, C, h, gy, one, two
+    del dA, dBx, C, st, gy, one, two
     B, S, N, Di = 1, 1024, 2, 130
     dA = torch.full((B, S, N, Di), 0.999, device=device)
     gy = torch.zeros((B, S, Di), device=device)
     gy[:, -1] = 1.0
+    ones = torch.ones_like(dA)
     _, g_dBx, _ = scan.selective_scan_backward(
-        dA, torch.ones((B, S, N), device=device),
-        selective_scan_states_plain(dA, torch.ones_like(dA)), gy)
+        dA, ones, torch.ones((B, S, N), device=device),
+        selective_scan_chunk_states_plain(dA, ones, scan.CHUNK), gy)
     torch.cuda.synchronize()
     first = g_dBx[0, 0].double().cpu()
     want = 0.999 ** (S - 1)
@@ -4413,7 +4478,10 @@ def phase_scan_backward_grid(device):
           f"{SCAN_BWD_RTOL} × max |g| (largest err / max |g|: vs the plain "
           f"backward {worst['plain']:.3e} (max abs {worst['abs']:.3e}), vs "
           f"autograd through the plain "
-          f"loop {worst['autograd']:.3e}); two launches bit-equal; impulse "
+          f"loop {worst['autograd']:.3e}); training forward's chunk states "
+          f"within {SCAN_RTOL} × max (largest err / max "
+          f"{worst['states']:.3e}), its y the inference forward's bits; "
+          f"two launches bit-equal; impulse "
           f"at step {S - 1} reaching step 0 ({float(first[0, 0]):.6f}, want "
           f"{want:.6f})")
     return len(shapes) + 2, worst
@@ -4759,6 +4827,9 @@ def phase_lm_train(device):
     torch.cuda.empty_cache()
 
     long = _train_timed(cfg, device, 1, SHAPES["train_4k"].seq_len, 5, held)
+    check(long["peak_bytes"] <= TRAIN_4K_PEAK_MAX, f"B=1 S={long['seq']}: "
+          f"peak memory {long['peak_bytes'] / 2**30:.2f} GiB, over "
+          f"{TRAIN_4K_PEAK_MAX / 2**30:.2f}")
     print(f"[lm train] build_step B=1 S={long['seq']}, 5 steps: "
           f"{long['mean_ms_steps_1_on']:.1f} ms/step (steps 1-4; "
           + " / ".join(f"{t:.1f}" for t in long["ms_per_step"])
@@ -4834,12 +4905,19 @@ def _train_resume(device, held):
             "max_rel_diff": diff, "launches": launches}
 
 
-def _scan_backward_bound(shape):
-    """Least time for the backward: dA and h read and g_dA and g_dBx
-    written (16 bytes per state element and step), gy and C read and g_C
-    written, over the HBM rate."""
+def _scan_states_bytes(shape):
+    """Bytes of the chunk states (B, ⌈S/64⌉, N, Di) float32."""
     B, S, N, Di = shape
-    nbytes = 4 * (4 * B * S * N * Di + B * S * Di + 2 * B * S * N)
+    return 4 * B * -(-S // scan.CHUNK) * N * Di
+
+
+def _scan_backward_bound(shape):
+    """Least time for the backward: dA and dBx read and g_dA and g_dBx
+    written (16 bytes per state element and step), the chunk states, gy
+    and C read and g_C written, over the HBM rate."""
+    B, S, N, Di = shape
+    nbytes = (4 * (4 * B * S * N * Di + B * S * Di + 2 * B * S * N)
+              + _scan_states_bytes(shape))
     return nbytes / HBM_BYTES_PER_S * 1e3, "bytes"
 
 
@@ -4847,41 +4925,62 @@ def time_scan_backward(device):
     """[timing]: the backward kernel (CUDA events; its device time from
     ``core.autotune.time_fn``, events with the stream held, since a
     ``torch.profiler`` window after phase 19's under-counted it) and its
-    plain version at (2, 2048, 16, 3200) and (1, 4096, 16, 3200), beside
-    its bytes bound; and the forward kernel writing h (the training
-    forward) beside the forward alone.  ``library_ms`` is null: no
-    PyTorch call computes the scan's gradient."""
+    plain version (from the same chunk states) at (2, 2048, 16, 3200) and
+    (1, 4096, 16, 3200), beside its bytes bound; and the training forward
+    (writing the chunk states) beside the inference forward, device times
+    in the order inference, training, training, inference, each the mean
+    of its two.  Each with its share of its bound.  ``library_ms`` is
+    null: no PyTorch call computes the scan's gradient."""
     from repro_torch.core.autotune import time_fn
     from repro_torch.kernels.selective_scan import ops as scan_ops
     rows = []
     for shape in SCAN_BWD_TIMED:
         dA, dBx, C = _scan_operands(shape, device, seed=9)
-        h = selective_scan_states_plain(dA, dBx)
+        _, st = scan_ops._launch(dA, dBx, C, states=True)
         gy = torch.randn(shape[:2] + shape[3:], device=device)
-        bwd = lambda: scan.selective_scan_backward(dA, C, h, gy)
+        bwd = lambda: scan.selective_scan_backward(dA, dBx, C, st, gy)
+        fwd = {False: lambda: scan_ops._launch(dA, dBx, C),
+               True: lambda: scan_ops._launch(dA, dBx, C, states=True)}
+        fwd_ms = {False: [], True: []}
+        for keep in (False, True, True, False):
+            fwd_ms[keep].append(time_fn(fwd[keep], reps=20, warmup=3) * 1e3)
         row = {"at": f"{shape}", "shape": list(shape),
                "ms": cuda_ms(bwd, reps=20),
                "device_ms": time_fn(bwd, reps=20, warmup=3) * 1e3,
-               "plain_ms": cuda_ms(lambda: selective_scan_backward_plain(
-                   dA, C, h, gy), reps=2, warmup=1),
+               "plain_ms": cuda_ms(
+                   lambda: selective_scan_backward_from_states_plain(
+                       dA, dBx, C, st, gy, scan.CHUNK), reps=2, warmup=1),
                "library_ms": None,
-               "forward_ms": cuda_ms(lambda: scan_ops._launch(dA, dBx, C),
-                                     reps=20),
-               "forward_with_h_ms": cuda_ms(lambda: scan_ops._launch(
-                   dA, dBx, C, keep_h=True), reps=20)}
+               "forward_device_ms": float(np.mean(fwd_ms[False])),
+               "forward_states_device_ms": float(np.mean(fwd_ms[True])),
+               "forward_device_ms_runs": fwd_ms[False],
+               "forward_states_device_ms_runs": fwd_ms[True]}
         row["bound_ms"], row["bound_by"] = _scan_backward_bound(shape)
-        row["forward_with_h_bound_ms"] = (_scan_bound(shape)[0]
-                                          + 4 * dA.numel() / HBM_BYTES_PER_S
-                                          * 1e3)
+        row["forward_bound_ms"] = _scan_bound(shape)[0]
+        row["forward_states_bound_ms"] = (row["forward_bound_ms"]
+                                          + _scan_states_bytes(shape)
+                                          / HBM_BYTES_PER_S * 1e3)
+        row["share_of_bound"] = row["bound_ms"] / row["device_ms"]
+        row["forward_share_of_bound"] = (row["forward_bound_ms"]
+                                         / row["forward_device_ms"])
+        row["forward_states_share_of_bound"] = (
+            row["forward_states_bound_ms"] / row["forward_states_device_ms"])
+        ratio = row["forward_states_device_ms"] / row["forward_device_ms"]
         print(f"[time] selective_scan backward {shape}: kernel "
               f"{row['ms']:.4f} ms (device {row['device_ms']:.4f}), plain "
               f"{row['plain_ms']:.2f} ms, library none (no PyTorch call "
               f"computes the scan's gradient), bound {row['bound_ms']:.4f} ms "
-              f"({row['bound_by']}); forward {row['forward_ms']:.4f} ms, "
-              f"writing h {row['forward_with_h_ms']:.4f} ms (bound "
-              f"{row['forward_with_h_bound_ms']:.4f})")
+              f"({row['bound_by']}), {row['share_of_bound']:.1%} of it; "
+              f"training forward (chunk states) device "
+              f"{row['forward_states_device_ms']:.4f} ms (bound "
+              f"{row['forward_states_bound_ms']:.4f}, "
+              f"{row['forward_states_share_of_bound']:.1%}), inference "
+              f"forward device {row['forward_device_ms']:.4f} ms (bound "
+              f"{row['forward_bound_ms']:.4f}, "
+              f"{row['forward_share_of_bound']:.1%}): training / inference "
+              f"{ratio:.3f}")
         rows.append(row)
-        del dA, dBx, C, h, gy
+        del dA, dBx, C, st, gy
     return rows
 
 
@@ -4983,6 +5082,7 @@ def main() -> int:
         large_rows, large_launches = phase_train_large(device)
     print(f"[train large] {large_launches} launches in "
           f"{time.perf_counter() - t0:.1f} s")
+    gat_backward_twice(_large_task(), device)   # outside the shape tally
     t0 = time.perf_counter()
     baseline_rows, pack_row, baseline_launches = phase_baselines(device)
     print(f"[baselines] in {time.perf_counter() - t0:.1f} s")

@@ -182,17 +182,16 @@ class TransposeSide:
         return out.reshape(lead + self.shape)
 
 
-def _row_sum(x, rows, n_segments: int):
-    """Per-slot broadcast of Σ over each destination row's slots:
-    ``x`` is ``(..., C, V, K)``, ``rows`` its ``(C, V, K)`` slot rows."""
-    lead = x.shape[:-3]
-    flat = x.reshape(-1, rows.numel())                       # (H, S)
-    H = flat.shape[0]
-    seg = (torch.arange(H, device=x.device)[:, None] * n_segments
-           + rows.reshape(1, -1))
-    s = flat.new_zeros(H * n_segments).index_add_(0, seg.reshape(-1),
-                                                  flat.reshape(-1))
-    return s[seg].reshape(lead + tuple(rows.shape))
+def _row_dot(dOut, out, rows, n_segments: int):
+    """Per-slot broadcast of Σ_j α_ij·dα_ij over each destination row i,
+    taken as dOut_i · out_i (dα_ij = dOut_i · Vf_j and out_i = Σ_j α_ij
+    Vf_j): a product with the forward's output and a gather, no scatter.
+    ``dOut`` and ``out`` are ``(..., n_rows, dv)``, ``rows`` the ``(C, V,
+    K)`` slot rows; rows past ``n_rows`` (padding) give 0.  With no
+    atomic in the sum, two calls give the same bits."""
+    d = (dOut * out).sum(-1)
+    d = torch.nn.functional.pad(d, (0, n_segments - d.shape[-1]))
+    return d[..., rows]
 
 
 def _pad_rows(x, n: int):
@@ -217,21 +216,23 @@ class _GATMessage(torch.autograd.Function):
 
     Forward: the fused SDDMM → softmax-stats kernel, then the ParamSpMM
     kernel with its softmax prologue; α is never written out, and the
-    residuals are the logits and the two row stats.  Backward, flash
-    style (the reference's ``f_bwd``)::
+    residuals are the logits, the two row stats and the output.
+    Backward, flash style (the reference's ``f_bwd``)::
 
         α   = exp(logits − rowmax)/rowsum        (recomputed)
         dα  = SDDMM(pcsr, dOut, Vf)               (raw SDDMM kernel)
-        dx  = α ⊙ (dα − Σ_row α·dα)               (softmax vjp)
+        dx  = α ⊙ (dα − dOut·out)                 (softmax vjp)
         de  = dx · scale · LeakyReLU'(x)          (sign of the logits)
         dQ  = SpMM(pcsr,  de, K)                  (ParamSpMM, vals given)
         dK  = SpMM(pcsrᵀ, T(de), Q)
         dVf = SpMM(pcsrᵀ, T(α), dOut)
 
     ``T`` re-lays slot tensors onto Aᵀ's covered slots
-    (``TransposeSide.to_transpose``).  Masked, padding and coverage slots
-    carry logit −inf, so α = 0 there, and the raw SDDMM writes 0 there, so
-    they add exact zeros."""
+    (``TransposeSide.to_transpose``).  The vjp's Σ_row α·dα is dOut·out
+    per row (``_row_dot``): no atomic sum, so the backward is
+    deterministic.  Masked, padding and coverage slots carry logit −inf,
+    so α = 0 there, and the raw SDDMM writes 0 there, so they add exact
+    zeros."""
 
     @staticmethod
     def forward(ctx, Q, K_mat, Vf, spec: _GATSpec):
@@ -244,7 +245,7 @@ class _GATMessage(torch.autograd.Function):
             scale=float(1.0 / np.sqrt(Q.shape[-1])), slope=spec.slope)
         out = spmm_ops._call(spec.steer, Vf, vals=logits, rowmax=rowmax,
                              rowsum=rowsum, **g)
-        ctx.save_for_backward(Q, K_mat, Vf, logits, rowmax, rowsum)
+        ctx.save_for_backward(Q, K_mat, Vf, logits, rowmax, rowsum, out)
         ctx.spec = spec
         return out
 
@@ -252,7 +253,7 @@ class _GATMessage(torch.autograd.Function):
     def backward(ctx, dOut):
         from repro_torch.kernels.paramspmm import ops as spmm_ops
         from repro_torch.kernels.sddmm import ops as sddmm_ops
-        Q, K_mat, Vf, logits, rowmax, rowsum = ctx.saved_tensors
+        Q, K_mat, Vf, logits, rowmax, rowsum, out = ctx.saved_tensors
         spec, (need_q, need_k, need_v) = ctx.spec, ctx.needs_input_grad[:3]
         if spec.transpose is None:
             raise ValueError("the GAT message backward needs the transpose "
@@ -272,7 +273,7 @@ class _GATMessage(torch.autograd.Function):
             dalpha = sddmm_ops._call(steer, dOut, Vf, n_blocks=g["n_blocks"],
                                      R=R, V=V, K=K, n_rows=g["n_rows"])
             rows = _slot_rows(steer.lrow, steer.trow, V=V, R=R, K=K)
-            dx = alpha * (dalpha - _row_sum(alpha * dalpha, rows,
+            dx = alpha * (dalpha - _row_dot(dOut, out, rows,
                                             g["n_blocks"] * R))
             # LeakyReLU' from the saved logits: LeakyReLU keeps the sign,
             # and masked slots (−inf) have dx = 0, so their branch is inert

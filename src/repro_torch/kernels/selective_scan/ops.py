@@ -1,4 +1,4 @@
-"""The selective scan on tensors: the CUDA kernel's wrapper.
+"""The selective scan on tensors: the CUDA kernels' wrappers.
 
 ``selective_scan(dA, dBx, C)`` takes the JAX package's signature and
 shapes (``repro/kernels/selective_scan/ops.py``): dA/dBx ``(B, S, N,
@@ -11,16 +11,21 @@ other device an error.
 Gradients.  On the CPU autograd differentiates the plain version.  On the
 card, when grad is enabled and an operand requires it, the call goes
 through ``_Scan`` (a ``torch.autograd.Function``): its forward launches
-the forward kernel and has it write the hidden states ``h (B, S, N, Di)``
-float32 as well, its backward launches the backward kernel of the same
-source on them (the reference takes this gradient by XLA autodiff of its
-associative scan, ``repro/models/ssm.py:82-86``).  Without grad the
-forward kernel runs alone and keeps no ``h``.
+the forward kernel and has it write the hidden state at the end of every
+``CHUNK``-step chunk, ``states (B, ⌈S/CHUNK⌉, N, Di)`` float32, and saves
+``(dA, dBx, C, states)``; its backward launches the backward kernel of
+the same source, which rebuilds each chunk's hidden states from them (the
+reference takes this gradient by XLA autodiff of its associative scan,
+``repro/models/ssm.py:82-86``).  Without grad the forward kernel runs
+alone and keeps no states.
 
 Each launch adds one to ``launch_count("forward")`` or
-``launch_count("backward")``; ``launch_count()`` is their sum.
+``launch_count("backward")``; ``launch_count()`` is their sum.  The
+backward's one launch carries its chunks' cotangent from the last chunk
+to the first itself (a chained scan over blocks), so it has no helper
+launch; its per-slice partial sums of g_C are summed by one ``torch.sum``.
 
-Any ``S`` and ``Di`` are taken as they are: the kernel bounds-checks the
+Any ``S`` and ``Di`` are taken as they are: the kernels bounds-check the
 ragged ends, so nothing is padded (the reference pads S to its chunk and
 Di to 128 with the neutral dA = 1, dBx = 0).
 """
@@ -30,10 +35,13 @@ import ctypes
 
 import torch
 
-from .ref import selective_scan_plain
+from .ref import (selective_scan_backward_from_states_plain,
+                  selective_scan_plain)
 
-MAX_N = 32           # N · 16 threads in a block, N ≤ 32
-TD = 16              # Di columns per thread block (the kernels' kTD)
+MAX_N = 32           # N · 16 threads in a forward block, N ≤ 32
+CHUNK = 64           # steps per chunk state (the kernels' kChunk)
+BWD_TD = 32          # backward: Di columns per block (kBwdTD)
+BWD_TN = 4           # backward: states n per block (kBwdTN)
 KINDS = ("forward", "backward")
 
 _launches = dict.fromkeys(KINDS, 0)
@@ -60,7 +68,9 @@ _LIB = None
 
 
 def _lib():
-    """The kernels' shared library, built and bound on first use."""
+    """The kernels' shared library, built and bound on first use; its
+    chunk length and backward tile are checked against ``CHUNK``,
+    ``BWD_TD`` and ``BWD_TN``."""
     global _LIB
     if _LIB is None:
         from repro_torch.kernels import build
@@ -69,11 +79,18 @@ def _lib():
         lib.repro_selective_scan_f32.argtypes = [P, P, P, I, L, I, I, P, P,
                                                  P]
         lib.repro_selective_scan_f32.restype = ctypes.c_int
-        lib.repro_selective_scan_bwd_f32.argtypes = [P, P, P, P, I, L, I, I,
-                                                     P, P, P, P]
+        lib.repro_selective_scan_bwd_f32.argtypes = [P, P, P, P, P, I, L, I,
+                                                     I, P, P, P, P, P, P]
         lib.repro_selective_scan_bwd_f32.restype = ctypes.c_int
         lib.repro_cuda_error_string.argtypes = [ctypes.c_int]
         lib.repro_cuda_error_string.restype = ctypes.c_char_p
+        got = [ctypes.c_int() for _ in range(3)]
+        lib.repro_selective_scan_layout(*(ctypes.byref(v) for v in got))
+        if tuple(v.value for v in got) != (CHUNK, BWD_TD, BWD_TN):
+            raise RuntimeError("selective_scan.cu's layout (chunk, Di "
+                               "columns, states n) is "
+                               f"{tuple(v.value for v in got)}, the wrapper "
+                               f"takes {(CHUNK, BWD_TD, BWD_TN)}")
         _LIB = lib
     return _LIB
 
@@ -90,50 +107,82 @@ def _raise_on(err, what):
                            + _lib().repro_cuda_error_string(err).decode())
 
 
-def _launch(dA, dBx, C, keep_h=False):
-    """The forward kernel: → y, and the hidden states ``h`` when
-    ``keep_h`` (else None)."""
+def _chunks(S: int) -> int:
+    return -(-S // CHUNK)
+
+
+def _launch(dA, dBx, C, states=False):
+    """The forward kernel: → y, and the chunk states ``(B, ⌈S/CHUNK⌉, N,
+    Di)`` when ``states`` (else None)."""
     B, S, N, Di = dA.shape
     _check_limits(B, N)
     dA, dBx, C = (t.contiguous() for t in (dA, dBx, C))
     y = torch.empty((B, S, Di), dtype=torch.float32, device=dA.device)
-    h = torch.empty_like(dA) if keep_h else None
+    st = (torch.empty((B, _chunks(S), N, Di), dtype=torch.float32,
+                      device=dA.device) if states else None)
     if y.numel() == 0:
-        return y, h
+        return y, st
     lib = _lib()
     with torch.cuda.device(dA.device):
         stream = torch.cuda.current_stream(dA.device).cuda_stream
         err = lib.repro_selective_scan_f32(
             dA.data_ptr(), dBx.data_ptr(), C.data_ptr(), B, S, N, Di,
-            y.data_ptr(), None if h is None else h.data_ptr(), stream)
+            y.data_ptr(), None if st is None else st.data_ptr(), stream)
     _raise_on(err, "selective_scan")
     count_launches(1, "forward")
-    return y, h
+    return y, st
 
 
-def selective_scan_backward(dA, C, h, gy):
-    """The backward kernel on CUDA tensors: dA, h ``(B, S, N, Di)``, C
-    ``(B, S, N)`` and the output's cotangent gy ``(B, S, Di)``, all
-    float32 → ``(g_dA, g_dBx, g_C)``, the plain version's
-    (``ref.selective_scan_backward_plain``) function.  g_C is the sum of
-    the kernel's per-slice partials ``(B, ⌈Di/16⌉, S, N)`` over the
-    slices, taken on the card."""
+def selective_scan_backward(dA, dBx, C, states, gy):
+    """The scan's gradient: dA, dBx ``(B, S, N, Di)``, C ``(B, S, N)``,
+    the forward's chunk states ``(B, ⌈S/CHUNK⌉, N, Di)`` and the output's
+    cotangent gy ``(B, S, Di)``, all float32 → ``(g_dA, g_dBx, g_C)``, the
+    plain version's (``ref.selective_scan_backward_plain``) function::
+
+        gh_t     = gy_t · C_t + dA_{t+1} ⊙ gh_{t+1}      (gh_S = 0)
+        g_dBx_t  = gh_t
+        g_dA_t   = gh_t ⊙ h_{t−1}                        (h_{−1} = 0)
+        g_C_t[n] = Σ_d gy_t[d] · h_t[n, d]
+
+    with each h_t rebuilt from the chunk state before it.  On CUDA
+    tensors the backward kernel (one launch; g_C is the sum of its
+    per-slice partials ``(B, ⌈Di/BWD_TD⌉, S, N)`` over the slices, taken
+    on the card); on CPU tensors the plain version
+    (``ref.selective_scan_backward_from_states_plain``)."""
     B, S, N, Di = dA.shape
-    _check_limits(B, N)
-    dA, C, h, gy = (t.contiguous() for t in (dA, C, h, gy))
+    if dA.device.type == "cpu":
+        return selective_scan_backward_from_states_plain(dA, dBx, C, states,
+                                                         gy, CHUNK)
+    if dA.device.type != "cuda":
+        raise ValueError(f"selective_scan_backward runs on cpu or cuda, "
+                         f"not {dA.device}")
+    if N > MAX_N:
+        raise ValueError(f"the CUDA selective scan backward takes N ≤ "
+                         f"{MAX_N}; got N={N}")
+    dA, dBx, C, states, gy = (t.contiguous() for t in (dA, dBx, C, states,
+                                                       gy))
     g_dA = torch.empty_like(dA)
     g_dBx = torch.empty_like(dA)
-    part = torch.empty((B, -(-Di // TD), S, N), dtype=torch.float32,
+    nslices, ngroups = -(-Di // BWD_TD), -(-N // BWD_TN)
+    part = torch.empty((B, nslices, S, N), dtype=torch.float32,
                        device=dA.device)
     if g_dA.numel() == 0:
         return g_dA, g_dBx, part.sum(1)
+    if B * _chunks(S) * nslices * ngroups >= 2 ** 31:
+        raise ValueError("the CUDA selective scan backward takes fewer than "
+                         f"2^31 blocks; got (B, S, N, Di) = {(B, S, N, Di)}")
+    # each chunk's cotangent carry, unset (all bits 1) until its block
+    # writes it; and the block ticket counter
+    carry = torch.empty_like(states)
+    carry.view(torch.int32).fill_(-1)
+    sync = torch.zeros(1, dtype=torch.int32, device=dA.device)
     lib = _lib()
     with torch.cuda.device(dA.device):
         stream = torch.cuda.current_stream(dA.device).cuda_stream
         err = lib.repro_selective_scan_bwd_f32(
-            dA.data_ptr(), C.data_ptr(), h.data_ptr(), gy.data_ptr(), B, S,
-            N, Di, g_dA.data_ptr(), g_dBx.data_ptr(), part.data_ptr(),
-            stream)
+            dA.data_ptr(), dBx.data_ptr(), C.data_ptr(), states.data_ptr(),
+            gy.data_ptr(), B, S, N, Di, g_dA.data_ptr(), g_dBx.data_ptr(),
+            part.data_ptr(), carry.data_ptr(), sync.data_ptr(), stream)
     _raise_on(err, "selective_scan backward")
     count_launches(1, "backward")
     return g_dA, g_dBx, part.sum(1)
@@ -141,18 +190,17 @@ def selective_scan_backward(dA, C, h, gy):
 
 class _Scan(torch.autograd.Function):
     """The scan on the card with its gradient: the forward kernel keeping
-    ``h``, the backward kernel on it."""
+    the chunk states, the backward kernel on them."""
 
     @staticmethod
     def forward(ctx, dA, dBx, C):
-        y, h = _launch(dA, dBx, C, keep_h=True)
-        ctx.save_for_backward(dA, C, h)
+        y, states = _launch(dA, dBx, C, states=True)
+        ctx.save_for_backward(dA, dBx, C, states)
         return y
 
     @staticmethod
     def backward(ctx, gy):
-        dA, C, h = ctx.saved_tensors
-        return selective_scan_backward(dA, C, h, gy)
+        return selective_scan_backward(*ctx.saved_tensors, gy)
 
 
 def selective_scan(dA, dBx, C):

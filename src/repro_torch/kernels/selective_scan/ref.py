@@ -54,3 +54,34 @@ def selective_scan_backward_plain(dA, C, h, gy):
         g_dA[:, t] = gh * h[:, t - 1] if t > 0 else 0.0
         g_C[:, t] = (gy_t * h[:, t]).sum(-1)
     return g_dA, g_dBx, g_C
+
+
+def selective_scan_chunk_states_plain(dA, dBx, T):
+    """The hidden state at the end of every chunk of ``T`` steps, ``(B,
+    ⌈S/T⌉, N, Di)``: ``states[:, k] = h_{min(T(k+1), S) − 1}``, what the
+    training forward keeps for the backward."""
+    B, S, N, Di = dA.shape
+    h = dA.new_zeros((B, N, Di))
+    states = dA.new_empty((B, -(-S // T), N, Di))
+    for t in range(S):
+        h = dA[:, t] * h + dBx[:, t]
+        if (t + 1) % T == 0 or t == S - 1:
+            states[:, t // T] = h
+    return states
+
+
+def selective_scan_backward_from_states_plain(dA, dBx, C, states, gy, T):
+    """``selective_scan_backward_plain`` from the chunk states of
+    ``selective_scan_chunk_states_plain(dA, dBx, T)`` in place of every
+    hidden state: each chunk's h_t rebuilt from the state at the end of
+    the chunk before it (0 before the first), with the recurrence's own
+    arithmetic, so on the plain version's states it gives that function's
+    bits."""
+    B, S, N, Di = dA.shape
+    h = torch.empty_like(dA)
+    for k in range(states.shape[1]):
+        hk = states[:, k - 1] if k else dA.new_zeros((B, N, Di))
+        for t in range(k * T, min((k + 1) * T, S)):
+            hk = dA[:, t] * hk + dBx[:, t]
+            h[:, t] = hk
+    return selective_scan_backward_plain(dA, C, h, gy)

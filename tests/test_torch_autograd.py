@@ -15,6 +15,9 @@
   reference's Pallas-interpret ``custom_vjp`` and its engine's autodiff
   at ``atol=1e-5``, on a graph with rows without edges, explicit zeros,
   and a row whose logits are all zero.
+* The GAT backward's softmax-vjp row sum Σ_j α_ij·dα_ij, taken as
+  dOut_i·out_i (``_row_dot``), equals the ``index_add_`` over each row's
+  slots that it replaced at ``atol=1e-5``, and gives the same bits twice.
 The graphs stay ≤ ~60 nodes where the reference runs Pallas in interpret
 mode.  On CPU tensors nothing is launched.
 """
@@ -347,6 +350,39 @@ def test_gat_message_grads_match_reference(cfg, heads):
             np.testing.assert_allclose(g.numpy(), w, rtol=0, atol=ATOL)
     # rows without an edge aggregate nothing and pass no gradient to Q
     assert (got[0][..., 6:14, :] == 0).all()
+
+
+@pytest.mark.parametrize("heads", [1, 4])
+def test_gat_row_dot_equals_the_index_add_row_sum(heads):
+    csr, _ = _gat_graph()
+    cfg = tp.SpMMConfig(V=2, S=True, W=4)
+    _, t = _pair(csr, cfg)
+    steer = pops.device_steering(t, "cpu")
+    geo = dict(n_blocks=t.n_blocks, R=cfg.R, V=cfg.V, K=t.K, n_rows=t.n_rows)
+    rng = np.random.default_rng(12)
+    lead = (heads,) if heads > 1 else ()
+    Q, K, Vf, dOut = (torch.from_numpy(_draw(rng, lead + (csr.n_rows, 8),
+                                             False)) for _ in range(4))
+    logits, rowmax, rowsum = sops._stats_call(steer, Q, K, scale=8 ** -0.5,
+                                              **geo)
+    out = pops._call(steer, Vf, vals=logits, rowmax=rowmax, rowsum=rowsum,
+                     dblk=cfg.dblk, **geo)
+    alpha = tengine.normalize_from_stats(logits, rowmax, rowsum, steer.lrow,
+                                         steer.trow, R=cfg.R, V=cfg.V, K=t.K)
+    dalpha = sops._call(steer, dOut, Vf, **geo)
+    rows = tengine._slot_rows(steer.lrow, steer.trow, V=cfg.V, R=cfg.R,
+                              K=t.K)
+    n_seg = t.n_blocks * cfg.R
+    # the form the backward took before: index_add_ over each row's slots
+    flat = (alpha * dalpha).reshape(-1, rows.numel())
+    seg = (torch.arange(flat.shape[0])[:, None] * n_seg
+           + rows.reshape(1, -1))
+    old = flat.new_zeros(flat.shape[0] * n_seg).index_add_(
+        0, seg.reshape(-1), flat.reshape(-1))[seg].reshape(alpha.shape)
+    new = tengine._row_dot(dOut, out, rows, n_seg)
+    assert new.shape == alpha.shape
+    assert torch.equal(new, tengine._row_dot(dOut, out, rows, n_seg))
+    np.testing.assert_allclose(new.numpy(), old.numpy(), rtol=0, atol=ATOL)
 
 
 def test_gat_message_builds_transpose_and_skips_unneeded_grads():

@@ -29,7 +29,10 @@ plain version;
 the reduced Hymba's prefill (one launch per layer) and decode on the card
 within ``atol = rtol = 5e-2`` of the port on the CPU (bf16).  The scan's
 backward kernel within ``1e-4 × max |g|`` of its plain version per operand
-(same bits on two launches), and a backward through ``mamba_branch`` and
+(same bits on two launches), over S around its 64-step chunk on the
+training forward's chunk states (held against the plain ones; that
+forward's y the inference forward's bits; autograd saves the states and
+no full h), and a backward through ``mamba_branch`` and
 through the reduced Hymba's ``train_loss`` on the card against the CPU's
 gradients; ``launch/train.py`` on the card.  CUDA graphs:
 a captured bucket forward replayed on a second batch gives the eager
@@ -756,12 +759,13 @@ def test_selective_scan_backward_kernel_matches_plain(cuda_device, shape):
 @pytest.mark.cuda
 def test_selective_scan_backward_is_deterministic(cuda_device):
     from repro_torch.kernels import selective_scan as scan
+    from repro_torch.kernels.selective_scan import ops as scan_ops
     shape = (2, 300, 16, 200)
     dA, dBx, C = _scan_operands(shape, cuda_device, seed=3)
-    h = scan.selective_scan_states_plain(dA, dBx)
+    _, states = scan_ops._launch(dA, dBx, C, states=True)
     gy = torch.randn((2, 300, 200), device=cuda_device)
-    one = scan.selective_scan_backward(dA, C, h, gy)
-    two = scan.selective_scan_backward(dA, C, h, gy)
+    one = scan.selective_scan_backward(dA, dBx, C, states, gy)
+    two = scan.selective_scan_backward(dA, dBx, C, states, gy)
     torch.cuda.synchronize()
     assert all(torch.equal(a, b) for a, b in zip(one, two))
 
@@ -771,15 +775,69 @@ def test_selective_scan_backward_impulse_reaches_step_zero(cuda_device):
     from repro_torch.kernels import selective_scan as scan
     B, S, N, Di = 1, 1024, 2, 130
     dA = torch.full((B, S, N, Di), 0.999, device=cuda_device)
+    dBx = torch.ones_like(dA)
     C = torch.ones((B, S, N), device=cuda_device)
     gy = torch.zeros((B, S, Di), device=cuda_device)
     gy[:, -1] = 1.0
-    h = scan.selective_scan_states_plain(dA, torch.ones_like(dA))
-    _, g_dBx, _ = scan.selective_scan_backward(dA, C, h, gy)
+    states = scan.selective_scan_chunk_states_plain(dA, dBx, scan.CHUNK)
+    _, g_dBx, _ = scan.selective_scan_backward(dA, dBx, C, states, gy)
     torch.cuda.synchronize()
     want = torch.full((N, Di), 0.999 ** (S - 1), dtype=torch.float64)
     torch.testing.assert_close(g_dBx[0, 0].double().cpu(), want, rtol=1e-4,
                                atol=0)
+
+
+# S around the chunk length (64) and past several chunks, B = 1 and 2,
+# ragged Di against the backward's 32-column slices, N not a multiple of 4
+SCAN_CHUNK_GRID = [(1, 1, 16, 3200), (2, 63, 4, 130), (1, 64, 16, 200),
+                   (2, 65, 2, 64), (1, 197, 3, 40), (2, 128, 16, 96),
+                   (1, 129, 32, 33), (1, 1000, 16, 3200)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", SCAN_CHUNK_GRID, ids=str)
+def test_selective_scan_chunk_states_and_backward_match_plain(cuda_device,
+                                                              shape):
+    """The training forward's chunk states against the plain ones, its y
+    the inference forward's bits, and the backward kernel on them against
+    the plain backward from the same states."""
+    from repro_torch.kernels import selective_scan as scan
+    from repro_torch.kernels.selective_scan import ops as scan_ops
+    dA, dBx, C = _scan_operands(shape, cuda_device, seed=4)
+    gy = torch.randn(shape[:2] + shape[3:], device=cuda_device,
+                     generator=torch.Generator(device=cuda_device)
+                     .manual_seed(5))
+    y, states = scan_ops._launch(dA, dBx, C, states=True)
+    y0, none = scan_ops._launch(dA, dBx, C)
+    torch.cuda.synchronize()
+    assert none is None and torch.equal(y, y0)
+    B, S, N, Di = shape
+    assert tuple(states.shape) == (B, -(-S // scan.CHUNK), N, Di)
+    want = scan.selective_scan_chunk_states_plain(dA, dBx, scan.CHUNK)
+    torch.testing.assert_close(states, want, **SCAN_TOL)
+    bwd = scan.launch_count("backward")
+    got = scan.selective_scan_backward(dA, dBx, C, states, gy)
+    torch.cuda.synchronize()
+    assert scan.launch_count("backward") == bwd + 1
+    _assert_grads_close(got, scan.selective_scan_backward_from_states_plain(
+        dA, dBx, C, states, gy, scan.CHUNK), "from states")
+    _assert_grads_close(got, _scan_grads_plain(dA, dBx, C, gy), "plain")
+
+
+@pytest.mark.cuda
+def test_selective_scan_autograd_saves_chunk_states_not_h(cuda_device):
+    from repro_torch.kernels import selective_scan as scan
+    B, S, N, Di = 2, 200, 16, 96
+    dA, dBx, C = (t.requires_grad_() for t in _scan_operands(
+        (B, S, N, Di), cuda_device, seed=6))
+    y = scan.selective_scan(dA, dBx, C)
+    saved = y.grad_fn.saved_tensors
+    assert [tuple(t.shape) for t in saved] == [
+        (B, S, N, Di), (B, S, N, Di), (B, S, N), (B, -(-S // scan.CHUNK), N,
+                                                  Di)]
+    # dA and dBx are the inputs themselves: nothing of (B, S, N, Di) new
+    assert saved[0].data_ptr() == dA.data_ptr()
+    assert saved[1].data_ptr() == dBx.data_ptr()
 
 
 @pytest.mark.cuda

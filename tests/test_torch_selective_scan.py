@@ -12,6 +12,15 @@ Gradients: autograd through the plain version and the plain backward
 (``selective_scan_backward_plain``, the function the card's backward kernel
 is held against) each within ``1e-5 × max |g|`` of ``jax.grad`` of the
 reference's ``selective_scan_ref``, per operand.
+
+Chunk states (what the training forward keeps for the backward, every
+``CHUNK`` steps): ``selective_scan_chunk_states_plain`` equals
+``selective_scan_states_plain`` at the chunk ends, and the plain backward
+from them (``selective_scan_backward_from_states_plain``, the card's
+backward kernel's plain version) equals ``selective_scan_backward_plain``
+on every hidden state bit for bit and ``jax.grad`` within ``1e-5 × max
+|g|``, at S ∈ {1, T − 1, T, T + 1, 3T + 5} with ragged Di; the wrapper
+``selective_scan_backward`` on CPU tensors runs it and launches nothing.
 """
 import jax
 import jax.numpy as jnp
@@ -24,8 +33,10 @@ from repro.kernels.selective_scan import selective_scan_ref as r_scan_ref
 from _propcheck import integers, propcases, sampled_from
 
 from repro_torch.kernels.selective_scan import (
-    launch_count, selective_scan, selective_scan_backward_plain,
-    selective_scan_plain, selective_scan_states_plain)
+    CHUNK, launch_count, selective_scan, selective_scan_backward,
+    selective_scan_backward_from_states_plain, selective_scan_backward_plain,
+    selective_scan_chunk_states_plain, selective_scan_plain,
+    selective_scan_states_plain)
 
 TOL = dict(atol=2e-4, rtol=2e-4)        # tests/test_selective_scan.py
 
@@ -185,3 +196,59 @@ def test_backward_impulse_reaches_step_zero():
     torch.testing.assert_close(g_dBx[0, 0], torch.full((N, Di),
                                                        0.95 ** (S - 1)),
                                rtol=1e-5, atol=0)
+
+
+T = CHUNK
+# S around the chunk length; Di ragged against the kernel's 32-column slices
+CHUNK_SHAPES = [(2, 1, 4, 40), (1, T - 1, 4, 130), (2, T, 2, 40),
+                (1, T + 1, 4, 130), (2, 3 * T + 5, 4, 40)]
+
+
+def _chunk_case(shape, seed):
+    rng = np.random.default_rng(seed)
+    dA, dBx, C = _mk(rng, *shape)
+    gy = rng.standard_normal(shape[:2] + shape[3:]).astype(np.float32)
+    return (dA, dBx, C, gy), [torch.from_numpy(a) for a in (dA, dBx, C, gy)]
+
+
+@pytest.mark.parametrize("shape", CHUNK_SHAPES, ids=str)
+def test_chunk_states_are_the_states_at_chunk_ends(shape):
+    _, (tA, tX, _, _) = _chunk_case(shape, 11)
+    S = shape[1]
+    states = selective_scan_chunk_states_plain(tA, tX, T)
+    assert tuple(states.shape) == (shape[0], -(-S // T)) + shape[2:]
+    ends = [min((k + 1) * T, S) - 1 for k in range(states.shape[1])]
+    assert torch.equal(states, selective_scan_states_plain(tA, tX)[:, ends])
+
+
+@pytest.mark.parametrize("shape", CHUNK_SHAPES, ids=str)
+def test_backward_from_states_matches_reference_grad(shape):
+    (dA, dBx, C, gy), (tA, tX, tC, tg) = _chunk_case(shape, 12)
+    states = selective_scan_chunk_states_plain(tA, tX, T)
+    got = selective_scan_backward_from_states_plain(tA, tX, tC, states, tg,
+                                                    T)
+    _close_to(got, _ref_grads(dA, dBx, C, gy), "backward from states")
+
+
+@pytest.mark.parametrize("shape", CHUNK_SHAPES, ids=str)
+def test_backward_from_states_is_the_full_h_backward_bit_for_bit(shape):
+    _, (tA, tX, tC, tg) = _chunk_case(shape, 13)
+    states = selective_scan_chunk_states_plain(tA, tX, T)
+    got = selective_scan_backward_from_states_plain(tA, tX, tC, states, tg,
+                                                    T)
+    want = selective_scan_backward_plain(
+        tA, tC, selective_scan_states_plain(tA, tX), tg)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+
+
+def test_backward_wrapper_on_cpu_takes_the_plain_version():
+    """``selective_scan_backward`` on CPU tensors: the plain backward from
+    the chunk states, no launch counted."""
+    _, (tA, tX, tC, tg) = _chunk_case((2, T + 3, 4, 40), 14)
+    states = selective_scan_chunk_states_plain(tA, tX, T)
+    before = launch_count()
+    got = selective_scan_backward(tA, tX, tC, states, tg)
+    assert launch_count() == before
+    want = selective_scan_backward_from_states_plain(tA, tX, tC, states, tg,
+                                                     T)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
