@@ -227,18 +227,48 @@ Runs from the root of a checkout and drives ``src/repro_torch`` only
     within ``rtol=1e-3`` of an uninterrupted run.  Every training path
     launches 2 forward scans a layer (remat recomputes) and 1 backward,
     checked, and every scan launch of the card-vs-CPU runs, of the
-    resume runs, of two more CLI steps and of one more S = 4096 step is
+    resume runs, of two more CLI steps and of one more S = 4096 step (at
+    full width and 4 layers) is
     held against the plain scan on its own operands (``_scan_held``; the
     CLI and resume runs start from ``init_params``, whose zero ``bc_w``
     leaves their scans at 0, as in the reference).  Then the backward
     kernel's, the training forward's and the inference forward's timings,
     each beside its bound and its share of it.
+20. decoder-only families (runs after phase 19; ``phase_dense``) — no
+    kernel of the port is on these paths (the reference runs them on XLA
+    alone), so every launch count must stay 0 through each of them.
+    Serving at full config from ``init_params`` on the card: chatglm3-6b
+    and granite-moe-3b-a800m prefill B = 1, S = 32,768,
+    llava-next-mistral-7b 1,152 patches + 31,616 tokens, gemma2-27b
+    S = 8,192 (past its 4,096 window): ms, tokens/s, peak memory, model
+    FLOPs (``launch/roofline.py``) beside the 989 TFLOP/s dense bf16
+    peak, chatglm3's prefill profiled by kernel family; ``generate`` at
+    batch 4 eager and captured (ms per step; captured tokens equal eager's
+    up to each row's first near-tie, step logits within ``atol=0.2,
+    rtol=0.05``).  Training: granite-moe-3b-a800m at full config through
+    ``launch/train.py`` (B = 8, S = 64, 10 steps, losses falling) and
+    ``build_step`` at B = 1, S = 4,096; gemma2-27b at full width and 2
+    layers at both shapes; ms/step, tokens/s, peak memory, model FLOPs
+    and their share of the peak, one step profiled (matmul, attention
+    softmax, MoE dispatch/combine with the embedding's index kernels,
+    elementwise, optimiser).  Card vs CPU at full width and 2 layers, B =
+    1, S = 64, for all seven ids and gemma2 at a window of 16
+    (``_check_one``): every position's logits within ``atol=0.2,
+    rtol=0.05`` (gemma2's bf16 tails leave it on either device against
+    float32, so its count outside is held under ``OUTSIDE_SHARE`` of the
+    logits and ``OUTSIDE_SHARE_PER_POSITION`` of any position's) and no
+    farther from a float32 model than the CPU's; loss and gradients
+    (phase 19's rules) for chatglm3, gemma2, gemma2 at window 16 and
+    granite-3b; MoE runs routed as the CPU's, near-tie tokens and picks
+    apart reported, every pick apart a near-tie; teacher-forced decode
+    against the forward on the card, held the same way at ``atol=0.15,
+    rtol=0.05`` and by the same float32 yardstick.
 Each main path (serving per model, each pass of each phase-15 service,
 training per model, each oracle search, each 131k baseline-comparison
 run, each distributed run on each rank, each dynamic batch's operators,
 the ``--mutate`` CLI run, each refresh case's SpMM on each rank, LM
-prefill, each decode run, the consistency forward and each phase-19
-training run) runs with the
+prefill, each decode run, the consistency forward, each phase-19
+training run and each phase-20 path) runs with the
 launch counts set to 0 just before it and read just after.  A
 replayed graph adds the launches its capture recorded
 (``kernels/capture.py``).
@@ -4306,6 +4336,7 @@ TRAIN_LR = 3e-3                      # launch/train.py's default
 # every h (B, S, N, Di) for the backward peaked at 45.01 GiB on one H100;
 # keeping chunk states and dA/dBx instead may not add more than 1 GiB
 TRAIN_4K_PEAK_MAX = int((45.01 + 1) * 2 ** 30)
+HELD_4K_LAYERS = 4                   # 3 SWA + 1 global, full width
 # the full config at 32 layers from its N(0, 0.02) init: at the CLI's
 # default 3e-3 (sized for the reduced configs) AdamW's first steps
 # overshoot and the loss rises (10.658 → 11.751 over 10 steps at B = 8,
@@ -4718,8 +4749,11 @@ def _train_timed(cfg, device, B, S, steps, held):
     """``build_step`` at B × S for ``steps`` steps from ``_train_params``
     (so the scans carry a signal): ms per step (host clock, each step
     ending in the loss's sync; steps 1 and on), tokens/s, peak memory, one
-    more step's device ms by family, and one more step with every scan
-    launch held against the plain scan (``held["train_4k"]``)."""
+    more step's device ms by family, and one more step, at full width and
+    ``HELD_4K_LAYERS`` layers, with every scan launch held against the
+    plain scan (``held["train_4k"]``: each layer's scans have the full
+    model's shapes; the depth is cut for the script's time, the plain
+    loops of 32 layers taking ~1 min)."""
     from repro_torch.launch.train import build_step, device_batch
     from repro_torch.optim import AdamWConfig, adamw_init
     params = _train_params(cfg, seed=0, device=device)
@@ -4751,11 +4785,15 @@ def _train_timed(cfg, device, B, S, steps, held):
                                     device_batch(cfg, B, S, 0, 0, device))
     row.update({"device_ms": fams, "device_busy_ms": sum(fams.values()),
                 "top_kernels": top})
+    cut = cfg.replace(n_layers=HELD_4K_LAYERS, n_global_layers=1)
+    cut_params = _train_params(cut, seed=0, device=device)
     with _scan_held(held, "train_4k"):
-        step(params, adamw_init(params), torch.zeros((), device=device),
-             device_batch(cfg, B, S, 0, 0, device))
+        build_step(cut, AdamWConfig(lr=FULL_LR, grad_clip=1.0))(
+            cut_params, adamw_init(cut_params),
+            torch.zeros((), device=device),
+            device_batch(cut, B, S, 0, 0, device))
     check([held["train_4k"][k] for k in ("forward", "backward")]
-          == [2 * cfg.n_layers, cfg.n_layers], f"B={B} S={S}: held step "
+          == [2 * cut.n_layers, cut.n_layers], f"B={B} S={S}: held step "
           f"{held['train_4k']}")
     return row
 
@@ -4843,8 +4881,9 @@ def phase_lm_train(device):
           "the unprofiled step")
     for t, name, count in long["top_kernels"]:
         print(f"[lm train]   {t:9.1f} ms  {count:5d}×  {name}")
-    print("[lm train] " + _held_line(f"build_step B=1 S={long['seq']}, one "
-                                     "more step", held["train_4k"]))
+    print("[lm train] " + _held_line(
+        f"build_step B=1 S={long['seq']}, one more step at "
+        f"{HELD_4K_LAYERS} layers", held["train_4k"]))
     torch.cuda.empty_cache()
 
     resume = _train_resume(device, held)
@@ -4982,6 +5021,688 @@ def time_scan_backward(device):
         rows.append(row)
         del dA, dBx, C, st, gy
     return rows
+
+
+# ------------------------------------------------------------- phase 20
+# the decoder-only families (models/transformer.py): serving at full
+# config, (arch, prompt tokens, patch prefix); llava's 1,152 + 31,616 and
+# the others' 32,768 make prefill_32k's length, its batch of 32 cut to 1
+DENSE_SERVE = (("chatglm3-6b", 32768, 0),
+               ("llava-next-mistral-7b", 31616, 1152),
+               ("granite-moe-3b-a800m", 32768, 0),
+               ("gemma2-27b", 8192, 0))           # past its 4,096 window
+DENSE_IDS = ("qwen2-72b", "chatglm3-6b", "gemma2-27b", "qwen1.5-110b",
+             "granite-moe-1b-a400m", "granite-moe-3b-a800m",
+             "llava-next-mistral-7b")
+# training: (arch, layers; None = the full config) at (B, S, steps)
+DENSE_TRAIN = (("granite-moe-3b-a800m", None), ("gemma2-27b", 2))
+DENSE_TRAIN_4K_STEPS = 4
+# card vs CPU: full width, 2 layers (gemma2: one local, one global),
+# B = 1, S = 64; llava's prefix cut to 16 patches + 48 tokens; gemma2
+# also at a window of 16 (its published 4,096 never masks at S = 64)
+CHECK_LAYERS, CHECK_S, CHECK_PATCHES, CHECK_WINDOW = 2, 64, 16, 16
+CHECK_GRADS = ("chatglm3-6b", "gemma2-27b", "gemma2-27b@w16",
+               "granite-moe-3b-a800m")
+DECODE_ATOL, DECODE_RTOL = 0.15, 0.05   # tests/test_models_lm.py:64
+# two bf16 paths of one function (card and CPU; decode and forward) are
+# held elementwise and also by their RMS distance from a float32 model of
+# the same parameters.  At full width gemma2's bf16 logits lie up to 0.68
+# (0.08 RMS) from the float32 model's on either device, 73k-77k of its
+# 16.4M logits outside (0.2, 0.05) of it, so its tails leave the
+# elementwise tolerances (card vs CPU 3-75 logits, decode vs forward
+# 44-88, of 16.4M in the runs so far, the last token's too in one): for
+# gemma2 the count outside is held at most OUTSIDE_SHARE of the logits
+# compared and OUTSIDE_SHARE_PER_POSITION of one position's vocab (256 of
+# 256,000), so a fault confined to one position still fails
+F32_RMS_RATIO = 1.1
+ELEMENTWISE_BOUNDED = ("gemma2-27b",)
+OUTSIDE_SHARE, OUTSIDE_SHARE_PER_POSITION = 1e-4, 1e-3
+ROUTER_TIE = 1e-2
+BF16_PEAK_FLOP_PER_S = 989e12           # H100 SXM data sheet, dense bf16
+
+
+def _check_cfg(name):
+    """A check config of phase 20: ``arch`` at full width and
+    ``CHECK_LAYERS`` layers, ``arch@w16`` with a window of 16."""
+    arch, _, tag = name.partition("@")
+    cfg = get_config(arch).replace(n_layers=CHECK_LAYERS)
+    if cfg.family == "vlm":
+        cfg = cfg.replace(n_patches=CHECK_PATCHES)
+    return cfg.replace(sliding_window=CHECK_WINDOW) if tag else cfg
+
+
+def _dense_path(fn):
+    """Run a decoder-only main path with every launch count set to 0 just
+    before and read just after: the path has no kernel of the port, so
+    every count must still be 0."""
+    _reset_counts()
+    out = fn()
+    torch.cuda.synchronize()
+    counts = {**_counts(), "selective_scan": scan.launch_count()}
+    check(not any(counts.values()), f"a decoder-only path launched {counts}")
+    return out
+
+
+def _dense_batch(cfg, B, S, P, device, seed):
+    """Tokens (B, S) and, with ``P``, float32 patches (B, P, d_model),
+    seeded on ``device``."""
+    g = torch.Generator(device=device).manual_seed(seed)
+    batch = {"tokens": torch.randint(0, cfg.vocab, (B, S), generator=g,
+                                     device=device)}
+    if P:
+        batch["patches"] = torch.randn((B, P, cfg.d_model), generator=g,
+                                       device=device)
+    return batch
+
+
+def _family(key, which):
+    """Phase 20's kernel families by name: matmuls; the attention softmax;
+    index, sort and scan kernels (the MoE dispatch and combine, and the
+    embedding lookup); everything else elementwise; the optimiser's
+    window apart."""
+    k = key.lower()
+    if which == "optimiser":
+        return "optimiser"
+    if any(s in k for s in ("gemm", "nvjet", "xmma", "cutlass", "cublas")):
+        return "matmul"
+    if "softmax" in k:
+        return "attention_softmax"
+    if any(s in k for s in ("sort", "scan", "scatter", "gather", "index",
+                            "repeat_interleave")):
+        return "moe_dispatch_combine_and_embedding"
+    return "elementwise"
+
+
+def _profile_families(windows):
+    """Device ms by ``_family`` over the ``torch.profiler`` windows
+    ``[(which, fn)]`` (each run once, synchronised), and the six costliest
+    kernels."""
+    from torch.profiler import ProfilerActivity, profile
+    fams = dict.fromkeys(("matmul", "attention_softmax",
+                          "moe_dispatch_combine_and_embedding",
+                          "elementwise", "optimiser"), 0.0)
+    top = []
+    for which, fn in windows:
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        for e in prof.key_averages():
+            t = getattr(e, "device_time_total", None)
+            if t is None:
+                t = getattr(e, "cuda_time_total", 0.0)
+            if t <= 0 or e.key.startswith(("Memcpy", "Memset")):
+                continue
+            fams[_family(e.key, which)] += t / 1e3
+            top.append((t / 1e3, e.key[:60], e.count))
+    check(fams["matmul"] > 0, "the profiler saw no matmul (device time not "
+          "measured)")
+    return fams, sorted(top, reverse=True)[:6]
+
+
+def _mfu(cfg, kind, B, S, ms):
+    """Model FLOPs of the step or prefill (``launch/roofline.py``: 6 or 2 ·
+    N_active per token; attention's own FLOPs not counted) and their rate
+    over the data-sheet dense bf16 peak."""
+    from repro_torch.launch.roofline import model_flops_for
+    flops = model_flops_for(cfg, ShapeCell(kind, S, B, kind))
+    return flops, flops / (ms / 1e3) / BF16_PEAK_FLOP_PER_S
+
+
+def _captured_vs_eager(cfg, params, device, *, batch=4, prompt_len=16,
+                       gen=32):
+    """``generate`` at batch 4 with the reference CLI's prompt and gen
+    lengths, eagerly and with the step captured (a captured warm-up run,
+    whose capture first runs the step eagerly; then eager, captured): ms
+    per decode step of each; the captured tokens equal
+    the eager ones up to each row's first near-tie (top-two eager logits
+    within ``TIE``), and the teacher-forced step logits within
+    ``LOGITS_ATOL`` / ``LOGITS_RTOL``."""
+    prompt = np.random.default_rng(0).integers(0, cfg.vocab,
+                                               (batch, prompt_len))
+    steps = prompt_len + gen - 1
+
+    def run(graphs):
+        t0 = time.perf_counter()
+        seq = _dense_path(lambda: generate(cfg, params, prompt,
+                                           prompt_len + gen, gen,
+                                           device=device, graphs=graphs))
+        return seq, (time.perf_counter() - t0) * 1e3 / steps
+
+    run(True)
+    (eager, ms_e), (captured, ms_c) = run(False), run(True)
+    check(torch.equal(captured[:, :prompt_len].cpu(),
+                      torch.as_tensor(prompt)), "generate changed the prompt")
+    want = _step_logits(params, cfg, eager, prompt_len, device, False)
+    got = _step_logits(params, cfg, eager, prompt_len, device, True)
+    real = slice(0, cfg.vocab)
+    torch.testing.assert_close(got[..., real], want[..., real],
+                               atol=LOGITS_ATOL, rtol=LOGITS_RTOL)
+    agree = np.full(batch, prompt_len + gen)
+    top2 = want[prompt_len - 1:, :, real].topk(2, dim=-1).values.cpu()
+    for i, t in enumerate(range(prompt_len - 1, steps)):
+        tie = (top2[i, :, 0] - top2[i, :, 1] <= TIE).numpy()
+        agree = np.where(tie, np.minimum(agree, t + 1), agree)
+    for b in range(batch):
+        check(torch.equal(captured[b, :agree[b]], eager[b, :agree[b]]),
+              f"{cfg.name} row {b}: captured tokens differ from eager "
+              f"before the first near-tie (step {agree[b]})")
+    return {"ms_per_step_eager": ms_e, "ms_per_step_captured": ms_c,
+            "steps": steps, "batch": batch,
+            "rows_equal": int(sum(torch.equal(captured[b], eager[b])
+                                  for b in range(batch))),
+            "tokens_equal_upto": agree.tolist(),
+            "logits_max_abs_diff": float((got - want)[..., real].abs().max())}
+
+
+def _dense_serve(arch, S, P, device, profile):
+    """One decoder-only model at its full config from ``init_params`` on
+    the card: ``prefill`` at B = 1 over P patches + S tokens, timed once
+    (host clock, synchronised) with its peak memory, profiled once with
+    ``profile``; then ``_captured_vs_eager``."""
+    cfg = get_config(arch)
+    torch.cuda.reset_peak_memory_stats(device)
+    params = lm.init_params(cfg, generator=torch.Generator(device=device)
+                            .manual_seed(0), device=device)
+    init_peak = torch.cuda.max_memory_allocated(device)
+    batch = _dense_batch(cfg, 1, S, P, device, seed=1)
+    run = lambda: lm.prefill(params, cfg, batch)
+    with torch.no_grad():
+        torch.cuda.reset_peak_memory_stats(device)
+        t0 = time.perf_counter()
+        logits = _dense_path(run)
+        ms = (time.perf_counter() - t0) * 1e3
+        peak = torch.cuda.max_memory_allocated(device)
+        check(tuple(logits.shape) == (1, 1, cfg.vocab_padded)
+              and bool(torch.isfinite(logits[..., :cfg.vocab]).all()),
+              f"{arch} prefill logits {tuple(logits.shape)} not finite")
+        fams, top = (_profile_families([("model", run)]) if profile
+                     else (None, None))
+    flops, mfu = _mfu(cfg, "prefill", 1, P + S, ms)
+    row = {"arch": arch, "patches": P, "tokens": S, "prefill_ms": ms,
+           "tokens_per_s": (P + S) / ms * 1e3, "peak_bytes": peak,
+           "params_peak_bytes": init_peak, "model_flops": flops,
+           "model_flops_share_of_bf16_peak": mfu}
+    line = (f"[lm dense] {arch} ({cfg.n_layers} layers, d {cfg.d_model}) "
+            f"prefill B=1 {f'{P} patches + ' if P else ''}{S} tokens: "
+            f"{ms:.1f} ms ({row['tokens_per_s']:.1f} tokens/s), peak "
+            f"{peak / 2**30:.2f} GiB (parameters {init_peak / 2**30:.2f}), "
+            f"model FLOPs {flops:.3e} = {mfu:.1%} of the "
+            f"{BF16_PEAK_FLOP_PER_S / 1e12:.0f} TFLOP/s dense bf16 peak")
+    if fams:
+        busy = sum(fams.values())
+        row.update({"device_ms": fams, "device_busy_ms": busy,
+                    "top_kernels": top})
+        line += ("; device ms (profiled run): " + ", ".join(
+            f"{k} {v:.1f}" for k, v in fams.items())
+            + f"; busy {busy:.1f} ms = {busy / ms:.4f} × the unprofiled "
+            "prefill")
+    print(line)
+    for t, name, count in top or ():
+        print(f"[lm dense]   {t:9.1f} ms  {count:5d}×  {name}")
+    del logits
+    torch.cuda.empty_cache()
+    dec = _captured_vs_eager(cfg, params, device)
+    row["decode"] = dec
+    print(f"[lm dense] {arch} generate batch {dec['batch']}, prompt 16, gen "
+          f"32: ms per decode step eager {dec['ms_per_step_eager']:.2f}, "
+          f"captured {dec['ms_per_step_captured']:.2f}; captured tokens "
+          f"equal eager's up to each row's first near-tie (rows equal "
+          f"throughout {dec['rows_equal']}/{dec['batch']}); step logits "
+          f"max abs diff {dec['logits_max_abs_diff']:.3e} (held at "
+          f"atol={LOGITS_ATOL}, rtol={LOGITS_RTOL})")
+    del params
+    torch.cuda.empty_cache()
+    return row
+
+
+@contextlib.contextmanager
+def _routes(record=None, replay=None):
+    """While the block runs, record every MoE top-k's expert indices, in
+    call order, into the list ``record``; or route by ``replay``'s (the
+    values are the block's own logits at those experts), so two runs
+    route every token alike and differ by rounding alone.  Yields a dict:
+    ``gaps``, each call's per-token gap between its k-th and (k+1)-th
+    router logits; ``apart``, the token picks that differ from the
+    replayed ones; ``apart_untied``, those of them whose own gap exceeds
+    ``ROUTER_TIE`` (a routing fault, not a near-tie)."""
+    from repro_torch.models import transformer
+    top_k = transformer.top_k
+    calls = iter(replay) if replay is not None else None
+    out = {"gaps": [], "apart": 0, "apart_untied": 0}
+
+    def routed(logits, k):
+        vals, idx = top_k(logits, k + 1)
+        gap = vals[..., k - 1] - vals[..., k]
+        vals, idx = vals[..., :k], idx[..., :k]
+        out["gaps"].append(gap.reshape(-1).cpu())
+        if calls is not None:
+            want = next(calls).to(logits.device)
+            apart = (want.sort(-1).values != idx.sort(-1).values).any(-1)
+            out["apart"] += int(apart.sum())
+            out["apart_untied"] += int((apart & (gap > ROUTER_TIE)).sum())
+            idx, vals = want, logits.gather(-1, want)
+        if record is not None:
+            record.append(idx.cpu())
+        return vals, idx
+
+    transformer.top_k = routed
+    try:
+        yield out
+    finally:
+        transformer.top_k = top_k
+
+
+def _first_drop(cfg, run):
+    """``run()`` (a forward of B = 1) with the global MoE dispatch's
+    queue positions recorded: returns (run's result, the first token with
+    an entry past its expert's capacity in any layer, or None)."""
+    from repro_torch.models import transformer
+    pos_fn, first = transformer._positions_in_expert, []
+
+    def recorded(eidx, E):
+        pos = pos_fn(eidx, E)
+        cap = transformer.expert_capacity(pos.numel() // cfg.top_k, E,
+                                          cfg.top_k)
+        over = (pos >= cap).nonzero()
+        if over.numel():
+            first.append(int(over[0, 0]) // cfg.top_k)
+        return pos
+
+    transformer._positions_in_expert = recorded
+    try:
+        out = run()
+    finally:
+        transformer._positions_in_expert = pos_fn
+    return out, (min(first) if first else None)
+
+
+def _float32_logits(cfg, params, batch):
+    """Every position's logits of the same model in float32 (parameters
+    and activations), on the parameters' device: the yardstick of the
+    two bf16 paths' own rounding."""
+    from repro_torch.optim.adamw import tree_map
+    p32 = tree_map(lambda t: t.float(), params)
+    lm.DTYPE = torch.float32
+    try:
+        return logits_for(lm.forward_hidden(p32, cfg, batch, remat=False),
+                          p32, cfg)
+    finally:
+        lm.DTYPE = torch.bfloat16
+
+
+def _min_gap(out):
+    """Each token's smallest k-th to (k+1)-th router gap over the calls
+    ``_routes`` saw, or None for a model without experts."""
+    return torch.stack(out["gaps"]).min(0).values if out["gaps"] else None
+
+
+def _hold_close(name, what, got, want, atol, rtol):
+    """Hold (positions, vocab) logits ``got`` to ``want`` within
+    ``atol`` / ``rtol`` elementwise, or for ``ELEMENTWISE_BOUNDED`` their
+    count outside under ``OUTSIDE_SHARE`` of the logits and
+    ``OUTSIDE_SHARE_PER_POSITION`` of any one position's.  Returns (the
+    count outside, the most outside at one position)."""
+    outside = ~torch.isclose(got, want, atol=atol, rtol=rtol)
+    n, most = int(outside.sum()), int(outside.sum(-1).max())
+    if name.partition("@")[0] not in ELEMENTWISE_BOUNDED:
+        torch.testing.assert_close(got, want, atol=atol, rtol=rtol)
+    check(n <= OUTSIDE_SHARE * got.numel()
+          and most <= OUTSIDE_SHARE_PER_POSITION * got.shape[-1],
+          f"{name}: {what}: {n} of {got.numel()} logits outside atol={atol},"
+          f" rtol={rtol}, {most} at one position (held at {OUTSIDE_SHARE} "
+          f"of the logits, {OUTSIDE_SHARE_PER_POSITION} of a position's)")
+    return n, most
+
+
+def _check_one(name, cpu_params, device):
+    """Card vs CPU on the same parameters (made on the card, copied),
+    every position of B = 1, S = ``CHECK_S``.  An MoE model's card run and
+    the float32 model route as the CPU did (``_routes``); its near-tie
+    tokens and the card's own picks apart are reported, and every pick
+    apart must be a near-tie.  Held: the logits within ``LOGITS_ATOL`` /
+    ``LOGITS_RTOL`` (``_hold_close``: for ``ELEMENTWISE_BOUNDED`` the
+    count outside, under bounds), and the card's logits no farther from
+    a float32 model
+    of the same parameters (RMS) than ``F32_RMS_RATIO`` × the CPU's.  For
+    ``CHECK_GRADS`` the loss within ``TRAIN_LOSS_RTOL`` and every gradient
+    leaf within ``TRAIN_GRAD_REL_L2`` relative L2 (phase 19's rules).
+    Then, on the card, teacher-forced decode against the forward (llava
+    without its prefix, as the reference's test; MoE decode routed as the
+    forward, up to the forward's first capacity drop, which decode, one
+    token a step, never has): held, decode's logits within the
+    reference's ``DECODE_ATOL`` / ``DECODE_RTOL`` of the forward's
+    (``_hold_close``), and no farther from the float32 forward's (RMS)
+    than ``F32_RMS_RATIO`` × the bf16 forward's."""
+    cfg = _check_cfg(name)
+    card = _to_device(cpu_params, device)
+    P = cfg.n_patches if cfg.family == "vlm" else 0
+    batch = _dense_batch(cfg, 1, CHECK_S - P, P, device, seed=3)
+    batch_cpu = {k: v.cpu() for k, v in batch.items()}
+    logits = lambda p, b: logits_for(lm.forward_hidden(p, cfg, b,
+                                                       remat=False), p, cfg)
+    real = slice(0, cfg.vocab)
+    routes, apart = [], 0
+    with torch.no_grad():
+        with _routes(record=routes) as cpu_routing:
+            want = logits(cpu_params, batch_cpu)[0, :, real]
+        with _routes(replay=routes or None) as card_routing:
+            got = _dense_path(lambda: logits(card, batch))[0, :, real].cpu()
+        with _routes(replay=routes or None):
+            f32 = _float32_logits(cfg, card, batch)[0, :, real].cpu()
+    check(card_routing["apart_untied"] == 0, f"{name}: the card routes "
+          f"{card_routing['apart_untied']} picks apart from the CPU with no "
+          "near-tie")
+    apart += card_routing["apart"]
+    gap = _min_gap(cpu_routing)
+    rms = lambda a: float(a.pow(2).mean().sqrt())
+    row = {"check": name, "layers": cfg.n_layers, "window":
+           cfg.sliding_window, "positions": CHECK_S,
+           "router_near_tie_tokens": (None if gap is None else
+                                      int((gap <= ROUTER_TIE).sum())),
+           "last_token_max_abs_diff": float((got - want)[-1].abs().max()),
+           "logits_max_abs_diff": float((got - want).abs().max()),
+           "logits_compared": got.numel(),
+           "max_abs_logit": float(want.abs().max()),
+           "card_vs_f32_rms": rms(got - f32),
+           "cpu_vs_f32_rms": rms(want - f32),
+           "card_vs_f32_max": float((got - f32).abs().max()),
+           "cpu_vs_f32_max": float((want - f32).abs().max())}
+    (row["logits_outside_tolerance"],
+     row["logits_outside_at_one_position"]) = _hold_close(
+        name, "card vs CPU", got, want, LOGITS_ATOL, LOGITS_RTOL)
+    check(row["card_vs_f32_rms"] <= F32_RMS_RATIO * row["cpu_vs_f32_rms"],
+          f"{name}: the card's logits are {row['card_vs_f32_rms']:.4f} RMS "
+          f"from the float32 model's, the CPU's {row['cpu_vs_f32_rms']:.4f}")
+    if name in CHECK_GRADS:
+        batch["labels"] = torch.roll(batch["tokens"], -1, 1)
+        batch_cpu["labels"] = batch["labels"].cpu()
+        routes = []
+        with _routes(record=routes):
+            l_cpu, g_cpu = _loss_grads(cfg, cpu_params, batch_cpu)
+        with _routes(replay=routes or None) as card_routing:
+            l_card, g_card = _dense_path(lambda: _loss_grads(cfg, card,
+                                                             batch))
+        check(card_routing["apart_untied"] == 0, f"{name}: gradient run "
+              "routes a pick apart with no near-tie")
+        apart += card_routing["apart"]
+        errs = _rel_l2(g_card, g_cpu)
+        names = _leaf_names(cpu_params)
+        check(abs(l_card - l_cpu) <= TRAIN_LOSS_RTOL * abs(l_cpu),
+              f"{name}: loss card {l_card} vs CPU {l_cpu}")
+        worst = int(np.argmax(errs))
+        check(errs[worst] <= TRAIN_GRAD_REL_L2, f"{name}: gradient "
+              f"{names[worst]} rel L2 {errs[worst]:.3e} > {TRAIN_GRAD_REL_L2}")
+        row.update({"loss_card": l_card, "loss_cpu": l_cpu,
+                    "loss_rel_diff": abs(l_card - l_cpu) / abs(l_cpu),
+                    "grad_worst_rel_l2": errs[worst],
+                    "grad_worst_leaf": names[worst]})
+    # decode against the forward, on the card
+    dcfg = cfg.replace(n_patches=0)
+    tokens = (_dense_batch(dcfg, 1, CHECK_S, 0, device, seed=4)["tokens"]
+              if P else batch["tokens"])
+    S = tokens.shape[1]
+    routes = []
+    with torch.no_grad():
+        with _routes(record=routes):
+            fwd, drop = _first_drop(dcfg, lambda: _dense_path(
+                lambda: logits(card, {"tokens": tokens})))
+        with _routes(replay=routes or None):
+            f32 = _float32_logits(dcfg, card, {"tokens": tokens})
+        # decode, step by step, routed as the forward's row of each layer;
+        # past the forward's first drop their hidden states part, and
+        # with them the routes, so picks are compared before it only
+        upto = S if drop is None else drop
+        cache = lm.init_cache(dcfg, ShapeCell("d", S, 1, "decode"),
+                              device=device)
+        outs = []
+        for t in range(S):
+            with _routes(replay=[r[t:t + 1] for r in routes] or None) \
+                    as step_routing:
+                step, cache = lm.decode_step(card, dcfg, tokens[:, t:t + 1],
+                                             cache, t)
+            outs.append(step[:, 0])
+            if t < upto:
+                check(step_routing["apart_untied"] == 0, f"{name}: decode "
+                      f"step {t} routes a pick apart from the forward with "
+                      "no near-tie")
+                apart += step_routing["apart"]
+    check(upto >= 8, f"{name}: the forward drops an entry at token {upto}")
+    dec = torch.stack(outs, dim=1)[0, :upto, real]
+    fwd, f32 = fwd[0, :upto, real], f32[0, :upto, real]
+    row.update({
+        "decode_vs_forward_max_abs_diff": float((dec - fwd).abs().max()),
+        "decode_vs_f32_rms": rms(dec - f32),
+        "forward_vs_f32_rms": rms(fwd - f32),
+        "decode_positions_compared": upto,
+        "decode_first_capacity_drop": drop,
+        "router_picks_apart": apart if cfg.n_experts else None})
+    (row["decode_outside_tolerance"],
+     row["decode_outside_at_one_position"]) = _hold_close(
+        name, "decode vs forward", dec, fwd, DECODE_ATOL, DECODE_RTOL)
+    check(row["decode_vs_f32_rms"]
+          <= F32_RMS_RATIO * row["forward_vs_f32_rms"], f"{name}: decode's "
+          f"logits are {row['decode_vs_f32_rms']:.4f} RMS from the float32 "
+          f"forward's, the bf16 forward's {row['forward_vs_f32_rms']:.4f}")
+    del card
+    return row
+
+
+def _to_device(tree, device):
+    return {k: _to_device(v, device) if isinstance(v, dict)
+            else v.to(device) for k, v in tree.items()}
+
+
+def phase_dense_check(device):
+    """Phase 20 (c): every decoder-only id, and gemma2 at a window of 16,
+    at full width and ``CHECK_LAYERS`` layers, card against CPU and decode
+    against forward (``_check_one``).  The parameters are drawn on the
+    card from a seed and copied to the CPU."""
+    rows = []
+    for name in DENSE_IDS + ("gemma2-27b@w16",):
+        cfg = _check_cfg(name)
+        t0 = time.perf_counter()
+        cpu = _to_device(lm.init_params(
+            cfg, generator=torch.Generator(device=device).manual_seed(7),
+            device=device), "cpu")
+        row = _check_one(name, cpu, device)
+        row["seconds"] = time.perf_counter() - t0
+        del cpu
+        torch.cuda.empty_cache()
+        grads = (f"; loss {row['loss_card']:.6f} vs {row['loss_cpu']:.6f} "
+                 f"(rel {row['loss_rel_diff']:.3e}, held at "
+                 f"{TRAIN_LOSS_RTOL}), worst gradient leaf "
+                 f"{row['grad_worst_leaf']} {row['grad_worst_rel_l2']:.3e} "
+                 f"(held at {TRAIN_GRAD_REL_L2})" if "loss_card" in row
+                 else "")
+        ties = (f"; every MoE run routed as the CPU's (the forward's for "
+                f"decode): {row['router_near_tie_tokens']} of {CHECK_S} "
+                f"tokens with a router near-tie, {row['router_picks_apart']}"
+                " picks apart, all at near-ties" if cfg.n_experts else "")
+        held = (f"held at ≤ {OUTSIDE_SHARE} of them, ≤ "
+                f"{OUTSIDE_SHARE_PER_POSITION} of a position's"
+                if name.partition("@")[0] in ELEMENTWISE_BOUNDED else
+                "held at 0")
+        print(f"[lm dense check] {name} (d {cfg.d_model}, {cfg.n_layers} "
+              f"layers, window {cfg.sliding_window}), B=1 S={CHECK_S}: card "
+              f"vs CPU logits max abs diff {row['logits_max_abs_diff']:.3e}"
+              f" (last token {row['last_token_max_abs_diff']:.3e}), "
+              f"{row['logits_outside_tolerance']} of "
+              f"{row['logits_compared']} outside atol={LOGITS_ATOL}, "
+              f"rtol={LOGITS_RTOL}, at most "
+              f"{row['logits_outside_at_one_position']} at one position "
+              f"({held}; max |logit| "
+              f"{row['max_abs_logit']:.3f}); from a float32 model: card "
+              f"RMS {row['card_vs_f32_rms']:.4f} max "
+              f"{row['card_vs_f32_max']:.3f}, CPU RMS "
+              f"{row['cpu_vs_f32_rms']:.4f} max {row['cpu_vs_f32_max']:.3f} "
+              f"(held: card ≤ {F32_RMS_RATIO} × CPU){ties}{grads}; decode "
+              f"vs forward on the card over "
+              f"{row['decode_positions_compared']} positions: max abs diff "
+              f"{row['decode_vs_forward_max_abs_diff']:.3e}, "
+              f"{row['decode_outside_tolerance']} outside atol={DECODE_ATOL}, "
+              f"rtol={DECODE_RTOL}, at most "
+              f"{row['decode_outside_at_one_position']} at one position "
+              f"({held}); from the float32 forward: decode RMS "
+              f"{row['decode_vs_f32_rms']:.4f}, forward "
+              f"{row['forward_vs_f32_rms']:.4f} (held: decode ≤ "
+              f"{F32_RMS_RATIO} × forward); {row['seconds']:.1f} s")
+        rows.append(row)
+    return rows
+
+
+def _dense_train_profile(cfg, device, B, S):
+    """One training step's device ms by family from ``init_params``: the
+    loss + backward, then the AdamW update (in place, as the launcher's
+    step runs it), in two profiler windows."""
+    from repro_torch.launch.train import device_batch
+    from repro_torch.optim import AdamWConfig, adamw_init, adamw_update
+    from repro_torch.optim.adamw import tree_map
+    params = lm.init_params(cfg, generator=torch.Generator(device=device)
+                            .manual_seed(0), device=device)
+    batch = device_batch(cfg, B, S, 0, 0, device)
+    p = tree_map(lambda t: t.detach().requires_grad_(), params)
+    state = adamw_init(params)
+    fams, top = _profile_families([
+        ("model", lambda: lm.train_loss(p, cfg, batch, chunk=256).backward()),
+        ("optimiser", lambda: adamw_update(params, tree_map(
+            lambda t: t.grad, p), state, AdamWConfig(lr=FULL_LR,
+                                                     grad_clip=1.0),
+            inplace=True))])
+    del p, state, params
+    torch.cuda.empty_cache()
+    return {"device_ms": fams, "device_busy_ms": sum(fams.values()),
+            "top_kernels": top}
+
+
+def _dense_train_steps(cfg, device, B, S, steps):
+    """``build_step`` (the launcher's donating step) at B × S for ``steps``
+    steps
+    from ``init_params`` on ``launch/train.py``'s batches: ms per step
+    (host clock, each step ending in the loss's sync; steps 1 and on),
+    losses (finite), peak memory, model FLOPs and their share of the bf16
+    peak, and ``_dense_train_profile``."""
+    from repro_torch.launch.train import build_step, device_batch
+    from repro_torch.optim import AdamWConfig, adamw_init
+    params = lm.init_params(cfg, generator=torch.Generator(device=device)
+                            .manual_seed(0), device=device)
+    step = build_step(cfg, AdamWConfig(lr=FULL_LR, grad_clip=1.0),
+                      donate=True)
+
+    def run():
+        p, s, e = params, adamw_init(params), torch.zeros((), device=device)
+        times, losses = [], []
+        for i in range(steps):
+            batch = device_batch(cfg, B, S, i, 0, device)
+            t0 = time.perf_counter()
+            p, s, e, loss = step(p, s, e, batch)
+            losses.append(float(loss))
+            times.append((time.perf_counter() - t0) * 1e3)
+        return times, losses
+
+    torch.cuda.reset_peak_memory_stats(device)
+    times, losses = _dense_path(run)
+    peak = torch.cuda.max_memory_allocated(device)
+    del params
+    torch.cuda.empty_cache()
+    check(all(np.isfinite(losses)), f"{cfg.name} B={B} S={S}: losses "
+          f"{losses}")
+    ms = float(np.mean(times[1:]))
+    flops, mfu = _mfu(cfg, "train", B, S, ms)
+    return {"batch": B, "seq": S, "steps": steps, "ms_per_step": times,
+            "mean_ms_steps_1_on": ms, "tokens_per_s": B * S / ms * 1e3,
+            "peak_bytes": peak, "losses": losses, "model_flops": flops,
+            "model_flops_share_of_bf16_peak": mfu,
+            **_dense_train_profile(cfg, device, B, S)}
+
+
+def _dense_train_line(arch, cfg, row, how):
+    fams = row["device_ms"]
+    print(f"[lm dense train] {arch} ({cfg.n_layers} layers, d {cfg.d_model})"
+          f" {how} B={row['batch']} S={row['seq']}, {row['steps']} steps: "
+          f"loss {row['losses'][0]:.4f} -> {row['losses'][-1]:.4f}; "
+          f"{row['mean_ms_steps_1_on']:.1f} ms/step (steps 1 on), "
+          f"{row['tokens_per_s']:.0f} tokens/s, peak "
+          f"{row['peak_bytes'] / 2**30:.2f} GiB; model FLOPs "
+          f"{row['model_flops']:.3e} a step = "
+          f"{row['model_flops_share_of_bf16_peak']:.1%} of "
+          f"{BF16_PEAK_FLOP_PER_S / 1e12:.0f} TFLOP/s (dense bf16, data "
+          "sheet); one "
+          "step's device ms (profiled): " + ", ".join(
+              f"{k} {v:.1f}" for k, v in fams.items())
+          + f"; busy {row['device_busy_ms']:.1f} ms = "
+          f"{row['device_busy_ms'] / row['mean_ms_steps_1_on']:.4f} × the "
+          "unprofiled step")
+    for t, name, count in row["top_kernels"]:
+        print(f"[lm dense train]   {t:9.1f} ms  {count:5d}×  {name}")
+
+
+def phase_dense_train(device):
+    """Phase 20 (b): granite-moe-3b-a800m at its full config through
+    ``launch/train.py`` (the CLI at its B = 8, S = 64, 10 steps, lr
+    ``FULL_LR``; ms/step from its ``train.step`` spans), then B = 1,
+    S = 4096 through ``build_step``; gemma2-27b at full width and 2 layers
+    (one local, one global: its AdamW state does not fit beside 46) through
+    ``build_step`` at both shapes.  Losses finite and falling."""
+    from repro_torch.launch.train import train
+    rows = []
+    for arch, layers in DENSE_TRAIN:
+        cfg = get_config(arch)
+        if layers:
+            cfg = cfg.replace(n_layers=layers)
+        if layers is None:
+            argv = ["--arch", arch, "--steps", "10", "--batch", "8", "--seq",
+                    "64", "--lr", str(FULL_LR), "--log-every", "100"]
+            torch.cuda.reset_peak_memory_stats(device)
+            with obs.tracing():
+                losses = _dense_path(lambda: train(argv))
+                spans = [e["dur"] / 1e3 for e in obs.trace_events()
+                         if e["name"] == "train.step"]
+            peak = torch.cuda.max_memory_allocated(device)
+            check(len(losses) == 10 and all(np.isfinite(losses))
+                  and losses[-1] < losses[0], f"{arch} CLI losses {losses}")
+            ms = float(np.mean(spans[1:]))
+            flops, mfu = _mfu(cfg, "train", 8, 64, ms)
+            short = {"argv": argv, "batch": 8, "seq": 64, "steps": 10,
+                     "ms_per_step": spans, "mean_ms_steps_1_on": ms,
+                     "losses": losses, "tokens_per_s": 8 * 64 / ms * 1e3,
+                     "peak_bytes": peak, "model_flops": flops,
+                     "model_flops_share_of_bf16_peak": mfu,
+                     **_dense_train_profile(cfg, device, 8, 64)}
+            how = "train " + " ".join(argv[2:]) + ":"
+        else:
+            short = _dense_train_steps(cfg, device, 8, 64, 10)
+            check(short["losses"][-1] < short["losses"][0],
+                  f"{arch} losses {short['losses']}")
+            how = "build_step"
+        _dense_train_line(arch, cfg, short, how)
+        long = _dense_train_steps(cfg, device, 1, SHAPES["train_4k"].seq_len,
+                                  DENSE_TRAIN_4K_STEPS)
+        _dense_train_line(arch, cfg, long, "build_step")
+        rows.append({"arch": arch, "layers": cfg.n_layers, "cli": short,
+                     "train_4k": long})
+    return rows
+
+
+def phase_dense(device):
+    """Phase 20: the decoder-only families on the card — (a) serving at
+    full config (``DENSE_SERVE``), chatglm3's prefill profiled; (b)
+    training (``phase_dense_train``); (c) card vs CPU and decode vs
+    forward for every id (``phase_dense_check``).  No kernel of the port
+    is on these paths: every count stays 0 (``_dense_path``)."""
+    t0 = time.perf_counter()
+    serve = [_dense_serve(arch, S, P, device, profile=(arch == "chatglm3-6b"))
+             for arch, S, P in DENSE_SERVE]
+    t_serve = time.perf_counter() - t0
+    train_rows = phase_dense_train(device)
+    t_train = time.perf_counter() - t0 - t_serve
+    checks = phase_dense_check(device)
+    seconds = {"serve": t_serve, "train": t_train,
+               "check": time.perf_counter() - t0 - t_serve - t_train}
+    print("[lm dense] phase 20 seconds: " + ", ".join(
+        f"{k} {v:.1f}" for k, v in seconds.items()))
+    return {"serve": serve, "train": train_rows, "check": checks,
+            "seconds": seconds, "bf16_peak_flop_per_s": BF16_PEAK_FLOP_PER_S}
 
 
 def main() -> int:
@@ -5131,6 +5852,11 @@ def main() -> int:
     scan_bwd_rows = time_scan_backward(device)
     print(f"[lm train] phase 19 in {time.perf_counter() - t0:.1f} s")
     print("[lm train json] " + json.dumps(lm_train))
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    dense = phase_dense(device)
+    print(f"[lm dense] phase 20 in {time.perf_counter() - t0:.1f} s")
+    print("[lm dense json] " + json.dumps(dense))
     print("[lm json] " + json.dumps({"prefill": prefill_row,
                                      "decode": decode_row,
                                      "decode_graphs": decode_graph_row,

@@ -4,9 +4,10 @@ package's ``data/tokens.py``, array for array).
 ``batch_for_step(cfg, B, S, step)`` is a pure function of (seed, step):
 a restart never replays or skips data, which is the contract the
 checkpoint manager relies on.  The token stream is a noisy Markov chain,
-so small models show a clearly falling loss.  The reference also draws
-VLM patches and Whisper frames after the tokens; those families' inputs
-come with their slices (ROADMAP item 11b).
+so small models show a clearly falling loss.  A VLM batch also has
+patch embeddings, drawn after the tokens from the same generator.  The
+reference draws Whisper frames there too; they come with Whisper's slice
+(ROADMAP Queue 1 item 11b.5).
 """
 from __future__ import annotations
 
@@ -20,7 +21,8 @@ def _rng(seed: int, step: int):
 def batch_for_step(cfg, batch: int, seq: int, step: int, seed: int = 0,
                    order: int = 64):
     """``{"tokens", "labels"}`` int32 (batch, seq) of step ``step``:
-    labels are the tokens shifted by one.  ``order`` is unused, as in the
+    labels are the tokens shifted by one; for a VLM also ``patches``,
+    float32 (batch, n_patches, d_model).  ``order`` is unused, as in the
     reference."""
     rng = _rng(seed, step)
     V = cfg.vocab
@@ -33,5 +35,9 @@ def batch_for_step(cfg, batch: int, seq: int, step: int, seed: int = 0,
     for t in range(seq):
         nxt = (stream[:, t] * a + 7) % V
         stream[:, t + 1] = np.where(noise[:, t], rand[:, t], nxt)
-    return {"tokens": stream[:, :-1].astype(np.int32),
-            "labels": stream[:, 1:].astype(np.int32)}
+    out = {"tokens": stream[:, :-1].astype(np.int32),
+           "labels": stream[:, 1:].astype(np.int32)}
+    if cfg.family == "vlm":
+        out["patches"] = rng.standard_normal(
+            (batch, cfg.n_patches, cfg.d_model)).astype(np.float32)
+    return out

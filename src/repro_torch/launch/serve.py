@@ -4,7 +4,9 @@ prompt, then greedy or temperature sampling).
   PYTHONPATH=src python -m repro_torch.launch.serve --arch hymba-1.5b \
       [--reduced] [--batch 4 --prompt-len 16 --gen 32] [--device cpu]
 
-Runs on CUDA unless ``--device`` names another device.  On a card the
+``--arch`` takes every id the port runs (``configs.ARCH_IDS``: the
+hybrid, dense, MoE and VLM families).  Runs on CUDA unless ``--device``
+names another device.  On a card the
 decode step is captured once as a CUDA graph and replayed, where the
 reference jits it (``repro/launch/serve.py``).
 """
@@ -16,7 +18,7 @@ import time
 import numpy as np
 import torch
 
-from repro_torch.configs import get_config, get_reduced
+from repro_torch.configs import ARCH_IDS, get_config, get_reduced
 from repro_torch.configs.base import ShapeCell
 from repro_torch.device import resolve_device
 from repro_torch.kernels.capture import capture
@@ -77,7 +79,7 @@ def generate(cfg, params, prompt, max_len: int, gen: int, *,
 
 def main(argv=None):
     ap = argparse.ArgumentParser()
-    ap.add_argument("--arch", default="hymba-1.5b")
+    ap.add_argument("--arch", default="hymba-1.5b", choices=ARCH_IDS)
     ap.add_argument("--reduced", action="store_true")
     ap.add_argument("--batch", type=int, default=4)
     ap.add_argument("--prompt-len", type=int, default=16)

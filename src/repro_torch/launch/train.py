@@ -4,15 +4,18 @@
       [--reduced] [--steps 100 --batch 8 --seq 64] [--ckpt-dir DIR \
       --resume] [--compress 0.05] [--device cpu]
 
-Runs on CUDA unless ``--device`` names another device.  Each step is the
-reference's (``repro/launch/train.py``): the gradient of
-``lm.train_loss`` (remat on, attention chunk 256), optional top-k
-compression with error feedback, AdamW with global-norm clipping at 1.0.
-Parameters and their gradients are bf16 (``a_log`` float32), the AdamW
-state float32.  The data pipeline is stateless (``data/tokens.py``),
-checkpoints publish atomically from an async writer, ``--resume``
-restarts from the latest, and SIGTERM checkpoints and exits.  The
-reference's host mesh has no counterpart on one card.
+``--arch`` takes every id the port runs (``configs.ARCH_IDS``; a VLM's
+batches carry their patch embeddings).  Runs on CUDA unless ``--device``
+names another device.  Each step is the reference's
+(``repro/launch/train.py``): the gradient of ``lm.train_loss`` (remat on,
+attention chunk 256), optional top-k compression with error feedback,
+AdamW with global-norm clipping at 1.0.  Parameters and their gradients
+are bf16 (``a_log`` float32), the AdamW state float32; as the
+reference's jitted step donates them, the launcher's step updates the
+parameters and the state in place.  The data pipeline is stateless
+(``data/tokens.py``), checkpoints publish atomically from an async
+writer, ``--resume`` restarts from the latest, and SIGTERM checkpoints
+and exits.  The reference's host mesh has no counterpart on one card.
 """
 from __future__ import annotations
 
@@ -25,7 +28,7 @@ import torch
 
 from repro_torch import obs
 from repro_torch.checkpoint import CheckpointManager
-from repro_torch.configs import get_config, get_reduced
+from repro_torch.configs import ARCH_IDS, get_config, get_reduced
 from repro_torch.data.tokens import batch_for_step
 from repro_torch.device import resolve_device
 from repro_torch.models import lm
@@ -34,10 +37,13 @@ from repro_torch.optim import (AdamWConfig, adamw_init, adamw_update,
 from repro_torch.optim.adamw import tree_map
 
 
-def build_step(cfg, opt_cfg, compress_frac=0.0):
+def build_step(cfg, opt_cfg, compress_frac=0.0, *, donate=False):
     """``step(params, opt_state, err, batch) → (params, opt_state, err,
     loss)``: new parameters, state and error memory; the inputs are left
-    as they are."""
+    as they are, unless ``donate``: then the parameters and the AdamW
+    state are updated in place, as the reference's step donates its
+    inputs (``donate_argnums``), so a step holds one copy of them
+    (granite-moe-3b's full config trains on one 80 GB card only so)."""
     def step_fn(params, opt_state, err, batch):
         p = tree_map(lambda t: t.detach().requires_grad_(), params)
         loss = lm.train_loss(p, cfg, batch, chunk=256)
@@ -46,7 +52,8 @@ def build_step(cfg, opt_cfg, compress_frac=0.0):
         del p
         if compress_frac > 0:
             grads, err = topk_compress_apply(grads, err, compress_frac)
-        params, opt_state = adamw_update(params, grads, opt_state, opt_cfg)
+        params, opt_state = adamw_update(params, grads, opt_state, opt_cfg,
+                                         inplace=donate)
         return params, opt_state, err, loss.detach()
 
     return step_fn
@@ -60,7 +67,7 @@ def device_batch(cfg, batch, seq, step, seed, device):
 
 def train(argv=None):
     ap = argparse.ArgumentParser()
-    ap.add_argument("--arch", default="hymba-1.5b")
+    ap.add_argument("--arch", default="hymba-1.5b", choices=ARCH_IDS)
     ap.add_argument("--reduced", action="store_true",
                     help="use the smoke-scale config")
     ap.add_argument("--steps", type=int, default=100)
@@ -106,7 +113,7 @@ def train(argv=None):
         stop["now"] = True
 
     previous = signal.signal(signal.SIGTERM, _sigterm)
-    step_fn = build_step(cfg, opt_cfg, args.compress)
+    step_fn = build_step(cfg, opt_cfg, args.compress, donate=True)
     t0 = time.time()
     tokens_done = 0
     losses = []

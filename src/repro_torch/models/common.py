@@ -3,11 +3,18 @@ with float32 islands, as the JAX package computes them), and the
 next-token loss.
 
 Not ported: the JAX package's cost mode and ``scan_layers`` (the port
-loops over layers in Python) and its perf-option registry: none of its
-options has a counterpart here (``ssm_backend``: the device picks the
-scan kernel or its plain version, see ``models/ssm.py``).
+loops over layers in Python, ``layer_params`` giving each layer's views)
+and its perf-option registry: ``transformer.moe_ffn`` is the default
+MoE dispatch, and the other options have no counterpart here
+(``ssm_backend``: the device picks the scan kernel or its plain version,
+see ``models/ssm.py``).  ``plain_mlp`` comes with Whisper (ROADMAP Queue 1
+item 11b.5); ``gqa_attention`` has no caller in the JAX package's models
+(its transformer imports it and attends through ``_attn_block``), so it
+is not ported.
 """
 from __future__ import annotations
+
+import math
 
 import torch
 import torch.nn.functional as F
@@ -42,6 +49,12 @@ def softcap(x, cap: float):
     return cap * torch.tanh(x / cap)
 
 
+def layer_params(stack: dict, i: int) -> dict:
+    """Layer ``i``'s parameters: a view of each stacked ``(L, …)`` leaf."""
+    return {k: layer_params(v, i) if isinstance(v, dict) else v[i]
+            for k, v in stack.items()}
+
+
 # -------------------------------------------------------------------- RoPE
 def rope_tables(positions, head_dim: int, fraction: float = 1.0,
                 base: float = 10000.0):
@@ -70,8 +83,26 @@ def apply_rope(x, cos, sin, rot: int):
 
 
 # --------------------------------------------------------------------- MLP
+def gelu_tanh(x):
+    """``jax.nn.gelu``'s default (the tanh approximation) as it computes
+    it: op by op in the activation dtype, its constants rounded to that
+    dtype (bit for bit the reference's on the CPU in bf16).
+    ``F.gelu(approximate="tanh")`` rounds once from float32 and differs
+    by an ulp in ~43% of bf16 elements, which shows through gemma2's
+    36,864-wide MLP.  The constants are Python floats, so the function can
+    be captured in a CUDA graph."""
+    rnd = lambda v: float(torch.tensor(v).to(x.dtype))
+    c, a = rnd(math.sqrt(2 / math.pi)), rnd(0.044715)
+    return x * (0.5 * (1.0 + torch.tanh(c * (x + a * x ** 3))))
+
+
+def activation(act: str):
+    """The gated MLP's activation: SiLU or the tanh-approximate GELU."""
+    return F.silu if act == "silu" else gelu_tanh
+
+
 def gated_mlp(x, wg, wu, wd, act="silu"):
-    a = F.silu if act == "silu" else (lambda t: F.gelu(t, approximate="tanh"))
+    a = activation(act)
     return (a(x @ wg) * (x @ wu)) @ wd
 
 

@@ -14,14 +14,14 @@ the layers run in a Python loop; with ``remat`` each layer runs under
 from __future__ import annotations
 
 import functools
-import math
 
 import torch
 from torch.utils.checkpoint import checkpoint
 
-from .common import NEG_INF, apply_norm, apply_rope, gated_mlp, rope_tables
+from .common import (apply_norm, apply_rope, gated_mlp, layer_params,
+                     rope_tables)
 from .ssm import mamba_branch, mamba_defs
-from .transformer import _repeat_kv, chunked_attention
+from .transformer import chunked_attention, decode_attn
 
 
 def _branch_defs(cfg, L: int) -> dict:
@@ -52,27 +52,6 @@ def hybrid_model_defs(cfg) -> dict:
         "layers": _branch_defs(cfg, n_swa),        # sliding-window stack
         "glayers": _branch_defs(cfg, cfg.n_global_layers),
     }
-
-
-def layer_params(stack: dict, i: int) -> dict:
-    """Layer ``i``'s parameters: a view of each stacked ``(L, …)`` leaf."""
-    return {k: layer_params(v, i) if isinstance(v, dict) else v[i]
-            for k, v in stack.items()}
-
-
-def decode_attn(q, ck, cv, valid_upto):
-    """Ring/flat decode attention: all cache slots ≤ ``valid_upto`` (a 0-d
-    device tensor) are live (slot order is irrelevant to the softmax
-    sum)."""
-    H, hd = q.shape[2], q.shape[3]
-    Sk = ck.shape[1]
-    ck, cv = _repeat_kv(ck, H), _repeat_kv(cv, H)
-    scores = (q.transpose(1, 2) @ ck.permute(0, 2, 3, 1)).float()
-    scores = scores / math.sqrt(hd)
-    dead = torch.arange(Sk, device=q.device) > valid_upto
-    scores = scores.masked_fill(dead, NEG_INF)
-    probs = torch.softmax(scores, dim=-1).to(q.dtype)
-    return (probs @ cv.transpose(1, 2)).transpose(1, 2)
 
 
 def hybrid_layer(x, lp, cfg, *, cos, sin, rot, window, cache=None,

@@ -1,5 +1,6 @@
-"""LM entry points of the port, for the families it runs (so far the
-hybrid family, Hymba):
+"""LM entry points of the port, for the families it runs: hybrid (Hymba),
+dense (qwen2, qwen1.5, chatglm3, gemma2), MoE (granite) and VLM (llava,
+the dense backbone behind a prefix of patch embeddings):
 
   * ``model_defs(cfg)``                  — dict of (shape, role) leaves;
   * ``init_params(cfg, generator=...)``  — materialised parameters;
@@ -18,27 +19,36 @@ model functions follow the device of their inputs; ``init_params`` uses
 """
 from __future__ import annotations
 
+import math
+
 import torch
 
 from repro_torch.device import resolve_device
 from .hybrid import hybrid_decode_step, hybrid_forward, hybrid_model_defs
-from .transformer import chunked_xent, logits_for
+from .transformer import (chunked_xent, dense_decode_step, dense_forward,
+                          dense_model_defs, logits_for)
 
 DTYPE = torch.bfloat16
+INIT_PIECE = 1 << 30     # elements of a leaf's float32 draw at a time
+DENSE = ("dense", "moe", "vlm")        # one model function in the reference
+_NOT_PORTED = {"ssm": "11b.4", "encdec": "11b.5"}
 
 
 def _check_family(cfg):
-    """The port runs the hybrid family; the JAX package's dense, MoE,
-    RWKV, Whisper and LLaVA families are still to port."""
-    if cfg.family != "hybrid":
+    """The port runs the hybrid, dense, MoE and VLM families; the JAX
+    package's RWKV and Whisper families are still to port."""
+    if cfg.family != "hybrid" and cfg.family not in DENSE:
+        item = _NOT_PORTED.get(cfg.family, "11b")
         raise NotImplementedError(f"family {cfg.family!r} is not ported "
-                                  "yet (ROADMAP Queue 1 item 11)")
+                                  f"yet (ROADMAP Queue 1 item {item})")
 
 
 # ------------------------------------------------------------- param defs
 def model_defs(cfg) -> dict:
     _check_family(cfg)
-    return hybrid_model_defs(cfg)
+    if cfg.family == "hybrid":
+        return hybrid_model_defs(cfg)
+    return dense_model_defs(cfg)
 
 
 def _is_shape_leaf(x):
@@ -60,7 +70,11 @@ def init_params(cfg, *, generator: torch.Generator, device=None,
     weights and gains ones, ``a_log`` float32 ``log(1..N)``, biases zero
     (every name starting with ``b``, ``bc_w`` included), ``mu`` 0.5,
     ``w_bias`` −1, other matrices N(0, 0.02) drawn on ``generator``'s
-    device (so they differ from the JAX package's for the same seed)."""
+    device (so they differ from the JAX package's for the same seed).
+    A leaf of more than ``INIT_PIECE`` elements is drawn in pieces along
+    its first axis, so the float32 draw never holds more than that:
+    gemma2-27b's full config initialises on one 80 GB card.  Smaller
+    leaves (all of Hymba's) are drawn whole, as before."""
     device = resolve_device(device)
     return map_defs(lambda path, d: _init_one(
         generator, "/".join(path), d[0], dtype).to(device), model_defs(cfg))
@@ -83,22 +97,41 @@ def _init_one(generator, name, shape, dtype):
         if last == "w_bias":
             return torch.full(shape, -1.0, dtype=dtype, device=dev)
         return torch.zeros(shape, dtype=dtype, device=dev)
-    w = torch.randn(shape, generator=generator, dtype=torch.float32,
-                    device=dev)
-    return (w * 0.02).to(dtype)
+    out = torch.empty(shape, dtype=dtype, device=dev)
+    n = math.prod(shape)
+    for part in ((out,) if n <= INIT_PIECE
+                 else out.split(max(1, INIT_PIECE * shape[0] // n))):
+        w = torch.randn(part.shape, generator=generator, dtype=torch.float32,
+                        device=dev)
+        part.copy_(w.mul_(0.02))                 # rounds as ``.to(dtype)``
+    return out
 
 
 # ---------------------------------------------------------------- forward
 def _embed_tokens(params, cfg, tokens):
-    return params["embed"][tokens].to(DTYPE)
+    """Embedding rows in bf16; gemma's ``embed_scale`` multiplies them by
+    sqrt(float32(d_model)) rounded to bf16 first, as the reference does
+    (68.0 for d_model 4608, not 67.88)."""
+    x = params["embed"][tokens].to(DTYPE)
+    if cfg.embed_scale:       # a Python float: no copy to the device
+        x = x * float(torch.tensor(float(cfg.d_model)).sqrt().to(DTYPE))
+    return x
 
 
 def forward_hidden(params, cfg, batch, *, remat=True, chunk=1024):
     """→ final hidden states (B, S, D) of ``batch["tokens"]`` (B, S);
-    ``remat`` recomputes each layer's activations in the backward."""
+    ``remat`` recomputes each layer's activations in the backward.  A VLM
+    batch's ``patches`` (B, P, D) go first, cast to bf16, and their rows
+    are dropped from the output."""
     _check_family(cfg)
     x = _embed_tokens(params, cfg, batch["tokens"])
-    return hybrid_forward(params, cfg, x, remat=remat, chunk=chunk)
+    if cfg.family == "hybrid":
+        return hybrid_forward(params, cfg, x, remat=remat, chunk=chunk)
+    if cfg.family == "vlm" and cfg.n_patches and "patches" in batch:
+        P = batch["patches"].shape[1]
+        x = torch.cat([batch["patches"].to(DTYPE), x], dim=1)
+        return dense_forward(params, cfg, x, remat=remat, chunk=chunk)[:, P:]
+    return dense_forward(params, cfg, x, remat=remat, chunk=chunk)
 
 
 def train_loss(params, cfg, batch, *, remat=True, chunk=1024):
@@ -129,7 +162,8 @@ def decode_step(params, cfg, token, cache, pos):
     _check_family(cfg)
     x = _embed_tokens(params, cfg, token)
     pos = torch.as_tensor(pos, dtype=torch.int64, device=token.device)
-    h, cache = hybrid_decode_step(params, cfg, x, cache, pos)
+    step = hybrid_decode_step if cfg.family == "hybrid" else dense_decode_step
+    h, cache = step(params, cfg, x, cache, pos)
     return logits_for(h, params, cfg), cache
 
 
@@ -139,6 +173,9 @@ def cache_specs(cfg, cell, dtype=DTYPE) -> dict:
     _check_family(cfg)
     B, S = cell.global_batch, cell.seq_len
     L, KV, hd = cfg.n_layers, cfg.n_kv, cfg.head_dim
+    if cfg.family in DENSE:
+        return {"k": ((L, B, S, KV, hd), dtype),
+                "v": ((L, B, S, KV, hd), dtype)}
     Lswa = L - cfg.n_global_layers
     Lg = cfg.n_global_layers
     W = min(cfg.sliding_window, S)
@@ -165,10 +202,16 @@ def init_cache(cfg, cell, dtype=DTYPE, device=None) -> dict:
 
 def input_specs(cfg, cell) -> dict:
     """name → (shape, dtype) of every model input of ``cell``: the token
-    of a decode step, else tokens and labels."""
+    of a decode step, else tokens and labels, and a VLM's patch
+    embeddings, which take ``n_patches`` of the S positions."""
     _check_family(cfg)
     B, S = cell.global_batch, cell.seq_len
     if cell.kind == "decode":
         return {"token": ((B, 1), torch.int32)}
+    if cfg.family == "vlm":
+        P = cfg.n_patches
+        return {"patches": ((B, P, cfg.d_model), DTYPE),
+                "tokens": ((B, S - P), torch.int32),
+                "labels": ((B, S - P), torch.int32)}
     return {"tokens": ((B, S), torch.int32),
             "labels": ((B, S), torch.int32)}

@@ -5,7 +5,7 @@ kernel on the card, its plain version on the CPU.  The JAX package picks
 between an XLA associative scan and its Pallas kernel with the
 ``ssm_backend`` perf option; both compute the same function, so the port
 has no such option.  Decode is a single-step state update.  RWKV waits
-for its family's slice (ROADMAP Queue 1 item 11).
+for its family's slice (ROADMAP Queue 1 item 11b.4).
 """
 from __future__ import annotations
 

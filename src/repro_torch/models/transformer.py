@@ -1,25 +1,92 @@
-"""What the hybrid family needs of the JAX package's decoder-only
-transformer: query-chunked causal GQA attention, the tied unembedding and
-the sequence-chunked training loss.
+"""Decoder-only transformer families: dense GQA (qwen2, qwen1.5, chatglm3,
+llava's mistral backbone), gemma2 (alternating local/global attention,
+softcaps, pre+post norms) and granite-style MoE; the query-chunked
+attention Hymba shares; the unembedding and the sequence-chunked loss.
+
+Parameters are dicts of stacked ``(L, …)`` tensors and the layers run in
+a Python loop; with ``remat`` each layer runs under
+``torch.utils.checkpoint`` (non-reentrant), as the reference wraps it in
+``jax.checkpoint``.  The reference pins shardings inside the layer
+(``sharding_ctx``'s ``constrain_*``); without a mesh those are the
+identity, so the port leaves them out, and its mesh-only MoE dispatch
+(``_moe_ffn_shard_map``) too, with the per-sequence one
+(``_moe_ffn_batched``) that only its mesh settings select: ``moe_ffn``
+is the reference's default, global dispatch.
 
 Attention is plain PyTorch (``matmul`` + softmax) with the reference's
 masks and casts, as the JAX package leaves it to XLA: the bf16 score
-product is rounded to bf16 and widened to float32, masked with
+product is widened to float32, divided by √hd, soft-capped, masked with
 ``NEG_INF``, softmaxed in float32 and cast back to bf16 before the
-product with V.
+product with V.  Gemma2's alternation is a static per-layer flag here
+(even layers local), where the reference passes a traced one.
 """
 from __future__ import annotations
 
+import functools
 import math
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
-from .common import NEG_INF, softcap
+from .common import (NEG_INF, activation, apply_norm, apply_rope, gated_mlp,
+                     layer_params, rope_tables, softcap)
 
 
-def chunked_attention(q, k, v, *, window=0, chunk=1024):
+# ----------------------------------------------------------- param defs
+def dense_layer_defs(cfg) -> dict:
+    """(shape, role) per stacked layer tensor, as the reference's."""
+    L, D = cfg.n_layers, cfg.d_model
+    qd, kvd, ff = cfg.q_dim, cfg.kv_dim, cfg.d_ff
+    defs = {
+        "ln1": {"w": ((L, D), "rep")},
+        "ln2": {"w": ((L, D), "rep")},
+        "wq": ((L, D, qd), "col"),
+        "wk": ((L, D, kvd), "col"),
+        "wv": ((L, D, kvd), "col"),
+        "wo": ((L, qd, D), "row"),
+    }
+    if cfg.qkv_bias:
+        defs["bq"] = ((L, qd), "col_b")
+        defs["bk"] = ((L, kvd), "col_b")
+        defs["bv"] = ((L, kvd), "col_b")
+    if cfg.n_experts:
+        eff = cfg.expert_d_ff
+        defs["router"] = ((L, D, cfg.n_experts), "rep")
+        defs["ewg"] = ((L, cfg.n_experts, D, eff), "expert_in")
+        defs["ewu"] = ((L, cfg.n_experts, D, eff), "expert_in")
+        defs["ewd"] = ((L, cfg.n_experts, eff, D), "expert_down")
+    else:
+        defs["wg"] = ((L, D, ff), "col")
+        defs["wu"] = ((L, D, ff), "col")
+        defs["wd"] = ((L, ff, D), "row")
+    if cfg.post_block_norm:
+        defs["ln1_post"] = {"w": ((L, D), "rep")}
+        defs["ln2_post"] = {"w": ((L, D), "rep")}
+    if cfg.norm == "layernorm":
+        for k in ("ln1", "ln2", "ln1_post", "ln2_post"):
+            if k in defs:
+                defs[k]["b"] = (defs[k]["w"][0], "rep")
+    return defs
+
+
+def dense_model_defs(cfg) -> dict:
+    defs = {
+        "embed": ((cfg.vocab_padded, cfg.d_model), "embed"),
+        "final_norm": {"w": ((cfg.d_model,), "rep")},
+        "layers": dense_layer_defs(cfg),
+    }
+    if cfg.norm == "layernorm":
+        defs["final_norm"]["b"] = ((cfg.d_model,), "rep")
+    if not cfg.tie_embeddings:
+        defs["lm_head"] = ((cfg.d_model, cfg.vocab_padded), "col")
+    return defs
+
+
+# ------------------------------------------------------- chunked attention
+def chunked_attention(q, k, v, *, window=0, attn_softcap=0.0, chunk=1024):
     """Query-chunked causal GQA attention, bounded score memory.  q (B,
-    Sq, H, hd), k/v (B, Sk, KV, hd); ``window`` > 0 is a sliding window.
+    Sq, H, hd), k/v (B, Sk, KV, hd); ``window`` > 0 is a sliding window
+    (a local layer), 0 a global layer.
 
     The reference scores each query chunk against all of K/V.  Here a
     chunk gets only the keys its masks can leave live (none past its last
@@ -30,14 +97,15 @@ def chunked_attention(q, k, v, *, window=0, chunk=1024):
     layers instead of 32k."""
     Sq = q.shape[1]
     if Sq <= chunk:
-        return _attn_block(q, k, v, window=window)
+        return _attn_block(q, k, v, window=window, attn_softcap=attn_softcap)
     assert Sq % chunk == 0
     outs = []
     for i in range(0, Sq, chunk):
         hi = min(k.shape[1], i + chunk)
         lo = max(0, i - window + 1) if window > 0 else 0
         outs.append(_attn_block(q[:, i:i + chunk], k[:, lo:hi], v[:, lo:hi],
-                                window=window, q_offset=i, k_offset=lo))
+                                window=window, attn_softcap=attn_softcap,
+                                q_offset=i, k_offset=lo))
     return torch.cat(outs, dim=1)
 
 
@@ -46,15 +114,23 @@ def _repeat_kv(k, H):
     return k if KV == H else torch.repeat_interleave(k, H // KV, dim=2)
 
 
-def _attn_block(q, k, v, *, window, q_offset=0, k_offset=0):
+def _scores(q, k, attn_softcap):
+    """(B, H, Sq, Sk) float32 scores of q (B, Sq, H, hd) against k (B, Sk,
+    H, hd): the product in the activation dtype (einsum "bqhd,bkhd->bhqk"),
+    then float32, ``/ √hd``, soft-capped."""
+    scores = (q.transpose(1, 2) @ k.permute(0, 2, 3, 1)).float()
+    scores = scores / math.sqrt(q.shape[-1])
+    return softcap(scores, attn_softcap) if attn_softcap > 0 else scores
+
+
+def _attn_block(q, k, v, *, window, attn_softcap=0.0, q_offset=0,
+                k_offset=0):
     """GQA via repeat-KV (K/V broadcast to the H query heads).  Query i
     sits at position ``q_offset + i``, key j at ``k_offset + j``."""
     B, Sq, H, hd = q.shape
     Sk = k.shape[1]
     k, v = _repeat_kv(k, H), _repeat_kv(v, H)
-    # einsum "bqhd,bkhd->bhqk" in the activation dtype, then float32
-    scores = (q.transpose(1, 2) @ k.permute(0, 2, 3, 1)).float()
-    scores = scores / math.sqrt(hd)
+    scores = _scores(q, k, attn_softcap)
     qpos = torch.arange(Sq, device=q.device) + q_offset
     kpos = torch.arange(Sk, device=q.device) + k_offset
     mask = kpos[None, :] <= qpos[:, None]
@@ -65,11 +141,194 @@ def _attn_block(q, k, v, *, window, q_offset=0, k_offset=0):
     return (probs @ v.transpose(1, 2)).transpose(1, 2)      # (B, Sq, H, hd)
 
 
+def decode_attn(q, ck, cv, pos, *, window=0, attn_softcap=0.0):
+    """One query position ``pos`` (a 0-d device tensor) against a whole
+    cache ck/cv (B, Smax, KV, hd): slots ≤ ``pos`` are live, and with a
+    window only those > ``pos − window``.  Nothing is read on the host,
+    so the step can be captured.  A ring buffer passes its last slot
+    index as ``pos`` (slot order is irrelevant to the softmax sum)."""
+    H = q.shape[2]
+    Sk = ck.shape[1]
+    ck, cv = _repeat_kv(ck, H), _repeat_kv(cv, H)
+    scores = _scores(q, ck, attn_softcap)
+    kpos = torch.arange(Sk, device=q.device)
+    live = kpos <= pos
+    if window > 0:
+        live &= kpos > pos - window
+    scores = scores.masked_fill(~live, NEG_INF)
+    probs = torch.softmax(scores, dim=-1).to(q.dtype)
+    return (probs @ cv.transpose(1, 2)).transpose(1, 2)
+
+
+# ------------------------------------------------------------------- MoE
+def top_k(logits, k: int):
+    """``jax.lax.top_k``: the k largest along the last axis, descending,
+    the lower index first on a tie (a stable sort; ``torch.topk``
+    promises no order among equal values)."""
+    vals, idx = torch.sort(logits, dim=-1, descending=True, stable=True)
+    return vals[..., :k], idx[..., :k]
+
+
+def _positions_in_expert(eidx, E: int):
+    """Rank of each entry within its expert along axis −1 (the count of
+    earlier entries routed to the same expert)."""
+    onehot = torch.nn.functional.one_hot(eidx, E)         # (..., T·k, E)
+    ranks = onehot.cumsum(-2) - onehot
+    return ranks.gather(-1, eidx[..., None])[..., 0]
+
+
+def _experts(buf, ewg, ewu, ewd, act):
+    """The gated expert FFN on the (…, E, cap, D) buffer, batched over E."""
+    a = activation(act)
+    dt = buf.dtype
+    return (a(buf @ ewg.to(dt)) * (buf @ ewu.to(dt))) @ ewd.to(dt)
+
+
+def _route(x, router_w, top_k_):
+    """Router logits (the bf16 product widened to float32), the top-k
+    experts and their softmaxed gates in the activation dtype."""
+    logits = (x @ router_w.to(x.dtype)).float()
+    gates, eidx = top_k(logits, top_k_)
+    return torch.softmax(gates, dim=-1).to(x.dtype), eidx
+
+
+MOE_CAPACITY_FACTOR = 1.25        # the reference's default
+
+
+def expert_capacity(T: int, E: int, top_k: int,
+                    capacity_factor: float = MOE_CAPACITY_FACTOR) -> int:
+    """Each expert's queue length for T tokens, the reference's expression
+    (a Python float, so the same rounding)."""
+    return max(8, int(capacity_factor * top_k * T / E))
+
+
+def moe_ffn(x, router_w, ewg, ewu, ewd, *, top_k: int, act: str,
+            capacity_factor: float = MOE_CAPACITY_FACTOR):
+    """Top-k dispatch with fixed expert capacity (static shapes; overflow
+    entries are dropped).  x (B, S, D) → (B, S, D).  The reference's
+    default (global) dispatch: one queue per expert over all B·S tokens,
+    ``expert_capacity`` long.
+
+    The reference scatter-adds each (token, slot) into its (expert,
+    position) row, dropped entries adding exact zeros into row cap − 1.
+    Every kept entry owns its row, so here the rows are written (no
+    atomic, no order to depend on): the kept entries into theirs, the
+    dropped ones into a spare row that is cut off.  The combine reads the
+    same rows and the spare one (zeros) and weights them by the gate."""
+    B, S, D = x.shape
+    E = router_w.shape[-1]
+    T = B * S
+    xt = x.reshape(T, D)
+    gates, eidx = _route(xt, router_w, top_k)                 # (T, k)
+    cap = expert_capacity(T, E, top_k, capacity_factor)
+    flat = eidx.reshape(-1)                                   # (T·k,)
+    pos = _positions_in_expert(flat, E)
+    rows = torch.where(pos < cap, flat * cap + pos, E * cap)  # spare: E·cap
+    buf = torch.index_copy(x.new_zeros(E * cap + 1, D), 0, rows,
+                           xt.repeat_interleave(top_k, dim=0))
+    y = _experts(buf[:-1].view(E, cap, D), ewg, ewu, ewd, act)
+    y = torch.cat([y.reshape(E * cap, D), y.new_zeros(1, D)])
+    out = y[rows] * gates.reshape(-1, 1)
+    return out.reshape(T, top_k, D).sum(1).reshape(B, S, D)
+
+
+# ------------------------------------------------------------ layer body
+def is_local(cfg, i: int) -> bool:
+    """Whether layer ``i`` attends through ``cfg.sliding_window``: every
+    layer with a window, or with gemma2's alternation the even ones."""
+    return cfg.sliding_window > 0 and (not cfg.alternate_local_global
+                                       or i % 2 == 0)
+
+
+def dense_layer(x, lp, cfg, *, cos, sin, rot, local, cache=None, pos=None,
+                chunk=1024):
+    """One transformer block; ``local`` applies the sliding window.
+    ``cache=(k, v)`` (B, Smax, KV, hd) → decode: this layer's K/V are
+    written in place at ``pos`` (a 0-d device tensor) and attention runs
+    over the whole cache."""
+    B, Sq, _ = x.shape
+    norm = functools.partial(apply_norm, kind=cfg.norm,
+                             plus_one=cfg.norm_plus_one)
+    h = norm(x, lp["ln1"])
+    q, k, v = h @ lp["wq"], h @ lp["wk"], h @ lp["wv"]
+    if cfg.qkv_bias:
+        q, k, v = q + lp["bq"], k + lp["bk"], v + lp["bv"]
+    q = apply_rope(q.reshape(B, Sq, cfg.n_heads, cfg.head_dim), cos, sin, rot)
+    k = apply_rope(k.reshape(B, Sq, cfg.n_kv, cfg.head_dim), cos, sin, rot)
+    v = v.reshape(B, Sq, cfg.n_kv, cfg.head_dim)
+    window = cfg.sliding_window if local else 0
+    if cache is not None:
+        ck, cv = cache
+        at = pos.reshape(1)
+        ck.index_copy_(1, at, k)
+        cv.index_copy_(1, at, v)
+        attn = decode_attn(q, ck, cv, pos, window=window,
+                           attn_softcap=cfg.attn_softcap)
+    else:
+        attn = chunked_attention(q, k, v, window=window,
+                                 attn_softcap=cfg.attn_softcap, chunk=chunk)
+    attn = attn.reshape(B, Sq, cfg.q_dim) @ lp["wo"]
+    if cfg.post_block_norm:
+        attn = norm(attn, lp["ln1_post"])
+    x = x + attn
+
+    h = norm(x, lp["ln2"])
+    if cfg.n_experts:
+        f = moe_ffn(h, lp["router"], lp["ewg"], lp["ewu"], lp["ewd"],
+                    top_k=cfg.top_k, act=cfg.act)
+    else:
+        f = gated_mlp(h, lp["wg"], lp["wu"], lp["wd"], act=cfg.act)
+    if cfg.post_block_norm:
+        f = norm(f, lp["ln2_post"])
+    return x + f
+
+
+# --------------------------------------------------------------- forward
+def dense_forward(params, cfg, embeds, *, remat=True, chunk=1024):
+    """embeds (B, S, D) → final hidden states (B, S, D)."""
+    S = embeds.shape[1]
+    positions = torch.arange(S, device=embeds.device)[None, :]
+    cos, sin, rot = rope_tables(positions, cfg.head_dim, cfg.rope_fraction,
+                                cfg.rope_base)
+    stack = params["layers"]
+    x = embeds
+    for i in range(stack["wq"].shape[0]):
+        blk = functools.partial(dense_layer, cfg=cfg, cos=cos, sin=sin,
+                                rot=rot, local=is_local(cfg, i), chunk=chunk)
+        lp = layer_params(stack, i)
+        x = (checkpoint(blk, x, lp, use_reentrant=False) if remat
+             else blk(x, lp))
+    return apply_norm(x, params["final_norm"], cfg.norm, cfg.norm_plus_one)
+
+
+def dense_decode_step(params, cfg, token_embed, cache, pos):
+    """token_embed (B, 1, D); cache {"k", "v"}: (L, B, Smax, KV, hd),
+    updated in place at ``pos`` (a 0-d int64 device tensor, never read on
+    the host) and returned with the final hidden state (B, 1, D)."""
+    cos, sin, rot = rope_tables(pos.reshape(1, 1), cfg.head_dim,
+                                cfg.rope_fraction, cfg.rope_base)
+    stack = params["layers"]
+    x = token_embed
+    for i in range(stack["wq"].shape[0]):
+        x = dense_layer(x, layer_params(stack, i), cfg, cos=cos, sin=sin,
+                        rot=rot, local=is_local(cfg, i),
+                        cache=(cache["k"][i], cache["v"][i]), pos=pos)
+    x = apply_norm(x, params["final_norm"], cfg.norm, cfg.norm_plus_one)
+    return x, cache
+
+
+# ------------------------------------------------------------------ loss
 def logits_for(x, params, cfg):
     """Hidden states (B, S, D) → float32 logits (B, S, vocab_padded)
-    through the tied embedding; the vocab padding beyond ``cfg.vocab`` is
+    through the untied ``lm_head`` (D, Vp) or the tied embedding:
+    the product in the activation dtype, widened, soft-capped
+    (``cfg.logit_softcap``), the vocab padding beyond ``cfg.vocab``
     masked with ``NEG_INF``."""
-    logits = (x @ params["embed"].T.to(x.dtype)).float()
+    W = params.get("lm_head")
+    W = params["embed"].T if W is None else W
+    logits = (x @ W.to(x.dtype)).float()
+    if cfg.logit_softcap > 0:
+        logits = softcap(logits, cfg.logit_softcap)
     if cfg.vocab_padded > cfg.vocab:
         pad = torch.arange(cfg.vocab_padded, device=x.device) >= cfg.vocab
         logits = logits.masked_fill(pad, NEG_INF)

@@ -39,6 +39,9 @@ def tree_map(fn, tree, *rest):
     return fn(tree, *rest)
 
 
+INPLACE_PIECE = 1 << 24     # elements a piece of an in-place update
+
+
 @dataclass(frozen=True)
 class AdamWConfig:
     lr: float = 1e-3
@@ -64,15 +67,22 @@ def global_norm(grads):
 
 
 @torch.no_grad()
-def adamw_update(params, grads, state, cfg: AdamWConfig):
-    """One AdamW step: returns ``(new_params, new_state)``; the inputs are
-    left as they are.  New parameters are detached tensors of the old
-    ones' dtype."""
+def adamw_update(params, grads, state, cfg: AdamWConfig, *, inplace=False):
+    """One AdamW step: returns ``(new_params, new_state)``.  New parameters
+    are detached tensors of the old ones' dtype, and the inputs are left
+    as they are, unless ``inplace``: then ``grads`` are clipped, and the
+    parameters and moments updated, in place (the caller gives them up,
+    as the reference's jitted step donates them), in pieces of at most
+    ``INPLACE_PIECE`` elements of each (contiguous) leaf's flat view, so a
+    step holds one copy of the state and float32 temporaries of one
+    piece.  The update is elementwise, so the bits are the same either
+    way."""
     step = state["step"] + 1
     if cfg.grad_clip > 0:
         gn = global_norm(grads)
         clip = torch.clamp_max(cfg.grad_clip / (gn + 1e-9), 1.0)
-        grads = tree_map(lambda g: g * clip, grads)
+        grads = tree_map((lambda g: g.mul_(clip)) if inplace
+                         else (lambda g: g * clip), grads)
     # the bias corrections in float32, as tensors on the parameters'
     # device: CUDA divides by a host scalar through its reciprocal, which
     # rounds differently from the reference's division
@@ -92,6 +102,15 @@ def adamw_update(params, grads, state, cfg: AdamWConfig):
                               + cfg.weight_decay * p32)
         return p32.to(p.dtype), m, v
 
-    out = tree_map(upd, params, grads, state["m"], state["v"])
+    def upd_(p, g, m, v):
+        for part in zip(*(t.view(-1).split(INPLACE_PIECE)
+                          for t in (p, g, m, v))):
+            new = upd(*part)
+            for dst, src in zip(part[:1] + part[2:], new):
+                dst.copy_(src)
+        return p, m, v
+
+    out = tree_map(upd_ if inplace else upd, params, grads, state["m"],
+                   state["v"])
     pick = lambda i: tree_map(lambda _, o: o[i], params, out)
     return pick(0), {"m": pick(1), "v": pick(2), "step": step}

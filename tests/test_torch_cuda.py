@@ -1186,3 +1186,125 @@ def test_dynamic_graph_on_card_matches_fresh_pack(cuda_device):
         t = cur.transpose()
         ft = build_pcsr(t.indptr, t.indices, t.data, n, n, g.config)
         assert torch.equal(Bg.grad, ops.paramspmm(ft, B))
+
+
+DECODER_ARCHS = ["qwen2-72b", "chatglm3-6b", "gemma2-27b", "qwen1.5-110b",
+                 "granite-moe-1b-a400m", "granite-moe-3b-a800m",
+                 "llava-next-mistral-7b"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", DECODER_ARCHS)
+def test_decoder_family_on_card_matches_cpu(cuda_device, arch):
+    """A reduced decoder-only model (gemma2's window 8 < S; llava with its
+    8 patches) on the card vs the port on the CPU, the same parameters:
+    prefill logits and 12 decode steps within 5e-2 (bf16, the reference's
+    backend tolerance); ``train_loss`` within ``rtol=1e-3`` and every
+    gradient leaf within 5e-2 relative L2."""
+    from repro_torch.configs import get_reduced
+    from repro_torch.configs.base import ShapeCell
+    from repro_torch.data.tokens import batch_for_step
+    from repro_torch.models import lm
+    from repro_torch.optim.adamw import tree_leaves, tree_map
+    cfg = get_reduced(arch)
+    cpu = lm.init_params(cfg, generator=torch.Generator().manual_seed(3),
+                         device="cpu")
+    card = _to(cpu, cuda_device)
+    batch = {k: torch.as_tensor(v) for k, v in batch_for_step(
+        cfg, 2, 32 - cfg.n_patches, 0, seed=1).items()}
+    on = lambda dev: {k: v.to(dev) for k, v in batch.items()}
+    got = lm.prefill(card, cfg, on(cuda_device), chunk=16)
+    want = lm.prefill(cpu, cfg, batch, chunk=16)
+    m = want > -1e30
+    torch.testing.assert_close(got.cpu()[m], want[m], atol=5e-2, rtol=5e-2)
+    out = {}
+    for dev, params in (("cpu", cpu), ("card", card)):
+        p = tree_map(lambda t: t.detach().requires_grad_(), params)
+        loss = lm.train_loss(p, cfg, on(p["embed"].device), chunk=16)
+        loss.backward()
+        out[dev] = (float(loss.detach()), [t.grad for t in tree_leaves(p)])
+    np.testing.assert_allclose(out["card"][0], out["cpu"][0], rtol=1e-3)
+    for a, b in zip(out["card"][1], out["cpu"][1]):
+        assert _rel_l2(a, b) <= 5e-2
+    cache = {d: lm.init_cache(cfg, ShapeCell("d", 12, 2, "decode"),
+                              device=d) for d in ("cpu", cuda_device)}
+    tokens = batch["tokens"]
+    for t in range(12):
+        lc, cache["cpu"] = lm.decode_step(cpu, cfg, tokens[:, t:t + 1],
+                                          cache["cpu"], t)
+        lg, cache[cuda_device] = lm.decode_step(
+            card, cfg, tokens[:, t:t + 1].to(cuda_device),
+            cache[cuda_device], t)
+        torch.testing.assert_close(lg.cpu()[m], lc[m], atol=5e-2,
+                                   rtol=5e-2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["chatglm3-6b", "gemma2-27b",
+                                  "granite-moe-3b-a800m"])
+def test_captured_dense_decode_equals_eager(cuda_device, arch):
+    """The dense cache path captured once and replayed: the eager step's
+    logits and caches bit for bit over 12 positions (past gemma2's reduced
+    window of 8), and ``generate`` the same tokens with and without
+    graphs."""
+    from repro_torch.configs import get_reduced
+    from repro_torch.configs.base import ShapeCell
+    from repro_torch.kernels.capture import capture
+    from repro_torch.launch.serve import generate
+    from repro_torch.models import lm
+    cfg = get_reduced(arch)
+    g = torch.Generator().manual_seed(2)
+    params = _to(lm.init_params(cfg, generator=g, device="cpu"),
+                 cuda_device)
+    tokens = torch.randint(0, cfg.vocab, (2, 12), generator=g).to(
+        cuda_device)
+    caches = [lm.init_cache(cfg, ShapeCell("d", 12, 2, "decode"),
+                            device=cuda_device) for _ in "ab"]
+    static_tok = tokens[:, :1].clone()
+    static_pos = torch.zeros((), dtype=torch.int64, device=cuda_device)
+    step = lambda: lm.decode_step(params, cfg, static_tok, caches[1],
+                                  static_pos)[0]
+    captured = None
+    with torch.no_grad():
+        for t in range(12):
+            want, _ = lm.decode_step(params, cfg, tokens[:, t:t + 1],
+                                     caches[0], t)
+            static_tok.copy_(tokens[:, t:t + 1])
+            static_pos.fill_(t)
+            if captured is None:
+                got, captured = capture(step, cuda_device)
+            else:
+                got = captured.replay()
+            assert torch.equal(got, want), f"step {t}"
+    torch.cuda.synchronize()
+    for name in caches[0]:
+        assert torch.equal(caches[0][name], caches[1][name]), name
+    prompt = tokens[:, :4].cpu().numpy()
+    seqs = [generate(cfg, params, prompt, 12, 8, device=cuda_device,
+                     graphs=graphs) for graphs in (True, False)]
+    assert torch.equal(seqs[0], seqs[1])
+
+
+@pytest.mark.cuda
+def test_moe_dispatch_gives_the_same_bits_twice(cuda_device):
+    """granite-moe-3b-a800m's layer widths (D 1536, 40 experts, top 8,
+    expert d_ff 512) at a capacity that drops entries: two runs of the
+    forward and of its gradients (x, the router and the three expert
+    weights) give the same bits."""
+    from repro_torch.models.transformer import moe_ffn
+    g = torch.Generator(device=cuda_device).manual_seed(0)
+    D, E, F = 1536, 40, 512
+    r = lambda *s, std=0.02: (torch.randn(s, generator=g, device=cuda_device)
+                              * std).to(torch.bfloat16)
+    x = r(2, 256, D, std=1.0)
+    w = [r(D, E), r(E, D, F), r(E, D, F), r(E, F, D)]
+    runs = []
+    for _ in range(2):
+        xi = x.detach().requires_grad_()
+        wi = [t.detach().requires_grad_() for t in w]
+        out = moe_ffn(xi, *wi, top_k=8, act="silu", capacity_factor=0.5)
+        out.float().square().sum().backward()
+        runs.append([out.detach(), xi.grad] + [t.grad for t in wi])
+    for a, b in zip(*runs):
+        assert torch.equal(a, b)
+    assert (runs[0][0].abs().sum(-1) == 0).any()      # entries dropped

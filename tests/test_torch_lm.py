@@ -108,7 +108,7 @@ def test_config_tables_equal_reference(which):
         {k: dataclasses.asdict(v) for k, v in rbase.SHAPES.items()}
 
 
-@pytest.mark.parametrize("arch", [a for a in rconfigs.ARCH_IDS if a != ARCH])
+@pytest.mark.parametrize("arch", ["rwkv6-1.6b", "whisper-tiny"])
 def test_other_archs_are_not_ported_yet(arch):
     with pytest.raises(NotImplementedError, match="Queue 1 item 11"):
         tconfigs.get_config(arch)

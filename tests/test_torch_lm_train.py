@@ -185,7 +185,7 @@ def test_input_specs_match_reference(ref):
             == {k: v[0] for k, v in got.items()}, name
         assert all(v[1] == torch.int32 for v in got.values())
     with pytest.raises(NotImplementedError, match="item 11"):
-        tlm.input_specs(tconfigs.get_reduced(ARCH).replace(family="dense"),
+        tlm.input_specs(tconfigs.get_reduced(ARCH).replace(family="ssm"),
                         ShapeCell("x", 8, 1, "train"))
 
 
