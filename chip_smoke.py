@@ -243,9 +243,11 @@ Runs from the root of a checkout and drives ``src/repro_torch`` only
     S = 8,192 (past its 4,096 window): ms, tokens/s, peak memory, model
     FLOPs (``launch/roofline.py``) beside the 989 TFLOP/s dense bf16
     peak, chatglm3's prefill profiled by kernel family; ``generate`` at
-    batch 4 eager and captured (ms per step; captured tokens equal eager's
-    up to each row's first near-tie, step logits within ``atol=0.2,
-    rtol=0.05``).  Training: granite-moe-3b-a800m at full config through
+    batch 4 after a captured warm-up in the order eager, captured,
+    captured, eager (ms per step, two runs of a mode the same tokens,
+    captured tokens equal eager's up to each row's first near-tie, step
+    logits within ``atol=0.2, rtol=0.05``).  Training: granite-moe-3b-a800m
+    at full config through
     ``launch/train.py`` (B = 8, S = 64, 10 steps, losses falling) and
     ``build_step`` at B = 1, S = 4,096; gemma2-27b at full width and 2
     layers at both shapes; ms/step, tokens/s, peak memory, model FLOPs
@@ -263,12 +265,37 @@ Runs from the root of a checkout and drives ``src/repro_torch`` only
     apart reported, every pick apart a near-tie; teacher-forced decode
     against the forward on the card, held the same way at ``atol=0.15,
     rtol=0.05`` and by the same float32 yardstick.
+21. RWKV6 and Whisper (runs after phase 20; ``phase_more``) — again no
+    kernel of the port on these paths (the reference runs RWKV's
+    recurrence as ``lax.scan`` and Whisper's attention on XLA): every
+    count stays 0, and the summed counts over the phase's paths are
+    printed.  Per family at full config from ``init_params`` on the
+    card: ``prefill`` at B = 1 (rwkv6-1.6b over 4,096 tokens,
+    prefill_32k's length cut since its eager time loop is bound by the
+    host's launches; whisper-tiny at prefill_32k's input shape with its
+    batch cut to 1, 32,768 stub frames and 8,192 tokens), timed (ms,
+    tokens/s, peak memory), then profiled once (RWKV at 512 tokens: at
+    4,096 its ~300k kernels took the profiler 80.8 s): kernels per
+    position, device ms by family and the busy share of that length's
+    unprofiled prefill; ``generate`` at batch 4 as phase 20 runs it;
+    ``launch/train.py`` at the CLI's B = 8, S = 64 for 10 steps (losses
+    falling, ms/step from its spans, one step profiled) and for Whisper
+    ``build_step`` at train_4k's length with B = 1 (two steps, the
+    second timed).  Card vs CPU on the same parameters (RWKV at full
+    width and 2 layers, B = 1, S = 64; Whisper at its full config, B = 2,
+    64 frames, 32 tokens; labels drawn apart from the tokens): logits
+    within ``atol=0.2, rtol=0.05``, the loss within ``rtol=1e-3``, every
+    gradient leaf within 5e-2 relative L2; on the card, teacher-forced
+    decode against the forward at the reference's tolerances (RWKV
+    ``atol=0.15``, Whisper ``atol=0.2`` from the encoder-built
+    cross-attention cache, as the reference's test builds it;
+    ``rtol=0.05``).  Seconds by part printed.
 Each main path (serving per model, each pass of each phase-15 service,
 training per model, each oracle search, each 131k baseline-comparison
 run, each distributed run on each rank, each dynamic batch's operators,
 the ``--mutate`` CLI run, each refresh case's SpMM on each rank, LM
 prefill, each decode run, the consistency forward, each phase-19
-training run and each phase-20 path) runs with the
+training run and each phase-20 and phase-21 path) runs with the
 launch counts set to 0 just before it and read just after.  A
 replayed graph adds the launches its capture recorded
 (``kernels/capture.py``).
@@ -5071,15 +5098,21 @@ def _check_cfg(name):
     return cfg.replace(sliding_window=CHECK_WINDOW) if tag else cfg
 
 
+# every ``_dense_path``'s launch counts, summed, and the number of paths
+PATH_LAUNCHES = collections.Counter()
+
+
 def _dense_path(fn):
-    """Run a decoder-only main path with every launch count set to 0 just
-    before and read just after: the path has no kernel of the port, so
-    every count must still be 0."""
+    """Run a main path without a kernel of the port (phases 20 and 21)
+    with every launch count set to 0 just before and read just after
+    (summed into ``PATH_LAUNCHES``): every count must still be 0."""
     _reset_counts()
     out = fn()
     torch.cuda.synchronize()
     counts = {**_counts(), "selective_scan": scan.launch_count()}
-    check(not any(counts.values()), f"a decoder-only path launched {counts}")
+    PATH_LAUNCHES.update(paths=1, **counts)
+    check(not any(counts.values()), f"a path without kernels launched "
+          f"{counts}")
     return out
 
 
@@ -5115,13 +5148,13 @@ def _family(key, which):
 
 def _profile_families(windows):
     """Device ms by ``_family`` over the ``torch.profiler`` windows
-    ``[(which, fn)]`` (each run once, synchronised), and the six costliest
-    kernels."""
+    ``[(which, fn)]`` (each run once, synchronised), the six costliest
+    kernels and the count of kernel launches in the windows."""
     from torch.profiler import ProfilerActivity, profile
     fams = dict.fromkeys(("matmul", "attention_softmax",
                           "moe_dispatch_combine_and_embedding",
                           "elementwise", "optimiser"), 0.0)
-    top = []
+    top, kernels = [], 0
     for which, fn in windows:
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
@@ -5135,9 +5168,10 @@ def _profile_families(windows):
                 continue
             fams[_family(e.key, which)] += t / 1e3
             top.append((t / 1e3, e.key[:60], e.count))
+            kernels += e.count
     check(fams["matmul"] > 0, "the profiler saw no matmul (device time not "
           "measured)")
-    return fams, sorted(top, reverse=True)[:6]
+    return fams, sorted(top, reverse=True)[:6], kernels
 
 
 def _mfu(cfg, kind, B, S, ms):
@@ -5152,9 +5186,11 @@ def _mfu(cfg, kind, B, S, ms):
 def _captured_vs_eager(cfg, params, device, *, batch=4, prompt_len=16,
                        gen=32):
     """``generate`` at batch 4 with the reference CLI's prompt and gen
-    lengths, eagerly and with the step captured (a captured warm-up run,
-    whose capture first runs the step eagerly; then eager, captured): ms
-    per decode step of each; the captured tokens equal
+    lengths, eagerly and with the step captured: a captured warm-up run
+    (whose capture first runs the step eagerly), then ``GRAPH_ORDER``
+    (eager, captured, captured, eager), each ``generate`` capturing
+    anew: ms per decode step of each run and the mean of each mode; the
+    two runs of a mode give the same tokens, the captured tokens equal
     the eager ones up to each row's first near-tie (top-two eager logits
     within ``TIE``), and the teacher-forced step logits within
     ``LOGITS_ATOL`` / ``LOGITS_RTOL``."""
@@ -5170,7 +5206,14 @@ def _captured_vs_eager(cfg, params, device, *, batch=4, prompt_len=16,
         return seq, (time.perf_counter() - t0) * 1e3 / steps
 
     run(True)
-    (eager, ms_e), (captured, ms_c) = run(False), run(True)
+    runs = [(graphs, *run(graphs)) for graphs in GRAPH_ORDER]
+    seqs = {g: [seq for gg, seq, _ in runs if gg == g] for g in (False, True)}
+    for g in (False, True):
+        check(torch.equal(*seqs[g]), f"{cfg.name}: two "
+              f"{'captured' if g else 'eager'} runs gave other tokens")
+    ms_e, ms_c = (float(np.mean([m for gg, _, m in runs if gg == g]))
+                  for g in (False, True))
+    eager, captured = seqs[False][0], seqs[True][0]
     check(torch.equal(captured[:, :prompt_len].cpu(),
                       torch.as_tensor(prompt)), "generate changed the prompt")
     want = _step_logits(params, cfg, eager, prompt_len, device, False)
@@ -5188,6 +5231,8 @@ def _captured_vs_eager(cfg, params, device, *, batch=4, prompt_len=16,
               f"{cfg.name} row {b}: captured tokens differ from eager "
               f"before the first near-tie (step {agree[b]})")
     return {"ms_per_step_eager": ms_e, "ms_per_step_captured": ms_c,
+            "ms_per_step_by_run": [("captured" if g else "eager", m)
+                                   for g, _, m in runs],
             "steps": steps, "batch": batch,
             "rows_equal": int(sum(torch.equal(captured[b], eager[b])
                                   for b in range(batch))),
@@ -5216,8 +5261,8 @@ def _dense_serve(arch, S, P, device, profile):
         check(tuple(logits.shape) == (1, 1, cfg.vocab_padded)
               and bool(torch.isfinite(logits[..., :cfg.vocab]).all()),
               f"{arch} prefill logits {tuple(logits.shape)} not finite")
-        fams, top = (_profile_families([("model", run)]) if profile
-                     else (None, None))
+        fams, top, _ = (_profile_families([("model", run)]) if profile
+                        else (None, None, None))
     flops, mfu = _mfu(cfg, "prefill", 1, P + S, ms)
     row = {"arch": arch, "patches": P, "tokens": S, "prefill_ms": ms,
            "tokens_per_s": (P + S) / ms * 1e3, "peak_bytes": peak,
@@ -5245,8 +5290,10 @@ def _dense_serve(arch, S, P, device, profile):
     dec = _captured_vs_eager(cfg, params, device)
     row["decode"] = dec
     print(f"[lm dense] {arch} generate batch {dec['batch']}, prompt 16, gen "
-          f"32: ms per decode step eager {dec['ms_per_step_eager']:.2f}, "
-          f"captured {dec['ms_per_step_captured']:.2f}; captured tokens "
+          f"32 (eager, captured, captured, eager): ms per decode step eager "
+          f"{dec['ms_per_step_eager']:.2f}, captured "
+          f"{dec['ms_per_step_captured']:.2f} (means of two runs); captured "
+          "tokens "
           f"equal eager's up to each row's first near-tie (rows equal "
           f"throughout {dec['rows_equal']}/{dec['batch']}); step logits "
           f"max abs diff {dec['logits_max_abs_diff']:.3e} (held at "
@@ -5563,7 +5610,7 @@ def _dense_train_profile(cfg, device, B, S):
     batch = device_batch(cfg, B, S, 0, 0, device)
     p = tree_map(lambda t: t.detach().requires_grad_(), params)
     state = adamw_init(params)
-    fams, top = _profile_families([
+    fams, top, _ = _profile_families([
         ("model", lambda: lm.train_loss(p, cfg, batch, chunk=256).backward()),
         ("optimiser", lambda: adamw_update(params, tree_map(
             lambda t: t.grad, p), state, AdamWConfig(lr=FULL_LR,
@@ -5616,9 +5663,9 @@ def _dense_train_steps(cfg, device, B, S, steps):
             **_dense_train_profile(cfg, device, B, S)}
 
 
-def _dense_train_line(arch, cfg, row, how):
+def _dense_train_line(arch, cfg, row, how, tag="[lm dense train]"):
     fams = row["device_ms"]
-    print(f"[lm dense train] {arch} ({cfg.n_layers} layers, d {cfg.d_model})"
+    print(f"{tag} {arch} ({cfg.n_layers} layers, d {cfg.d_model})"
           f" {how} B={row['batch']} S={row['seq']}, {row['steps']} steps: "
           f"loss {row['losses'][0]:.4f} -> {row['losses'][-1]:.4f}; "
           f"{row['mean_ms_steps_1_on']:.1f} ms/step (steps 1 on), "
@@ -5634,7 +5681,35 @@ def _dense_train_line(arch, cfg, row, how):
           f"{row['device_busy_ms'] / row['mean_ms_steps_1_on']:.4f} × the "
           "unprofiled step")
     for t, name, count in row["top_kernels"]:
-        print(f"[lm dense train]   {t:9.1f} ms  {count:5d}×  {name}")
+        print(f"{tag}   {t:9.1f} ms  {count:5d}×  {name}")
+
+
+def _cli_train(arch, device):
+    """``launch/train.py`` (the CLI) at full config, its B = 8, S = 64, 10
+    steps, lr ``FULL_LR``: ms/step from its ``train.step`` spans,
+    losses finite and falling, peak memory, model FLOPs, one step
+    profiled (``_dense_train_profile``).  Returns (row, how)."""
+    from repro_torch.launch.train import train
+    cfg = get_config(arch)
+    argv = ["--arch", arch, "--steps", "10", "--batch", "8", "--seq",
+            "64", "--lr", str(FULL_LR), "--log-every", "100"]
+    torch.cuda.reset_peak_memory_stats(device)
+    with obs.tracing():
+        losses = _dense_path(lambda: train(argv))
+        spans = [e["dur"] / 1e3 for e in obs.trace_events()
+                 if e["name"] == "train.step"]
+    peak = torch.cuda.max_memory_allocated(device)
+    check(len(losses) == 10 and all(np.isfinite(losses))
+          and losses[-1] < losses[0], f"{arch} CLI losses {losses}")
+    ms = float(np.mean(spans[1:]))
+    flops, mfu = _mfu(cfg, "train", 8, 64, ms)
+    row = {"argv": argv, "batch": 8, "seq": 64, "steps": 10,
+           "ms_per_step": spans, "mean_ms_steps_1_on": ms,
+           "losses": losses, "tokens_per_s": 8 * 64 / ms * 1e3,
+           "peak_bytes": peak, "model_flops": flops,
+           "model_flops_share_of_bf16_peak": mfu,
+           **_dense_train_profile(cfg, device, 8, 64)}
+    return row, "train " + " ".join(argv[2:]) + ":"
 
 
 def phase_dense_train(device):
@@ -5644,32 +5719,13 @@ def phase_dense_train(device):
     S = 4096 through ``build_step``; gemma2-27b at full width and 2 layers
     (one local, one global: its AdamW state does not fit beside 46) through
     ``build_step`` at both shapes.  Losses finite and falling."""
-    from repro_torch.launch.train import train
     rows = []
     for arch, layers in DENSE_TRAIN:
         cfg = get_config(arch)
         if layers:
             cfg = cfg.replace(n_layers=layers)
         if layers is None:
-            argv = ["--arch", arch, "--steps", "10", "--batch", "8", "--seq",
-                    "64", "--lr", str(FULL_LR), "--log-every", "100"]
-            torch.cuda.reset_peak_memory_stats(device)
-            with obs.tracing():
-                losses = _dense_path(lambda: train(argv))
-                spans = [e["dur"] / 1e3 for e in obs.trace_events()
-                         if e["name"] == "train.step"]
-            peak = torch.cuda.max_memory_allocated(device)
-            check(len(losses) == 10 and all(np.isfinite(losses))
-                  and losses[-1] < losses[0], f"{arch} CLI losses {losses}")
-            ms = float(np.mean(spans[1:]))
-            flops, mfu = _mfu(cfg, "train", 8, 64, ms)
-            short = {"argv": argv, "batch": 8, "seq": 64, "steps": 10,
-                     "ms_per_step": spans, "mean_ms_steps_1_on": ms,
-                     "losses": losses, "tokens_per_s": 8 * 64 / ms * 1e3,
-                     "peak_bytes": peak, "model_flops": flops,
-                     "model_flops_share_of_bf16_peak": mfu,
-                     **_dense_train_profile(cfg, device, 8, 64)}
-            how = "train " + " ".join(argv[2:]) + ":"
+            short, how = _cli_train(arch, device)
         else:
             short = _dense_train_steps(cfg, device, 8, 64, 10)
             check(short["losses"][-1] < short["losses"][0],
@@ -5703,6 +5759,271 @@ def phase_dense(device):
         f"{k} {v:.1f}" for k, v in seconds.items()))
     return {"serve": serve, "train": train_rows, "check": checks,
             "seconds": seconds, "bf16_peak_flop_per_s": BF16_PEAK_FLOP_PER_S}
+
+
+# ------------------------------------------------------------- phase 21
+# RWKV6 and Whisper (models/ssm.py, models/whisper.py).  Prefill at full
+# config, B = 1: RWKV at prefill_32k's length cut to 4,096 (its eager time
+# loop is bound by the host's launches), Whisper at prefill_32k's input
+# shape (32,768 frames, 8,192 tokens = max(128, S // 4))
+MORE_IDS = ("rwkv6-1.6b", "whisper-tiny")
+MORE_PREFILL = {"rwkv6-1.6b": (4096, 4096), "whisper-tiny": (32768, 8192)}
+# the profiled prefill: RWKV's at 512 tokens (at 4,096 its ~300k kernels
+# took the profiler 80.8 s on one H100), Whisper's whole
+MORE_PROFILE = {"rwkv6-1.6b": (512, 512), "whisper-tiny": (32768, 8192)}
+# card vs CPU: (layers, None = all; B; frames; tokens) — RWKV at full width
+# and 2 layers, Whisper at its full config
+MORE_CHECK = {"rwkv6-1.6b": (2, 1, 64, 64), "whisper-tiny": (None, 2, 64, 32)}
+# decode vs forward (tests/test_models_lm.py:90, :135)
+MORE_DECODE_TOL = {"rwkv6-1.6b": (0.15, 0.05), "whisper-tiny": (0.2, 0.05)}
+
+
+def _more_batch(cfg, B, S, St, device, seed):
+    """Tokens (B, St) and, for Whisper, float32 stub frames (B, S,
+    d_model), seeded on ``device``."""
+    g = torch.Generator(device=device).manual_seed(seed)
+    batch = {"tokens": torch.randint(0, cfg.vocab, (B, St), generator=g,
+                                     device=device)}
+    if cfg.family == "encdec":
+        batch["frames"] = torch.randn((B, S, cfg.d_model), generator=g,
+                                      device=device)
+    return batch
+
+
+def _what(cfg, S, St):
+    return (f"{S} frames + {St} tokens" if cfg.family == "encdec"
+            else f"{St} tokens")
+
+
+def _more_prefill(cfg, params, S, St, device):
+    """One prefill at B = 1 over ``S`` frames (Whisper) and ``St`` tokens,
+    timed (host clock, synchronised): (ms, peak bytes, its run)."""
+    batch = _more_batch(cfg, 1, S, St, device, seed=1)
+    run = lambda: lm.prefill(params, cfg, batch)
+    torch.cuda.reset_peak_memory_stats(device)
+    t0 = time.perf_counter()
+    logits = _dense_path(run)
+    ms = (time.perf_counter() - t0) * 1e3
+    check(tuple(logits.shape) == (1, 1, cfg.vocab_padded)
+          and bool(torch.isfinite(logits[..., :cfg.vocab]).all()),
+          f"{cfg.name} prefill logits {tuple(logits.shape)} not finite")
+    return ms, torch.cuda.max_memory_allocated(device), run
+
+
+def _more_serve(arch, device):
+    """Prefill at ``MORE_PREFILL`` from ``init_params`` on the card, timed
+    once with its peak memory; at ``MORE_PROFILE`` timed once more and
+    then profiled once: device ms by family, kernel launches per position
+    and the device's busy share of that length's unprofiled prefill; then
+    ``generate`` at batch 4 in the order eager, captured, captured,
+    eager."""
+    cfg = get_config(arch)
+    torch.cuda.reset_peak_memory_stats(device)
+    params = lm.init_params(cfg, generator=torch.Generator(device=device)
+                            .manual_seed(0), device=device)
+    init_peak = torch.cuda.max_memory_allocated(device)
+    S, St = MORE_PREFILL[arch]
+    Sp, Stp = MORE_PROFILE[arch]
+    encdec = cfg.family == "encdec"
+    with torch.no_grad():
+        ms, peak, run = _more_prefill(cfg, params, S, St, device)
+        ms_p, _, run_p = ((ms, peak, run) if (Sp, Stp) == (S, St) else
+                          _more_prefill(cfg, params, Sp, Stp, device))
+        t0 = time.perf_counter()
+        fams, top, kernels = _profile_families([("model", run_p)])
+        profiled_ms = (time.perf_counter() - t0) * 1e3
+    busy = sum(fams.values())
+    flops, mfu = _mfu(cfg, "prefill", 1, S, ms)
+    positions = Sp + Stp if encdec else Stp
+    row = {"arch": arch, "frames": S if encdec else 0, "tokens": St,
+           "prefill_ms": ms, "tokens_per_s": St / ms * 1e3,
+           "positions_per_s": ((S + St) if encdec else St) / ms * 1e3,
+           "peak_bytes": peak, "params_peak_bytes": init_peak,
+           "model_flops": flops, "model_flops_share_of_bf16_peak": mfu,
+           "profiled": {"frames": Sp if encdec else 0, "tokens": Stp,
+                        "prefill_ms": ms_p, "device_ms": fams,
+                        "device_busy_ms": busy, "busy_share": busy / ms_p,
+                        "kernels": kernels,
+                        "kernels_per_position": kernels
+                        / positions, "profiled_run_ms": profiled_ms,
+                        "top_kernels": top}}
+    print(f"[lm more] {arch} ({cfg.n_layers} layers, d {cfg.d_model}) "
+          f"prefill B=1 {_what(cfg, S, St)}: {ms:.1f} ms "
+          f"({row['tokens_per_s']:.1f} tokens/s, "
+          f"{row['positions_per_s']:.1f} positions/s), peak "
+          f"{peak / 2**30:.2f} GiB (parameters {init_peak / 2**30:.2f}); "
+          f"model FLOPs {flops:.3e} = {mfu:.2%} of the "
+          f"{BF16_PEAK_FLOP_PER_S / 1e12:.0f} TFLOP/s dense bf16 peak")
+    print(f"[lm more] {arch} prefill B=1 {_what(cfg, Sp, Stp)}: {ms_p:.1f} "
+          f"ms unprofiled; profiled: {kernels} kernels = "
+          f"{kernels / positions:.3g} per position; device ms: "
+          + ", ".join(f"{k} {v:.1f}" for k, v in fams.items())
+          + f"; busy {busy:.1f} ms = {busy / ms_p:.4f} of the unprofiled "
+          f"prefill (the profiled run took {profiled_ms:.1f} ms)")
+    for t, name, count in top:
+        print(f"[lm more]   {t:9.1f} ms  {count:7d}×  {name}")
+    torch.cuda.empty_cache()
+    dec = _captured_vs_eager(cfg, params, device)
+    row["decode"] = dec
+    print(f"[lm more] {arch} generate batch {dec['batch']}, prompt 16, gen "
+          f"32 (after a captured warm-up, runs eager, captured, captured, "
+          f"eager): ms per decode step "
+          + ", ".join(f"{m} {v:.2f}" for m, v in dec["ms_per_step_by_run"])
+          + f"; captured tokens equal eager's up to each row's first "
+          f"near-tie (rows equal throughout {dec['rows_equal']}/"
+          f"{dec['batch']}); step logits max abs diff "
+          f"{dec['logits_max_abs_diff']:.3e} (held at atol={LOGITS_ATOL}, "
+          f"rtol={LOGITS_RTOL})")
+    del params
+    torch.cuda.empty_cache()
+    return row
+
+
+def _more_train(arch, device):
+    """``launch/train.py`` at full config (``_cli_train``); Whisper also
+    ``build_step`` at train_4k's length with B = 1 (2 steps, the second
+    timed: frames and tokens of 4,096)."""
+    cfg = get_config(arch)
+    cli, how = _cli_train(arch, device)
+    _dense_train_line(arch, cfg, cli, how, tag="[lm more train]")
+    row = {"arch": arch, "cli": cli}
+    if cfg.family == "encdec":
+        row["train_4k"] = _dense_train_steps(cfg, device, 1,
+                                             SHAPES["train_4k"].seq_len, 2)
+        _dense_train_line(arch, cfg, row["train_4k"], "build_step",
+                          tag="[lm more train]")
+    return row
+
+
+def _cross_cache(params, cfg, enc, steps):
+    """Whisper's decode cache as the reference's test builds it
+    (``tests/test_models_lm.py:93-135``): self-attention K/V zeros of
+    ``steps`` slots, cross-attention K/V from the encoder's states."""
+    B, Sa, _ = enc.shape
+    L, kv, hd = cfg.n_layers, cfg.n_kv, cfg.head_dim
+    dec = params["dec"]
+    xk = [(enc @ dec["xwk"][i]).reshape(B, Sa, kv, hd) for i in range(L)]
+    xv = [(enc @ dec["xwv"][i] + dec["xbv"][i]).reshape(B, Sa, kv, hd)
+          for i in range(L)]
+    zeros = lambda: torch.zeros((L, B, steps, kv, hd), dtype=enc.dtype,
+                                device=enc.device)
+    return {"k": zeros(), "v": zeros(), "xk": torch.stack(xk),
+            "xv": torch.stack(xv)}
+
+
+def _more_check(arch, device):
+    """Card vs CPU on the same parameters (drawn on the card from a seed,
+    copied) at ``MORE_CHECK``: every position's logits within
+    ``LOGITS_ATOL`` / ``LOGITS_RTOL``, the loss within
+    ``TRAIN_LOSS_RTOL``, every gradient leaf within ``TRAIN_GRAD_REL_L2``
+    relative L2; then on the card teacher-forced ``decode_step`` against
+    the forward within ``MORE_DECODE_TOL`` (Whisper from the
+    encoder-built cross cache)."""
+    from repro_torch.models.whisper import whisper_encode
+    layers, B, S, St = MORE_CHECK[arch]
+    cfg = get_config(arch)
+    cfg = cfg.replace(n_layers=layers) if layers else cfg
+    cpu = _to_device(lm.init_params(
+        cfg, generator=torch.Generator(device=device).manual_seed(7),
+        device=device), "cpu")
+    card = _to_device(cpu, device)
+    batch = _more_batch(cfg, B, S, St, device, seed=3)
+    # labels drawn apart from the tokens: with labels = the tokens rolled,
+    # the untrained tied-embedding model's cotangents telescope, and
+    # RWKV's final_norm/b gradient (Σ over positions) cancels to noise
+    # (bf16 vs float32 on the CPU alone: 0.52 relative L2, 1.9e-2 worst
+    # leaf with labels drawn apart)
+    batch["labels"] = torch.randint(
+        0, cfg.vocab, tuple(batch["tokens"].shape), device=device,
+        generator=torch.Generator(device=device).manual_seed(4))
+    batch_cpu = {k: v.cpu() for k, v in batch.items()}
+    logits = lambda p, b: logits_for(lm.forward_hidden(p, cfg, b,
+                                                       remat=False), p, cfg)
+    V = cfg.vocab
+    with torch.no_grad():
+        want = logits(cpu, batch_cpu)[..., :V].reshape(-1, V)
+        fwd = _dense_path(lambda: logits(card, batch))[..., :V]
+    got = fwd.reshape(-1, V).cpu()
+    row = {"check": arch, "layers": cfg.n_layers, "batch": B,
+           "frames": S if cfg.family == "encdec" else 0, "tokens": St,
+           "logits_max_abs_diff": float((got - want).abs().max()),
+           "max_abs_logit": float(want.abs().max())}
+    row["logits_outside_tolerance"], _ = _hold_close(
+        arch, "card vs CPU", got, want, LOGITS_ATOL, LOGITS_RTOL)
+    l_cpu, g_cpu = _loss_grads(cfg, cpu, batch_cpu)
+    l_card, g_card = _dense_path(lambda: _loss_grads(cfg, card, batch))
+    errs, names = _rel_l2(g_card, g_cpu), _leaf_names(cpu)
+    worst = int(np.argmax(errs))
+    check(abs(l_card - l_cpu) <= TRAIN_LOSS_RTOL * abs(l_cpu),
+          f"{arch}: loss card {l_card} vs CPU {l_cpu}")
+    check(errs[worst] <= TRAIN_GRAD_REL_L2, f"{arch}: gradient "
+          f"{names[worst]} rel L2 {errs[worst]:.3e} > {TRAIN_GRAD_REL_L2}")
+    row.update({"loss_card": l_card, "loss_cpu": l_cpu,
+                "loss_rel_diff": abs(l_card - l_cpu) / abs(l_cpu),
+                "grad_worst_rel_l2": errs[worst],
+                "grad_worst_leaf": names[worst]})
+    atol, rtol = MORE_DECODE_TOL[arch]
+
+    def decode():
+        if cfg.family == "encdec":
+            enc = whisper_encode(card, cfg, batch["frames"].to(lm.DTYPE),
+                                 remat=False)
+            cache = _cross_cache(card, cfg, enc, St)
+        else:
+            cache = lm.init_cache(cfg, ShapeCell("d", St, B, "decode"),
+                                  device=device)
+        outs = []
+        for t in range(St):
+            step, cache = lm.decode_step(card, cfg,
+                                         batch["tokens"][:, t:t + 1],
+                                         cache, t)
+            outs.append(step[:, 0, :V])
+        return torch.stack(outs, dim=1)
+
+    with torch.no_grad():
+        dec = _dense_path(decode)
+    row["decode_vs_forward_max_abs_diff"] = float((dec - fwd).abs().max())
+    row["decode_outside_tolerance"], _ = _hold_close(
+        arch, "decode vs forward", dec.reshape(-1, V).cpu(),
+        fwd.reshape(-1, V).cpu(), atol, rtol)
+    frames, cross = ((f"{S} frames + ", ", encoder-built cross cache")
+                     if row["frames"] else ("", ""))
+    print(f"[lm more check] {arch} ({cfg.n_layers} layers, d {cfg.d_model})"
+          f", B={B}, {frames}{St} tokens: card "
+          f"vs CPU logits max abs diff {row['logits_max_abs_diff']:.3e} "
+          f"(max |logit| {row['max_abs_logit']:.3f}; held at atol="
+          f"{LOGITS_ATOL}, rtol={LOGITS_RTOL}); loss {l_card:.6f} vs "
+          f"{l_cpu:.6f} (rel {row['loss_rel_diff']:.3e}, held at "
+          f"{TRAIN_LOSS_RTOL}), worst gradient leaf {names[worst]} "
+          f"{errs[worst]:.3e} (held at {TRAIN_GRAD_REL_L2}); decode vs "
+          f"forward on the card max abs diff "
+          f"{row['decode_vs_forward_max_abs_diff']:.3e} (held at atol={atol}"
+          f", rtol={rtol}{cross})")
+    del card, cpu
+    torch.cuda.empty_cache()
+    return row
+
+
+def phase_more(device):
+    """Phase 21: RWKV6 and Whisper on the card — per family, serving
+    (``_more_serve``), training (``_more_train``) and the card-vs-CPU and
+    decode-vs-forward checks (``_more_check``).  No kernel of the port is
+    on these paths: every count stays 0 (``_dense_path``), printed."""
+    PATH_LAUNCHES.clear()
+    rows, seconds = {}, {}
+    for arch in MORE_IDS:
+        row = rows[arch] = {}
+        for part, fn in (("serve", _more_serve), ("train", _more_train),
+                         ("check", _more_check)):
+            t0 = time.perf_counter()
+            row[part] = fn(arch, device)
+            seconds[f"{arch} {part}"] = time.perf_counter() - t0
+    counts = dict(PATH_LAUNCHES)
+    print(f"[lm more] launch counts over phase 21's {counts.pop('paths')} "
+          "paths: " + ", ".join(f"{k} {v}" for k, v in counts.items()))
+    print("[lm more] phase 21 seconds: " + ", ".join(
+        f"{k} {v:.1f}" for k, v in seconds.items()))
+    return {**rows, "launches": counts, "seconds": seconds}
 
 
 def main() -> int:
@@ -5857,6 +6178,11 @@ def main() -> int:
     dense = phase_dense(device)
     print(f"[lm dense] phase 20 in {time.perf_counter() - t0:.1f} s")
     print("[lm dense json] " + json.dumps(dense))
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    more = phase_more(device)
+    print(f"[lm more] phase 21 in {time.perf_counter() - t0:.1f} s")
+    print("[lm more json] " + json.dumps(more))
     print("[lm json] " + json.dumps({"prefill": prefill_row,
                                      "decode": decode_row,
                                      "decode_graphs": decode_graph_row,

@@ -5,9 +5,8 @@ package's ``data/tokens.py``, array for array).
 a restart never replays or skips data, which is the contract the
 checkpoint manager relies on.  The token stream is a noisy Markov chain,
 so small models show a clearly falling loss.  A VLM batch also has
-patch embeddings, drawn after the tokens from the same generator.  The
-reference draws Whisper frames there too; they come with Whisper's slice
-(ROADMAP Queue 1 item 11b.5).
+patch embeddings and an encoder-decoder batch stub audio frames, drawn
+after the tokens from the same generator.
 """
 from __future__ import annotations
 
@@ -22,8 +21,9 @@ def batch_for_step(cfg, batch: int, seq: int, step: int, seed: int = 0,
                    order: int = 64):
     """``{"tokens", "labels"}`` int32 (batch, seq) of step ``step``:
     labels are the tokens shifted by one; for a VLM also ``patches``,
-    float32 (batch, n_patches, d_model).  ``order`` is unused, as in the
-    reference."""
+    float32 (batch, n_patches, d_model), for an encoder-decoder model
+    ``frames``, float32 (batch, seq, d_model).  ``order`` is unused, as in
+    the reference."""
     rng = _rng(seed, step)
     V = cfg.vocab
     # Markov structure: next ≈ (prev · a + b) mod V with noise
@@ -40,4 +40,7 @@ def batch_for_step(cfg, batch: int, seq: int, step: int, seed: int = 0,
     if cfg.family == "vlm":
         out["patches"] = rng.standard_normal(
             (batch, cfg.n_patches, cfg.d_model)).astype(np.float32)
+    if cfg.family == "encdec":
+        out["frames"] = rng.standard_normal(
+            (batch, seq, cfg.d_model)).astype(np.float32)
     return out

@@ -4,8 +4,9 @@ prompt, then greedy or temperature sampling).
   PYTHONPATH=src python -m repro_torch.launch.serve --arch hymba-1.5b \
       [--reduced] [--batch 4 --prompt-len 16 --gen 32] [--device cpu]
 
-``--arch`` takes every id the port runs (``configs.ARCH_IDS``: the
-hybrid, dense, MoE and VLM families).  Runs on CUDA unless ``--device``
+``--arch`` takes every LM id of ``configs.ARCH_IDS``: the hybrid,
+dense, MoE, VLM, RWKV6 and Whisper families (Whisper's cross-attention
+cache stays zeros, as in the reference).  Runs on CUDA unless ``--device``
 names another device.  On a card the
 decode step is captured once as a CUDA graph and replayed, where the
 reference jits it (``repro/launch/serve.py``).

@@ -4,9 +4,10 @@
       [--reduced] [--steps 100 --batch 8 --seq 64] [--ckpt-dir DIR \
       --resume] [--compress 0.05] [--device cpu]
 
-``--arch`` takes every id the port runs (``configs.ARCH_IDS``; a VLM's
-batches carry their patch embeddings).  Runs on CUDA unless ``--device``
-names another device.  Each step is the reference's
+``--arch`` takes every LM id of ``configs.ARCH_IDS`` (hybrid, dense,
+MoE, VLM, RWKV6, Whisper); a VLM's batches carry their patch embeddings,
+Whisper's its stub audio frames (``device_batch``).  Runs on CUDA
+unless ``--device`` names another device.  Each step is the reference's
 (``repro/launch/train.py``): the gradient of ``lm.train_loss`` (remat on,
 attention chunk 256), optional top-k compression with error feedback,
 AdamW with global-norm clipping at 1.0.  Parameters and their gradients
@@ -60,7 +61,8 @@ def build_step(cfg, opt_cfg, compress_frac=0.0, *, donate=False):
 
 
 def device_batch(cfg, batch, seq, step, seed, device):
-    """``batch_for_step``'s arrays as tensors on ``device``."""
+    """``batch_for_step``'s arrays (tokens, labels, and a VLM's patches or
+    Whisper's frames) as tensors on ``device``."""
     return {k: torch.as_tensor(v, device=device)
             for k, v in batch_for_step(cfg, batch, seq, step, seed).items()}
 

@@ -7,10 +7,9 @@ loops over layers in Python, ``layer_params`` giving each layer's views)
 and its perf-option registry: ``transformer.moe_ffn`` is the default
 MoE dispatch, and the other options have no counterpart here
 (``ssm_backend``: the device picks the scan kernel or its plain version,
-see ``models/ssm.py``).  ``plain_mlp`` comes with Whisper (ROADMAP Queue 1
-item 11b.5); ``gqa_attention`` has no caller in the JAX package's models
-(its transformer imports it and attends through ``_attn_block``), so it
-is not ported.
+see ``models/ssm.py``).  ``gqa_attention`` has no caller in the JAX
+package's models (its transformer imports it and attends through
+``_attn_block``), so it is not ported.
 """
 from __future__ import annotations
 
@@ -18,6 +17,7 @@ import math
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 NEG_INF = -2.0e38          # f32-safe mask value
 
@@ -53,6 +53,21 @@ def layer_params(stack: dict, i: int) -> dict:
     """Layer ``i``'s parameters: a view of each stacked ``(L, …)`` leaf."""
     return {k: layer_params(v, i) if isinstance(v, dict) else v[i]
             for k, v in stack.items()}
+
+
+def run_layers(blk, x, stack: dict, remat: bool, *args):
+    """``x = blk(x, layer_params(stack, i), *args)`` for each layer of the
+    stacked leaves, in order; with ``remat`` each layer runs under
+    ``torch.utils.checkpoint`` (non-reentrant), as the reference wraps its
+    layer body in ``jax.checkpoint``."""
+    leaf = stack
+    while isinstance(leaf, dict):
+        leaf = next(iter(leaf.values()))
+    for i in range(leaf.shape[0]):
+        lp = layer_params(stack, i)
+        x = (checkpoint(blk, x, lp, *args, use_reentrant=False) if remat
+             else blk(x, lp, *args))
+    return x
 
 
 # -------------------------------------------------------------------- RoPE
@@ -104,6 +119,12 @@ def activation(act: str):
 def gated_mlp(x, wg, wu, wd, act="silu"):
     a = activation(act)
     return (a(x @ wg) * (x @ wu)) @ wd
+
+
+def plain_mlp(x, w1, b1, w2, b2):
+    """Whisper's MLP: ``gelu_tanh(x·w1 + b1)·w2 + b2`` (``jax.nn.gelu``'s
+    default form, as the reference computes it)."""
+    return gelu_tanh(x @ w1 + b1) @ w2 + b2
 
 
 # -------------------------------------------------------------------- loss

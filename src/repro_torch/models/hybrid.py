@@ -16,10 +16,9 @@ from __future__ import annotations
 import functools
 
 import torch
-from torch.utils.checkpoint import checkpoint
 
 from .common import (apply_norm, apply_rope, gated_mlp, layer_params,
-                     rope_tables)
+                     rope_tables, run_layers)
 from .ssm import mamba_branch, mamba_defs
 from .transformer import chunked_attention, decode_attn
 
@@ -97,11 +96,7 @@ def _layer_out(x, lp, cfg, **kw):
 def _run_stack(x, stack, cfg, *, cos, sin, rot, window, chunk, remat):
     blk = functools.partial(_layer_out, cfg=cfg, cos=cos, sin=sin, rot=rot,
                             window=window, chunk=chunk)
-    for i in range(stack["wq"].shape[0]):
-        lp = layer_params(stack, i)
-        x = (checkpoint(blk, x, lp, use_reentrant=False) if remat
-             else blk(x, lp))
-    return x
+    return run_layers(blk, x, stack, remat)
 
 
 def hybrid_forward(params, cfg, embeds, *, remat=True, chunk=1024):

@@ -1,11 +1,13 @@
-"""The selective-SSM (Mamba-style) branch of Hymba's hybrid layers.
+"""SSM families: the selective-SSM (Mamba-style) branch of Hymba's hybrid
+layers, and RWKV6 "Finch" (linear attention with a data-dependent decay).
 
-Prefill runs the recurrence through ``kernels.selective_scan``: its CUDA
-kernel on the card, its plain version on the CPU.  The JAX package picks
-between an XLA associative scan and its Pallas kernel with the
-``ssm_backend`` perf option; both compute the same function, so the port
-has no such option.  Decode is a single-step state update.  RWKV waits
-for its family's slice (ROADMAP Queue 1 item 11b.4).
+Mamba's prefill runs the recurrence through ``kernels.selective_scan``:
+its CUDA kernel on the card, its plain version on the CPU.  The JAX
+package picks between an XLA associative scan and its Pallas kernel with
+the ``ssm_backend`` perf option; both compute the same function, so the
+port has no such option.  RWKV's recurrence is a loop over time in plain
+PyTorch (the reference's ``lax.scan``; no Pallas kernel there).  Decode
+is a single-step state update in both.
 """
 from __future__ import annotations
 
@@ -13,6 +15,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels.selective_scan import selective_scan
+from .common import apply_norm
 
 
 def mamba_defs(cfg) -> dict:
@@ -76,3 +79,119 @@ def mamba_branch(x, lp, cfg, *, conv_state=None, ssm_state=None):
     if decode:
         return y, new_conv, h
     return y
+
+
+# ------------------------------------------------------------------ RWKV6
+RWKV_HEAD_DIM = 64
+
+
+def rwkv_defs(cfg) -> dict:
+    L, D, FF = cfg.n_layers, cfg.d_model, cfg.d_ff
+    lora = 64
+    return {
+        "ln1": {"w": ((L, D), "rep"), "b": ((L, D), "rep")},
+        "ln2": {"w": ((L, D), "rep"), "b": ((L, D), "rep")},
+        # time mix: token-shift interpolation weights per r/k/v/w/g
+        "mu": ((L, 5, D), "rep"),
+        "wr": ((L, D, D), "col"),
+        "wk": ((L, D, D), "col"),
+        "wv": ((L, D, D), "col"),
+        "wg": ((L, D, D), "col"),
+        # data-dependent decay (Finch): low-rank w = exp(-exp(lora(x)))
+        "w_lora_a": ((L, D, lora), "rep"),
+        "w_lora_b": ((L, lora, D), "rep"),
+        "w_bias": ((L, D), "rep"),
+        "u_bonus": ((L, D), "rep"),
+        "wo": ((L, D, D), "row"),
+        # channel mix
+        "cm_mu": ((L, 2, D), "rep"),
+        "cm_k": ((L, D, FF), "col"),
+        "cm_v": ((L, FF, D), "row"),
+        "cm_r": ((L, D, D), "col"),
+    }
+
+
+def _token_shift(x, last=None):
+    """x (B, S, D) → the previous token's x (zeros before the first);
+    ``last`` (B, 1, D) is returned as it is (decode)."""
+    if last is not None:
+        return last
+    return F.pad(x, (0, 0, 1, 0))[:, :-1]
+
+
+def _wkv6(r, k, v, w, u, state=None):
+    """RWKV6's core over r/k/v/w (B, S, H, hd) and u (H, hd), in float32:
+    S_t = diag(w_t)·S_{t−1} + k_t v_tᵀ and
+    y_t = r_t·(S_{t−1} + diag(u) k_t v_tᵀ).
+    ``state`` (B, H, hd, hd) float32 is S_0 (zeros if None); returns (y
+    (B, S, H, hd) float32, S_S).
+
+    The bonus term r_t·diag(u) k_t v_tᵀ = (Σ r_t u k_t) v_t is formed for
+    every t at once, so the loop over time runs three kernels a step (the
+    product with S_{t−1}, the decay, the rank-1 update); the sums round
+    apart from the reference's by float32 ulps."""
+    B, S, H, hd = r.shape
+    r, k, v, w = (a.float() for a in (r, k, v, w))
+    bonus = (r * u.float() * k).sum(-1, keepdim=True) * v     # (B,S,H,hd)
+    # (S, B·H, ·, ·) layouts: row vectors of r and v, columns of k and w
+    rows = lambda a: a.transpose(0, 1).reshape(S, B * H, 1, hd)
+    cols = lambda a: a.transpose(0, 1).reshape(S, B * H, hd, 1)
+    rt, vt, kt, wt = rows(r), rows(v), cols(k), cols(w)
+    s = (torch.zeros(B * H, hd, hd, dtype=torch.float32, device=r.device)
+         if state is None else state.reshape(B * H, hd, hd))
+    ys = []
+    for t in range(S):
+        ys.append(torch.bmm(rt[t], s))
+        s = torch.baddbmm(s * wt[t], kt[t], vt[t])
+    y = torch.stack(ys).reshape(S, B, H, hd).transpose(0, 1) + bonus
+    return y, s.reshape(B, H, hd, hd)
+
+
+def rwkv_time_mix(x, lp, *, last=None, state=None):
+    """x (B, S, D) → (out (B, S, D), the WKV state after the last step).
+    The decay's low-rank product is in x's dtype, its two exps in
+    float32; the WKV's y comes back in float32 and is cast to x's dtype
+    before the gate, as in the reference."""
+    B, S, D = x.shape
+    H = D // RWKV_HEAD_DIM
+    xp = _token_shift(x, last)
+    mixed = [x + lp["mu"][i] * (xp - x) for i in range(5)]
+    r = (mixed[0] @ lp["wr"]).reshape(B, S, H, RWKV_HEAD_DIM)
+    k = (mixed[1] @ lp["wk"]).reshape(B, S, H, RWKV_HEAD_DIM)
+    v = (mixed[2] @ lp["wv"]).reshape(B, S, H, RWKV_HEAD_DIM)
+    g = F.silu(mixed[4] @ lp["wg"])
+    wdec = lp["w_bias"] + (torch.tanh(mixed[3] @ lp["w_lora_a"])
+                           @ lp["w_lora_b"])
+    w = torch.exp(-torch.exp(wdec.float())).reshape(B, S, H, RWKV_HEAD_DIM)
+    u = lp["u_bonus"].reshape(H, RWKV_HEAD_DIM)
+    y, new_state = _wkv6(r, k, v, w, u, state)
+    y = y.to(x.dtype).reshape(B, S, D) * g
+    return y @ lp["wo"], new_state
+
+
+def rwkv_channel_mix(x, lp, *, last=None):
+    xp = _token_shift(x, last)
+    xk = x + lp["cm_mu"][0] * (xp - x)
+    xr = x + lp["cm_mu"][1] * (xp - x)
+    k = torch.square(F.relu(xk @ lp["cm_k"]))
+    return torch.sigmoid(xr @ lp["cm_r"]) * (k @ lp["cm_v"])
+
+
+def rwkv_layer(x, lp, *, states=None):
+    """One RWKV6 block.  ``states = (last1, wkv, last2)`` → decode (S = 1):
+    the two mixes' previous normed inputs (B, 1, D) and the WKV state
+    (B, H, hd, hd) float32; returns (x, (h, new_wkv, h2)), the new
+    states, which are the mixes' normed inputs (not the residual
+    stream).  Else (x, None)."""
+    h = apply_norm(x, lp["ln1"], "layernorm")
+    if states is None:
+        att, _ = rwkv_time_mix(h, lp)
+        x = x + att
+        h2 = apply_norm(x, lp["ln2"], "layernorm")
+        return x + rwkv_channel_mix(h2, lp), None
+    last1, wkv, last2 = states
+    att, new_wkv = rwkv_time_mix(h, lp, last=last1, state=wkv)
+    x = x + att
+    h2 = apply_norm(x, lp["ln2"], "layernorm")
+    x = x + rwkv_channel_mix(h2, lp, last=last2)
+    return x, (h, new_wkv, h2)

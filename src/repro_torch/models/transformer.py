@@ -1,7 +1,8 @@
 """Decoder-only transformer families: dense GQA (qwen2, qwen1.5, chatglm3,
 llava's mistral backbone), gemma2 (alternating local/global attention,
 softcaps, pre+post norms) and granite-style MoE; the query-chunked
-attention Hymba shares; the unembedding and the sequence-chunked loss.
+attention Hymba and Whisper share; the unembedding and the
+sequence-chunked loss.
 
 Parameters are dicts of stacked ``(L, …)`` tensors and the layers run in
 a Python loop; with ``remat`` each layer runs under
@@ -83,29 +84,34 @@ def dense_model_defs(cfg) -> dict:
 
 
 # ------------------------------------------------------- chunked attention
-def chunked_attention(q, k, v, *, window=0, attn_softcap=0.0, chunk=1024):
-    """Query-chunked causal GQA attention, bounded score memory.  q (B,
-    Sq, H, hd), k/v (B, Sk, KV, hd); ``window`` > 0 is a sliding window
-    (a local layer), 0 a global layer.
+def chunked_attention(q, k, v, *, causal=True, window=0, attn_softcap=0.0,
+                      chunk=1024):
+    """Query-chunked GQA attention, bounded score memory.  q (B, Sq, H,
+    hd), k/v (B, Sk, KV, hd); ``causal`` masks keys past each query (off:
+    Whisper's encoder and cross-attention, every key live); ``window`` > 0
+    is a sliding window (a local layer), 0 a global layer.
 
     The reference scores each query chunk against all of K/V.  Here a
-    chunk gets only the keys its masks can leave live (none past its last
-    query; with a window, none more than ``window − 1`` before its
-    first): a masked key's probability is exp(NEG_INF − max) = 0 exactly
-    in the reference, so the softmax sums the same terms, and a
+    causal chunk gets only the keys its masks can leave live (none past
+    its last query; with a window, none more than ``window − 1`` before
+    its first): a masked key's probability is exp(NEG_INF − max) = 0
+    exactly in the reference, so the softmax sums the same terms, and a
     32k-token prefill scores ~2k keys per query in its sliding-window
-    layers instead of 32k."""
+    layers instead of 32k.  A non-causal chunk scores all of K/V, as the
+    reference's does."""
     Sq = q.shape[1]
     if Sq <= chunk:
-        return _attn_block(q, k, v, window=window, attn_softcap=attn_softcap)
+        return _attn_block(q, k, v, causal=causal, window=window,
+                           attn_softcap=attn_softcap)
     assert Sq % chunk == 0
     outs = []
     for i in range(0, Sq, chunk):
-        hi = min(k.shape[1], i + chunk)
+        hi = min(k.shape[1], i + chunk) if causal else k.shape[1]
         lo = max(0, i - window + 1) if window > 0 else 0
         outs.append(_attn_block(q[:, i:i + chunk], k[:, lo:hi], v[:, lo:hi],
-                                window=window, attn_softcap=attn_softcap,
-                                q_offset=i, k_offset=lo))
+                                causal=causal, window=window,
+                                attn_softcap=attn_softcap, q_offset=i,
+                                k_offset=lo))
     return torch.cat(outs, dim=1)
 
 
@@ -123,20 +129,23 @@ def _scores(q, k, attn_softcap):
     return softcap(scores, attn_softcap) if attn_softcap > 0 else scores
 
 
-def _attn_block(q, k, v, *, window, attn_softcap=0.0, q_offset=0,
-                k_offset=0):
+def _attn_block(q, k, v, *, causal=True, window, attn_softcap=0.0,
+                q_offset=0, k_offset=0):
     """GQA via repeat-KV (K/V broadcast to the H query heads).  Query i
-    sits at position ``q_offset + i``, key j at ``k_offset + j``."""
+    sits at position ``q_offset + i``, key j at ``k_offset + j``; without
+    ``causal`` or ``window`` no key is masked."""
     B, Sq, H, hd = q.shape
     Sk = k.shape[1]
     k, v = _repeat_kv(k, H), _repeat_kv(v, H)
     scores = _scores(q, k, attn_softcap)
-    qpos = torch.arange(Sq, device=q.device) + q_offset
-    kpos = torch.arange(Sk, device=q.device) + k_offset
-    mask = kpos[None, :] <= qpos[:, None]
-    if window > 0:
-        mask &= kpos[None, :] > qpos[:, None] - window
-    scores.masked_fill_(~mask, NEG_INF)      # in place: the (B,H,Sq,Sk) f32
+    if causal or window > 0:
+        qpos = torch.arange(Sq, device=q.device) + q_offset
+        kpos = torch.arange(Sk, device=q.device) + k_offset
+        mask = (kpos[None, :] <= qpos[:, None] if causal else
+                torch.ones(Sq, Sk, dtype=torch.bool, device=q.device))
+        if window > 0:
+            mask &= kpos[None, :] > qpos[:, None] - window
+        scores.masked_fill_(~mask, NEG_INF)  # in place: the (B,H,Sq,Sk) f32
     probs = torch.softmax(scores, dim=-1).to(q.dtype)
     return (probs @ v.transpose(1, 2)).transpose(1, 2)      # (B, Sq, H, hd)
 

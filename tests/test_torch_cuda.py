@@ -1308,3 +1308,105 @@ def test_moe_dispatch_gives_the_same_bits_twice(cuda_device):
     for a, b in zip(*runs):
         assert torch.equal(a, b)
     assert (runs[0][0].abs().sum(-1) == 0).any()      # entries dropped
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["rwkv6-1.6b", "whisper-tiny"])
+def test_rwkv_and_whisper_on_card_match_cpu(cuda_device, arch):
+    """The reduced RWKV6 and Whisper (its batch with 32 stub frames) on the
+    card vs the port on the CPU, the same parameters: prefill logits and
+    12 decode steps within 5e-2 (bf16, the reference's backend
+    tolerance); ``train_loss`` within ``rtol=1e-3`` and every gradient
+    leaf within 5e-2 relative L2; none of the port's kernels launched."""
+    from repro_torch.configs import get_reduced
+    from repro_torch.configs.base import ShapeCell
+    from repro_torch.data.tokens import batch_for_step
+    from repro_torch.kernels import selective_scan as scan
+    from repro_torch.models import lm
+    from repro_torch.optim.adamw import tree_leaves, tree_map
+    cfg = get_reduced(arch)
+    cpu = lm.init_params(cfg, generator=torch.Generator().manual_seed(3),
+                         device="cpu")
+    card = _to(cpu, cuda_device)
+    batch = {k: torch.as_tensor(v) for k, v in batch_for_step(
+        cfg, 2, 32, 0, seed=1).items()}
+    on = lambda dev: {k: v.to(dev) for k, v in batch.items()}
+    counts = lambda: (ops.launch_count(), sddmm_ops.launch_count(),
+                      sddmm_ops.launch_count("sddmm"), scan.launch_count())
+    before = counts()
+    got = lm.prefill(card, cfg, on(cuda_device), chunk=16)
+    want = lm.prefill(cpu, cfg, batch, chunk=16)
+    m = want > -1e30
+    torch.testing.assert_close(got.cpu()[m], want[m], atol=5e-2, rtol=5e-2)
+    out = {}
+    for dev, params in (("cpu", cpu), ("card", card)):
+        p = tree_map(lambda t: t.detach().requires_grad_(), params)
+        loss = lm.train_loss(p, cfg, on(p["embed"].device), chunk=16)
+        loss.backward()
+        out[dev] = (float(loss.detach()), [t.grad for t in tree_leaves(p)])
+    np.testing.assert_allclose(out["card"][0], out["cpu"][0], rtol=1e-3)
+    for a, b in zip(out["card"][1], out["cpu"][1]):
+        assert _rel_l2(a, b) <= 5e-2
+    cache = {d: lm.init_cache(cfg, ShapeCell("d", 12, 2, "decode"),
+                              device=d) for d in ("cpu", cuda_device)}
+    tokens = batch["tokens"]
+    for t in range(12):
+        lc, cache["cpu"] = lm.decode_step(cpu, cfg, tokens[:, t:t + 1],
+                                          cache["cpu"], t)
+        lg, cache[cuda_device] = lm.decode_step(
+            card, cfg, tokens[:, t:t + 1].to(cuda_device),
+            cache[cuda_device], t)
+        torch.testing.assert_close(lg.cpu()[m], lc[m], atol=5e-2,
+                                   rtol=5e-2)
+    torch.cuda.synchronize()
+    assert counts() == before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["rwkv6-1.6b", "whisper-tiny"])
+def test_captured_rwkv_and_whisper_decode_equals_eager(cuda_device, arch):
+    """RWKV6's state step and Whisper's cached step captured once and
+    replayed: the eager step's logits and caches bit for bit over 12
+    positions, and ``generate`` the same tokens with and without
+    graphs."""
+    from repro_torch.configs import get_reduced
+    from repro_torch.configs.base import ShapeCell
+    from repro_torch.kernels.capture import capture
+    from repro_torch.launch.serve import generate
+    from repro_torch.models import lm
+    cfg = get_reduced(arch)
+    g = torch.Generator().manual_seed(2)
+    params = _to(lm.init_params(cfg, generator=g, device="cpu"),
+                 cuda_device)
+    tokens = torch.randint(0, cfg.vocab, (2, 12), generator=g).to(
+        cuda_device)
+    caches = [lm.init_cache(cfg, ShapeCell("d", 12, 2, "decode"),
+                            device=cuda_device) for _ in "ab"]
+    if arch == "whisper-tiny":        # a live cross-attention cache
+        for name in ("xk", "xv"):
+            caches[0][name].normal_(generator=torch.Generator(
+                device=cuda_device).manual_seed(5))
+            caches[1][name].copy_(caches[0][name])
+    static_tok = tokens[:, :1].clone()
+    static_pos = torch.zeros((), dtype=torch.int64, device=cuda_device)
+    step = lambda: lm.decode_step(params, cfg, static_tok, caches[1],
+                                  static_pos)[0]
+    captured = None
+    with torch.no_grad():
+        for t in range(12):
+            want, _ = lm.decode_step(params, cfg, tokens[:, t:t + 1],
+                                     caches[0], t)
+            static_tok.copy_(tokens[:, t:t + 1])
+            static_pos.fill_(t)
+            if captured is None:
+                got, captured = capture(step, cuda_device)
+            else:
+                got = captured.replay()
+            assert torch.equal(got, want), f"step {t}"
+    torch.cuda.synchronize()
+    for name in caches[0]:
+        assert torch.equal(caches[0][name], caches[1][name]), name
+    prompt = tokens[:, :4].cpu().numpy()
+    seqs = [generate(cfg, params, prompt, 12, 8, device=cuda_device,
+                     graphs=graphs) for graphs in (True, False)]
+    assert torch.equal(seqs[0], seqs[1])

@@ -109,11 +109,13 @@ def test_config_tables_equal_reference(which):
 
 
 @pytest.mark.parametrize("arch", ["rwkv6-1.6b", "whisper-tiny"])
-def test_other_archs_are_not_ported_yet(arch):
-    with pytest.raises(NotImplementedError, match="Queue 1 item 11"):
-        tconfigs.get_config(arch)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 11"):
-        tlm.model_defs(rconfigs.get_reduced(arch))
+def test_rwkv_and_whisper_configs_equal_reference(arch):
+    """The last two families of the JAX package: both tables equal the
+    reference's; an unknown id still raises ``KeyError``."""
+    for which in ("get_config", "get_reduced"):
+        r, t = getattr(rconfigs, which)(arch), getattr(tconfigs, which)(arch)
+        assert dataclasses.asdict(t) == dataclasses.asdict(r)
+        assert tbase.applicable_shapes(t) == rbase.applicable_shapes(r)
     with pytest.raises(KeyError):
         tconfigs.get_config("no-such-arch")
 

@@ -1,11 +1,12 @@
-"""PyTorch port vs JAX reference: the decoder-only families' configs,
-parameter shapes and data (dense qwen2 / qwen1.5 / chatglm3 / gemma2, VLM
-llava-next, MoE granite).
+"""PyTorch port vs JAX reference: the LM configs of every id (hybrid,
+dense, MoE, VLM, RWKV6, Whisper), their parameter shapes and data.
 
 The config tables equal the reference's field for field, full and
 reduced, with their derived properties and shape cells.  ``model_defs``
 of the FULL configs (qwen2-72b and qwen1.5-110b do not fit one card) are
-compared as shapes and roles, with nothing allocated.  The token
+compared as shapes and roles, with nothing allocated.  RWKV6's and
+Whisper's input specs equal the reference's at every cell, and a family
+neither package has raises the reference's ``ValueError``.  The token
 pipeline's llava batches (patches drawn after the tokens) are
 array-equal to the reference's.
 """
@@ -24,8 +25,6 @@ from repro_torch.configs import base as tbase
 from repro_torch.data import tokens as ttokens
 from repro_torch.models import lm as tlm
 
-from test_torch_lm_dense import ARCHS
-
 
 def _defs(defs, path=()):
     """{path: (shape, role)} of a defs tree (the reference's tuples)."""
@@ -37,14 +36,12 @@ def _defs(defs, path=()):
     return {"/".join(path): (tuple(defs[0]), defs[1])}
 
 
-def test_port_runs_every_reference_lm_but_two():
-    assert sorted(tconfigs.ARCH_IDS) == sorted(
-        a for a in rconfigs.ARCH_IDS if a not in ("rwkv6-1.6b",
-                                                  "whisper-tiny"))
+def test_port_runs_every_reference_lm():
+    assert tconfigs.ARCH_IDS == rconfigs.ARCH_IDS
 
 
 @pytest.mark.parametrize("which", ["get_config", "get_reduced"])
-@pytest.mark.parametrize("arch", ARCHS)
+@pytest.mark.parametrize("arch", tconfigs.ARCH_IDS)
 def test_config_tables_equal_reference(arch, which):
     r, t = getattr(rconfigs, which)(arch), getattr(tconfigs, which)(arch)
     assert dataclasses.asdict(t) == dataclasses.asdict(r)
@@ -53,7 +50,7 @@ def test_config_tables_equal_reference(arch, which):
     assert tbase.applicable_shapes(t) == rbase.applicable_shapes(r)
 
 
-@pytest.mark.parametrize("arch", ARCHS)
+@pytest.mark.parametrize("arch", tconfigs.ARCH_IDS)
 def test_full_model_defs_equal_reference(arch):
     cfg = tconfigs.get_config(arch)
     got = _defs(tlm.model_defs(cfg))
@@ -81,9 +78,24 @@ def test_vlm_batch_for_step_equals_reference(seed, step):
 
 
 @pytest.mark.parametrize("arch", ["rwkv6-1.6b", "whisper-tiny"])
-def test_unported_families_name_their_item(arch):
-    item = {"rwkv6-1.6b": "11b.4", "whisper-tiny": "11b.5"}[arch]
-    with pytest.raises(NotImplementedError, match=f"item {item}"):
-        tconfigs.get_config(arch)
-    with pytest.raises(NotImplementedError, match=f"item {item}"):
-        tlm.model_defs(rconfigs.get_reduced(arch))
+def test_ssm_and_encdec_input_specs_equal_reference(arch):
+    """An ``ssm`` and an ``encdec`` cell of every kind: Whisper's frames
+    (B, S, D) bf16 with max(128, S // 4) tokens, RWKV's tokens."""
+    for name, cell in rbase.SHAPES.items():
+        want = rlm.input_specs(rconfigs.get_config(arch), cell)
+        got = tlm.input_specs(tconfigs.get_config(arch),
+                              tbase.SHAPES[name])
+        assert {k: (v[0], str(v[1]).split(".")[-1]) for k, v in got.items()} \
+            == {k: (tuple(v.shape), v.dtype.name) for k, v in want.items()}
+
+
+def test_unknown_family_raises_the_reference_error():
+    """``ValueError(family)`` from ``model_defs`` and ``cache_specs`` of
+    both packages (the port's other entry points check it first too)."""
+    for cfgs, lm, shapes in ((rconfigs, rlm, rbase.SHAPES),
+                             (tconfigs, tlm, tbase.SHAPES)):
+        cfg = cfgs.get_reduced("rwkv6-1.6b").replace(family="nope")
+        with pytest.raises(ValueError, match="nope"):
+            lm.model_defs(cfg)
+        with pytest.raises(ValueError, match="nope"):
+            lm.cache_specs(cfg, shapes["train_4k"])

@@ -184,8 +184,8 @@ def test_input_specs_match_reference(ref):
         assert {k: tuple(v.shape) for k, v in want.items()} \
             == {k: v[0] for k, v in got.items()}, name
         assert all(v[1] == torch.int32 for v in got.values())
-    with pytest.raises(NotImplementedError, match="item 11"):
-        tlm.input_specs(tconfigs.get_reduced(ARCH).replace(family="ssm"),
+    with pytest.raises(ValueError, match="nope"):
+        tlm.input_specs(tconfigs.get_reduced(ARCH).replace(family="nope"),
                         ShapeCell("x", 8, 1, "train"))
 
 

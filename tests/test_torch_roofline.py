@@ -1,6 +1,6 @@
 """PyTorch port vs JAX reference: ``launch/roofline.py``'s model-FLOP
-arithmetic (``param_count``, ``model_flops_for``) on every LM config the
-port runs, full size (nothing allocated), and the reference's own
+arithmetic (``param_count``, ``model_flops_for``) on every LM config,
+full size (nothing allocated), and the reference's own
 accounting test mirrored."""
 import pytest
 
@@ -36,10 +36,19 @@ def test_model_flops_accounting():
     ("chatglm3-6b", 5.98, 5.98), ("llava-next-mistral-7b", 7.11, 7.11),
     ("gemma2-27b", 27.23, 27.23), ("granite-moe-3b-a800m", 3.30, 0.88),
     ("granite-moe-1b-a400m", 1.33, 0.43), ("qwen2-72b", 72.7, 72.7),
-    ("qwen1.5-110b", 111.2, 111.2)])
+    ("qwen1.5-110b", 111.2, 111.2), ("rwkv6-1.6b", 1.45, 1.45),
+    ("whisper-tiny", 0.09, 0.09)])
 def test_param_counts_of_the_full_configs(arch, total_b, active_b):
     """The sizes that decide what fits one 80 GB card (bf16: 2 bytes a
     parameter)."""
     total, active = troof.param_count(tconfigs.get_config(arch))
     assert round(total / 1e9, 1 if total > 5e10 else 2) == total_b
     assert round(active / 1e9, 1 if active > 5e10 else 2) == active_b
+
+
+@pytest.mark.parametrize("arch,total", [("rwkv6-1.6b", 1_449_779_200),
+                                        ("whisper-tiny", 86_848_512)])
+def test_rwkv_and_whisper_param_counts_are_exact(arch, total):
+    """Whisper's count holds its two 65,536-row position tables (50.3M of
+    its 86.8M), as the reference's does."""
+    assert troof.param_count(tconfigs.get_config(arch)) == (total, total)
