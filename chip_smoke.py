@@ -214,7 +214,8 @@ Runs from the root of a checkout and drives ``src/repro_torch`` only
     1e-4 × max |g| per operand; the training forward's chunk states
     against the plain ones and its y the inference forward's bits (two
     backward launches bit-equal; a cotangent at the last step reaching
-    step 0); Hymba-1.5B at full width and 4 layers, B = 2, S = 128, card
+    step 0); Hymba-1.5B at full width and ``TRAIN_CHECK_LAYERS`` layers
+    (2; 4 before phase 22 took their time), B = 2, S = 128, card
     vs CPU on the same parameters: the loss within ``rtol=1e-3``, every
     gradient leaf within 5e-2 relative L2, and three ``build_step`` steps
     within ``rtol=1e-2``; at the live mamba weights of phases 9–11 the card's
@@ -228,7 +229,7 @@ Runs from the root of a checkout and drives ``src/repro_torch`` only
     launches 2 forward scans a layer (remat recomputes) and 1 backward,
     checked, and every scan launch of the card-vs-CPU runs, of the
     resume runs, of two more CLI steps and of one more S = 4096 step (at
-    full width and 4 layers) is
+    full width and ``HELD_4K_LAYERS`` = 2 layers) is
     held against the plain scan on its own operands (``_scan_held``; the
     CLI and resume runs start from ``init_params``, whose zero ``bc_w``
     leaves their scans at 0, as in the reference).  Then the backward
@@ -290,12 +291,34 @@ Runs from the root of a checkout and drives ``src/repro_torch`` only
     ``atol=0.15``, Whisper ``atol=0.2`` from the encoder-built
     cross-attention cache, as the reference's test builds it;
     ``rtol=0.05``).  Seconds by part printed.
+22. The LM mesh path (runs last; ``phase_mesh``) — 4 ranks share the
+    card on a (data=2, model=2) ``DeviceMesh`` over the ``staged``
+    transport (``dist/staged.py``: gloo with each collective's CUDA
+    operands staged through pinned host buffers; every kernel and every
+    tensor op on the card), named on every line it reports.  hymba-1.5b
+    and granite-moe-3b-a800m (``moe_dispatch=shard_map``, which runs the
+    batched dispatch: on the mesh each rank its own block, one sum over
+    model) at full width with 2 layers from ``init_params`` on the card:
+    one sharded train step (``launch/steps.py``, B = 4, S = 512, AdamW
+    unclipped), a prefill at S = 2,048 (B = 4) and 4 decode steps, each
+    against the unsharded port on the card (rank 0): the loss within
+    ``rtol=1e-3``, each first moment (0.1 × the gradient) within 5e-2
+    relative L2 and the gradients' global norm within ``rtol=1e-3``,
+    logits within ``atol=0.2, rtol=0.05``.  Each rank's scan launches are
+    counted per path (one per layer per prefill) and every one is held
+    against the plain scan (``_scan_held``).  Then, once the ranks have
+    ended, the record of the dry run's ``qwen2-72b × train_4k × single``
+    cell, run in a subprocess on a fake 256-rank process group (cost and
+    temp bytes by the L ∈ {1, 2} extrapolation) beside phase 3's kernel
+    grids, which time nothing: per-device GiB against the card's
+    80 GB, the bottleneck and its seconds.
 Each main path (serving per model, each pass of each phase-15 service,
 training per model, each oracle search, each 131k baseline-comparison
 run, each distributed run on each rank, each dynamic batch's operators,
 the ``--mutate`` CLI run, each refresh case's SpMM on each rank, LM
 prefill, each decode run, the consistency forward, each phase-19
-training run and each phase-20 and phase-21 path) runs with the
+training run, each phase-20 and phase-21 path and each phase-22 step on
+each rank) runs with the
 launch counts set to 0 just before it and read just after.  A
 replayed graph adds the launches its capture recorded
 (``kernels/capture.py``).
@@ -309,6 +332,7 @@ import collections
 import contextlib
 import functools
 import json
+import os
 import subprocess
 import sys
 import time
@@ -4363,7 +4387,10 @@ TRAIN_LR = 3e-3                      # launch/train.py's default
 # every h (B, S, N, Di) for the backward peaked at 45.01 GiB on one H100;
 # keeping chunk states and dA/dBx instead may not add more than 1 GiB
 TRAIN_4K_PEAK_MAX = int((45.01 + 1) * 2 ** 30)
-HELD_4K_LAYERS = 4                   # 3 SWA + 1 global, full width
+# phase 22 took the script's room: phase 19's card-vs-CPU check
+# and its held S = 4096 step run at 2 layers (1 SWA + 1 global; were 4)
+HELD_4K_LAYERS = 2                   # 1 SWA + 1 global, full width
+TRAIN_CHECK_LAYERS = 2
 # the full config at 32 layers from its N(0, 0.02) init: at the CLI's
 # default 3e-3 (sized for the reduced configs) AdamW's first steps
 # overshoot and the loss rises (10.658 → 11.751 over 10 steps at B = 8,
@@ -4634,7 +4661,8 @@ def _train_live(cfg, device, held):
 
 
 def _train_cpu_card(device, held):
-    """Phase 19 (b): full width, 4 layers, B = 2, S = 128, the same
+    """Phase 19 (b): full width, ``TRAIN_CHECK_LAYERS`` layers, B = 2,
+    S = 128, the same
     parameters (``_train_params``) on the CPU and the card: one
     ``train_loss`` with its gradients, then three ``build_step`` steps,
     every scan launch on the card held against the plain scan
@@ -4646,7 +4674,8 @@ def _train_cpu_card(device, held):
     from repro_torch.launch.train import build_step, device_batch
     from repro_torch.optim import AdamWConfig, adamw_init
     from repro_torch.optim.adamw import tree_map
-    cfg = get_config("hymba-1.5b").replace(n_layers=4, n_global_layers=1)
+    cfg = get_config("hymba-1.5b").replace(n_layers=TRAIN_CHECK_LAYERS,
+                                           n_global_layers=1)
     cpu_params = _train_params(cfg, seed=11)
     step = build_step(cfg, AdamWConfig(lr=TRAIN_LR, grad_clip=1.0))
     out, launches = {}, [0, 0]
@@ -4700,8 +4729,8 @@ def _train_cpu_card(device, held):
                                                atol=0),
           f"build_step losses card {s1} vs CPU {s0}")
     step_diff = max(abs(a - b) / abs(b) for a, b in zip(s1, s0))
-    print(f"[lm train] card vs CPU, full width, 4 layers (3 SWA + 1 global), "
-          f"B=2 S=128: loss {l1:.6f} vs {l0:.6f} (rel {abs(l1 - l0) / l0:.3e}, "
+    print(f"[lm train] card vs CPU, full width, {cfg.n_layers} layers "
+          f"({cfg.n_layers - 1} SWA + 1 global), B=2 S=128: loss {l1:.6f} vs {l0:.6f} (rel {abs(l1 - l0) / l0:.3e}, "
           f"held at {TRAIN_LOSS_RTOL}); {len(errs)} gradient leaves, largest "
           f"relative L2 error {max(errs):.3e} ({worst}; held at "
           f"{TRAIN_GRAD_REL_L2}), median {float(np.median(errs)):.3e} (the "
@@ -4827,7 +4856,8 @@ def _train_timed(cfg, device, B, S, steps, held):
 
 def phase_lm_train(device):
     """Phase 19: [scan backward] grid, then the training paths: (b) card vs
-    CPU at full width and 4 layers; (c) ``launch/train.py::train`` at full
+    CPU at full width and ``TRAIN_CHECK_LAYERS`` layers; (c)
+    ``launch/train.py::train`` at full
     config, the reference CLI's B = 8, S = 64, 10 steps; (d) B = 1,
     S = 4096 (train_4k's length), 5 steps through ``build_step``, one step
     profiled; (e) kill and resume through ``train --reduced``.  Each
@@ -5304,7 +5334,7 @@ def _dense_serve(arch, S, P, device, profile):
 
 
 @contextlib.contextmanager
-def _routes(record=None, replay=None):
+def _routes(record=None, replay=None, tie=ROUTER_TIE):
     """While the block runs, record every MoE top-k's expert indices, in
     call order, into the list ``record``; or route by ``replay``'s (the
     values are the block's own logits at those experts), so two runs
@@ -5312,11 +5342,12 @@ def _routes(record=None, replay=None):
     ``gaps``, each call's per-token gap between its k-th and (k+1)-th
     router logits; ``apart``, the token picks that differ from the
     replayed ones; ``apart_untied``, those of them whose own gap exceeds
-    ``ROUTER_TIE`` (a routing fault, not a near-tie)."""
+    ``tie`` (a routing fault, not a near-tie); ``max_apart_gap``, the
+    largest gap among the picks apart."""
     from repro_torch.models import transformer
     top_k = transformer.top_k
     calls = iter(replay) if replay is not None else None
-    out = {"gaps": [], "apart": 0, "apart_untied": 0}
+    out = {"gaps": [], "apart": 0, "apart_untied": 0, "max_apart_gap": 0.0}
 
     def routed(logits, k):
         vals, idx = top_k(logits, k + 1)
@@ -5327,7 +5358,10 @@ def _routes(record=None, replay=None):
             want = next(calls).to(logits.device)
             apart = (want.sort(-1).values != idx.sort(-1).values).any(-1)
             out["apart"] += int(apart.sum())
-            out["apart_untied"] += int((apart & (gap > ROUTER_TIE)).sum())
+            out["apart_untied"] += int((apart & (gap > tie)).sum())
+            if bool(apart.any()):
+                out["max_apart_gap"] = max(out["max_apart_gap"],
+                                           float(gap[apart].max()))
             idx, vals = want, logits.gather(-1, want)
         if record is not None:
             record.append(idx.cpu())
@@ -6026,6 +6060,388 @@ def phase_more(device):
     return {**rows, "launches": counts, "seconds": seconds}
 
 
+# --------------------------------------------------------- phase 22: mesh
+MESH_ARCHS = (("hymba-1.5b", "global"), ("granite-moe-3b-a800m", "shard_map"))
+MESH_LAYERS = 2
+MESH_TRAIN = (4, 512)             # B, S of the sharded train step
+MESH_PREFILL = (4, 2048)          # B, S of the prefill
+MESH_DECODE = 4                   # decode steps after the zero cache
+MESH_LOSS_RTOL = 1e-3
+MESH_GRAD_REL_L2 = 5e-2
+# the gradients' global norm: a scale fault common to every leaf (a
+# data-parallel sum counted twice, a loss over the local batch) moves it
+# 2×; the bf16 sharded sums moved it by 6.7e-05 (hymba) and 6.9e-05
+# (granite) on an NVIDIA H100 80GB HBM3 at 700 W (1.4e-3 at reduced hymba
+# on a CPU, where a leaf's relative L2 reaches 3.3e-2)
+MESH_NORM_RTOL = 1e-3
+MESH_LOGITS = dict(atol=0.2, rtol=0.05)
+# both runs are bf16 on the card, but the sharded one sums its row-parallel
+# products in other pieces, and its picks are compared over 16k-65k
+# (token, slot) pairs a stage against phase 20's 512: a pick apart counts
+# as a near-tie within 5e-2 of the top-k edge (phase 20's 1e-2 × 5), and
+# the largest gap among the picks apart is printed
+MESH_ROUTER_TIE = 5e-2
+MESH_DRYRUN = ("qwen2-72b", "train_4k", "single")
+CARD_BYTES = 80e9
+
+
+def _mesh_cfg(arch):
+    cfg = get_config(arch).replace(n_layers=MESH_LAYERS)
+    return (cfg.replace(n_global_layers=1) if cfg.family == "hybrid"
+            else cfg)
+
+
+def _mesh_tokens(cfg, B, S, device, seed):
+    rng = np.random.default_rng(seed)
+    return {k: torch.as_tensor(rng.integers(0, cfg.vocab, (B, S)),
+                               dtype=torch.int32, device=device)
+            for k in ("tokens", "labels")}
+
+
+def _first_moments(opt):
+    from repro_torch.launch import sharding as sh
+    return {"/".join(p): t.float() for p, t in _flat(sh.full_tree(opt["m"]))}
+
+
+def _grad_norm(moments, b1):
+    """The gradients' global norm from one unclipped AdamW step's first
+    moments, (1 − b1) × the gradient."""
+    return float(torch.sqrt(sum(torch.sum(m.double() ** 2)
+                                for m in moments.values()))) / (1 - b1)
+
+
+def _flat(tree, path=()):
+    if isinstance(tree, dict):
+        for k in sorted(tree):
+            yield from _flat(tree[k], path + (k,))
+    else:
+        yield path, tree
+
+
+def _sync_ms(fn):
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, (time.perf_counter() - t0) * 1e3
+
+
+def _mesh_case(arch, dispatch, device, mesh, rank):
+    """One architecture on every rank: the sharded train step, prefill and
+    decode against the unsharded port on the same card.  An MoE model's
+    unsharded runs record their routes on every rank and the sharded runs
+    replay each rank's batch rows of them (``_routes``, phase 20's rule):
+    the two differ by rounding alone, and every pick apart is a near-tie
+    (top-k edge within ``MESH_ROUTER_TIE``)."""
+    from repro_torch.launch import sharding as sh, steps
+    from repro_torch.models import common
+    from repro_torch.optim import AdamWConfig, adamw_update
+    common.reset_perf_options()
+    common.set_perf_options(moe_dispatch=dispatch)
+    cfg = _mesh_cfg(arch)
+    if cfg.family == "hybrid":       # live mamba weights: the scan works
+        params = _hymba_params(cfg, device, seed=0)
+    else:
+        gen = torch.Generator(device=device).manual_seed(0)
+        params = lm.init_params(cfg, generator=gen, device=device)
+    out = {"arch": arch, "dispatch": dispatch, "layers": cfg.n_layers,
+           "routes_apart": 0, "max_apart_gap": 0.0}
+    moe = cfg.n_experts > 0
+    plain_here = moe or rank == 0    # who runs the unsharded reference
+    names = mesh.mesh_dim_names
+    dp_size = mesh.mesh.shape[names.index("data")]
+    coord = mesh.get_coordinate()[names.index("data")]
+
+    def plain(fn, record):
+        if not moe:
+            return fn()
+        with _routes(record=record):
+            return fn()
+
+    def sharded(fn, record, B):
+        if not moe:
+            return fn()
+        n = B // dp_size
+        cut = [r[coord * n:(coord + 1) * n] for r in record]
+        with _routes(replay=cut, tie=MESH_ROUTER_TIE) as info:
+            res = fn()
+        check(info["apart_untied"] == 0, f"[mesh] {arch}: "
+              f"{info['apart_untied']} routing picks apart beyond a tie "
+              f"(largest gap {info['max_apart_gap']:.3e})")
+        out["routes_apart"] += info["apart"]
+        out["max_apart_gap"] = max(out["max_apart_gap"],
+                                   info["max_apart_gap"])
+        return res
+
+    # unclipped, so each first moment is 0.1 × its gradient and a fault
+    # that scales every leaf alike shows in the global norm
+    opt_cfg = AdamWConfig(lr=1e-4, grad_clip=0.0)
+    B, S = MESH_TRAIN
+    batch = _mesh_tokens(cfg, B, S, device, seed=1)
+    cell = ShapeCell("mesh_train", S, B, "train")
+    routes = []
+
+    def plain_step():                # the unsharded step, as steps.py's
+        p = _tree_map(lambda t: t.detach().clone().requires_grad_(), params)
+        loss = lm.train_loss(p, cfg, batch, chunk=1024)
+        loss.backward()
+        grads = _tree_map(lambda t: t.grad, p)
+        st = {"m": _tree_map(lambda t: torch.zeros_like(
+            t, dtype=torch.float32), p), "v": _tree_map(
+            lambda t: torch.zeros_like(t, dtype=torch.float32), p),
+            "step": 0}
+        _, st = adamw_update(_tree_map(lambda t: t.detach(), p), grads, st,
+                             opt_cfg, inplace=True)
+        return float(loss), {"/".join(k): v for k, v in _flat(st["m"])}
+
+    if plain_here:
+        (loss0, m0), out["plain_train_ms"] = _sync_ms(
+            lambda: plain(plain_step, routes))
+    dp = sh.distribute_params(params, cfg, mesh)
+    ost = steps.init_opt_state(cfg, mesh)
+    db = sh.distribute(batch, sh.batch_placements(lm.input_specs(cfg, cell),
+                                                  mesh), mesh)
+    step = steps.sharded_train_step(cfg, mesh, opt_cfg)
+    held = {}
+    _reset_counts()
+    with _scan_held(held, f"mesh train {arch} rank {rank}"):
+        (dp, ost, dl), out["train_ms"] = _sync_ms(
+            lambda: sharded(lambda: step(dp, ost, db), routes, B))
+    out["train_launches"] = {"forward": scan.launch_count("forward"),
+                             "backward": scan.launch_count("backward"),
+                             **_counts()}
+    loss = float(dl.full_tensor())
+    m = _first_moments(ost)
+    if rank == 0:
+        out["loss"], out["plain_loss"] = loss, loss0
+        out["grad_rel_l2"] = max(_rel_l2([m[k]], [m0[k]])[0] for k in m0)
+        out["grad_norm"] = _grad_norm(m, opt_cfg.b1)
+        out["plain_grad_norm"] = _grad_norm(m0, opt_cfg.b1)
+        check(abs(loss - loss0) <= MESH_LOSS_RTOL * abs(loss0),
+              f"[mesh] {arch}: sharded loss {loss} against {loss0}")
+        check(abs(out["grad_norm"] - out["plain_grad_norm"])
+              <= MESH_NORM_RTOL * out["plain_grad_norm"],
+              f"[mesh] {arch}: gradient global norm {out['grad_norm']} "
+              f"against {out['plain_grad_norm']}")
+        check(out["grad_rel_l2"] <= MESH_GRAD_REL_L2,
+              f"[mesh] {arch}: a gradient leaf {out['grad_rel_l2']:.3e} "
+              "relative L2 from the unsharded one")
+    del ost, m
+    # prefill at S = 2,048
+    B, S = MESH_PREFILL
+    pbatch = _mesh_tokens(cfg, B, S, device, seed=2)
+    pcell = ShapeCell("mesh_prefill", S, B, "prefill")
+    routes = []
+    if plain_here:
+        with torch.no_grad():
+            want, out["plain_prefill_ms"] = _sync_ms(lambda: plain(
+                lambda: lm.prefill(params, cfg, pbatch), routes))
+    dp = sh.distribute_params(params, cfg, mesh)
+    db = sh.distribute(pbatch, sh.batch_placements(
+        lm.input_specs(cfg, pcell), mesh), mesh)
+    prefill = steps.sharded_prefill_step(cfg, mesh)
+    _reset_counts()
+    with _scan_held(held, f"mesh prefill {arch} rank {rank}"):
+        got, out["prefill_ms"] = _sync_ms(
+            lambda: sharded(lambda: prefill(dp, db), routes, B))
+    out["prefill_launches"] = {"forward": scan.launch_count("forward"),
+                               **_counts()}
+    got = got.full_tensor()
+    n_scan = cfg.n_layers if cfg.family == "hybrid" else 0
+    check(out["prefill_launches"]["forward"] == n_scan,
+          f"[mesh] {arch} rank {rank}: {out['prefill_launches']} scan "
+          f"launches in the prefill, want one per layer ({n_scan})")
+    if rank == 0:
+        out["prefill_max_abs_diff"] = float((got - want).abs().max())
+        out["prefill_outside"] = int((~torch.isclose(
+            got, want, **MESH_LOGITS)).sum())
+        check(out["prefill_outside"] == 0, f"[mesh] {arch}: "
+              f"{out['prefill_outside']} prefill logits outside "
+              f"{MESH_LOGITS} of the unsharded ones")
+    # decode: the zero cache, one token a step
+    dcell = ShapeCell("mesh_decode", 64, B, "decode")
+    cache = lm.init_cache(cfg, dcell, device=device) if plain_here else None
+    dcache = sh.distribute(lm.init_cache(cfg, dcell, device=device),
+                           sh.cache_placements(lm.cache_specs(cfg, dcell),
+                                               mesh), mesh)
+    decode = steps.sharded_decode_step(cfg, mesh)
+    place = sh.batch_placements({"token": ((B, 1), torch.int32)}, mesh)
+    diffs, outside, ms = [], 0, []
+    _reset_counts()
+    for pos in range(MESH_DECODE):
+        tok = pbatch["tokens"][:, pos:pos + 1].contiguous()
+        routes = []
+        if plain_here:
+            with torch.no_grad():
+                want, cache = plain(lambda: lm.decode_step(
+                    params, cfg, tok, cache, pos), routes)
+        dtok = sh.distribute({"token": tok}, place, mesh)["token"]
+        (lg, dcache), t = _sync_ms(lambda: sharded(lambda: decode(
+            dp, dtok, dcache, torch.tensor(pos, device=device)), routes, B))
+        ms.append(t)
+        lg = lg.full_tensor()
+        if rank == 0:
+            diffs.append(float((lg - want).abs().max()))
+            outside += int((~torch.isclose(lg, want, **MESH_LOGITS)).sum())
+    out["decode_launches"] = {"forward": scan.launch_count("forward"),
+                              **_counts()}
+    out["decode_ms"] = ms
+    if rank == 0:
+        out["decode_max_abs_diff"] = max(diffs)
+        out["decode_outside"] = outside
+        check(outside == 0, f"[mesh] {arch}: {outside} decode logits "
+              f"outside {MESH_LOGITS} of the unsharded ones")
+    out["held"] = {k: {kk: vv for kk, vv in v.items() if kk != "shapes"}
+                   | {"shapes": [list(x) for x in v["shapes"]]}
+                   for k, v in held.items()}
+    common.reset_perf_options()
+    return out
+
+
+def _tree_map(fn, tree):
+    if isinstance(tree, dict):
+        return {k: _tree_map(fn, v) for k, v in tree.items()}
+    return fn(tree)
+
+
+def _mesh_rank():
+    """One rank of phase 22: the (data=2, model=2) mesh over the staged
+    transport, each architecture's steps, the transport's counts."""
+    import torch.distributed as dist
+    from repro_torch.dist import staged
+    from repro_torch.launch import mesh as mesh_mod
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    rank = dist.get_rank()
+    device = torch.device("cuda", torch.cuda.current_device())
+    mesh = mesh_mod.make_host_mesh(2, device_type="cuda")
+    staged.reset_stats()
+    cases = [_mesh_case(a, d, device, mesh, rank) for a, d in MESH_ARCHS]
+    return {"rank": rank, "cases": cases, "transport": staged.stats(),
+            "peak_gib": torch.cuda.max_memory_allocated(device) / 2**30}
+
+
+def start_dryrun_cell():
+    """Start the dry run's phase-22 cell in a subprocess (no card used):
+    ``main`` starts it after the build and waits for it
+    (``dryrun_record``) after phase 3's kernel grids, which check values
+    and time nothing, so it shares the host with no timed phase.  Killed
+    at exit if still running."""
+    import atexit
+    arch, shape, mesh = MESH_DRYRUN
+    out_dir = ROOT / "build" / "dryrun_phase22"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    log = open(out_dir / "dryrun.log", "w")
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", arch,
+         "--shape", shape, "--mesh", mesh, "--extrapolate", "--out",
+         str(out_dir)], env=env, stdout=log, stderr=subprocess.STDOUT)
+    atexit.register(proc.kill)
+    return proc, out_dir
+
+
+def dryrun_record(dry):
+    """Wait for the dry-run cell: its record."""
+    proc, out_dir = dry
+    try:
+        rc = proc.wait(timeout=600)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        raise
+    log = (out_dir / "dryrun.log").read_text()
+    check(rc == 0, f"[mesh dryrun] failed:\n{log[-3000:]}")
+    arch, shape, mesh = MESH_DRYRUN
+    with open(out_dir / f"{arch}_{shape}_{mesh}.json") as f:
+        return json.load(f)
+
+
+def phase_mesh(device, rec):
+    """Phase 22: the LM mesh path on 4 ranks sharing the card, then the
+    dry-run cell's record ``rec`` (``dryrun_record``).  Returns (json,
+    scan launches summed over the ranks' main-path runs: forward,
+    backward)."""
+    from repro_torch.dist import comm
+    from repro_torch.dist.staged import TRANSPORT
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    ranks = comm.spawn(_mesh_rank, 4, backend="staged", device="cuda",
+                       threads=2)
+    wall = time.perf_counter() - t0
+    transport = f"transport: {TRANSPORT}"
+    print(f"[mesh] 4 ranks on a (data=2, model=2) mesh sharing the card, "
+          f"{wall:.1f} s; {transport}")
+    launches = [0, 0]
+    rows = []
+    for i, (arch, dispatch) in enumerate(MESH_ARCHS):
+        r0 = ranks[0]["cases"][i]
+        for r in ranks:
+            c = r["cases"][i]
+            launches[0] += (c["train_launches"]["forward"]
+                            + c["prefill_launches"]["forward"]
+                            + c["decode_launches"]["forward"])
+            launches[1] += c["train_launches"]["backward"]
+            for name, h in c["held"].items():
+                print(f"[mesh held] {_held_line(name, h)}")
+        per_rank = [r["cases"][i]["prefill_launches"]["forward"]
+                    for r in ranks]
+        moe = (f" (moe_dispatch={dispatch}: the batched dispatch on each "
+               "rank's block, one sum over model; replaying the unsharded "
+               f"routes; picks apart at near-ties on rank 0: "
+               f"{r0['routes_apart']}, the largest gap "
+               f"{r0['max_apart_gap']:.3e})" if "moe" in arch else "")
+        print(f"[mesh] {arch}{moe} full width, {r0['layers']} layers; "
+              f"{transport}: train B={MESH_TRAIN[0]} "
+              f"S={MESH_TRAIN[1]} loss {r0['loss']:.6f} (unsharded "
+              f"{r0['plain_loss']:.6f}), unclipped: gradient global norm "
+              f"{r0['grad_norm']:.6e} (unsharded {r0['plain_grad_norm']:.6e}"
+              f"), worst first-moment relative L2 "
+              f"{r0['grad_rel_l2']:.3e}, {r0['train_ms']:.1f} ms on the "
+              f"mesh vs {r0['plain_train_ms']:.1f} ms unsharded")
+        print(f"[mesh] {arch}; {transport}: prefill B={MESH_PREFILL[0]} "
+              f"S={MESH_PREFILL[1]} max |Δ logits| "
+              f"{r0['prefill_max_abs_diff']:.4f} ({r0['prefill_outside']} "
+              f"outside {MESH_LOGITS}), {r0['prefill_ms']:.1f} ms on the "
+              f"mesh vs {r0['plain_prefill_ms']:.1f} ms unsharded; scan "
+              f"launches per rank in the prefill {per_rank}")
+        print(f"[mesh] {arch}; {transport}: {MESH_DECODE} decode steps max "
+              f"|Δ logits| {r0['decode_max_abs_diff']:.4f} "
+              f"({r0['decode_outside']} outside), ms per step on the mesh "
+              + ", ".join(f"{t:.1f}" for t in r0["decode_ms"]))
+        for r in ranks:
+            c = r["cases"][i]
+            for what in ("train", "prefill", "decode"):
+                other = {k: v for k, v in c[f"{what}_launches"].items()
+                         if k not in ("forward", "backward")}
+                check(not any(other.values()), f"[mesh] {arch}: GNN "
+                      f"kernels launched on the LM {what} path: {other}")
+        rows.append({"arch": arch, "dispatch": dispatch,
+                     **{k: v for k, v in r0.items() if k != "held"},
+                     "prefill_scan_launches_per_rank": per_rank})
+    for r in ranks:
+        t = r["transport"]
+        print(f"[mesh transport] rank {r['rank']}: " + ", ".join(
+            f"{k} {v['calls']} calls {v['bytes'] / 2**20:.1f} MiB "
+            f"{v['seconds']:.2f} s" for k, v in t.items() if v["calls"])
+            + f"; peak {r['peak_gib']:.2f} GiB")
+    arch, shape, mesh_name = MESH_DRYRUN
+    gib = rec["per_device_bytes"] / 2**30
+    fits = "fits" if rec["per_device_bytes"] < CARD_BYTES else "does not fit"
+    t = rec["t_" + rec["bottleneck"]]
+    print(f"[mesh dryrun] {arch} × {shape} × {mesh_name} (fake 256-rank "
+          f"process group, H100 data-sheet rates, {rec['cost_from']}): "
+          f"{gib:.2f} GiB per device against the card's 80 GB "
+          f"({CARD_BYTES / 2**30:.1f} GiB: {fits}), "
+          f"bottleneck {rec['bottleneck']} at {t:.3f} s (compute "
+          f"{rec['t_compute']:.3f}, memory {rec['t_memory']:.3f}, "
+          f"collective {rec['t_collective']:.3f}), useful ratio "
+          f"{rec['useful_ratio']:.3f}; its fake run {rec['compile_s']} s "
+          "on the host, beside the kernel grids")
+    return {"transport": TRANSPORT, "seconds": wall, "cases": rows,
+            "ranks_transport": [r["transport"] for r in ranks],
+            "dryrun": rec}, launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script needs an "
@@ -6048,6 +6464,7 @@ def main() -> int:
         for line in log.splitlines():
             if "registers" in line or "spill" in line:
                 print(f"[build] {name}: {line.strip()}")
+    dry = start_dryrun_cell()
 
     t0 = time.perf_counter()
     cases, max_err = phase_kernel_grid(device)
@@ -6069,6 +6486,10 @@ def main() -> int:
     sd_cases, err_sddmm = phase_sddmm_grid(device)
     print(f"[sddmm grid] {sd_cases} cases in "
           f"{time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    dry_rec = dryrun_record(dry)      # phase 22's dry-run cell, read there
+    print(f"[mesh dryrun] waited {time.perf_counter() - t0:.1f} s after the "
+          "kernel grids")
     t0 = time.perf_counter()
     err_autograd = phase_autograd(device)
     print(f"[autograd] in {time.perf_counter() - t0:.1f} s")
@@ -6183,6 +6604,11 @@ def main() -> int:
     more = phase_more(device)
     print(f"[lm more] phase 21 in {time.perf_counter() - t0:.1f} s")
     print("[lm more json] " + json.dumps(more))
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    mesh_json, mesh_launches = phase_mesh(device, dry_rec)
+    print(f"[mesh] phase 22 in {time.perf_counter() - t0:.1f} s")
+    print("[mesh json] " + json.dumps(mesh_json))
     print("[lm json] " + json.dumps({"prefill": prefill_row,
                                      "decode": decode_row,
                                      "decode_graphs": decode_graph_row,
@@ -6282,8 +6708,9 @@ def main() -> int:
         "source": "src/repro_torch/csrc/selective_scan.cu",
         "replaces": "src/repro/kernels/selective_scan/kernel.py:46",
         "launches": prefill_launches + consist_launches
-        + decode_row["launches"] + lm_train_launches[0],
+        + decode_row["launches"] + lm_train_launches[0] + mesh_launches[0],
         "launches_by_path": {"prefill": prefill_launches,
+                             "mesh_all_ranks": mesh_launches[0],
                              "consistency_forward": consist_launches,
                              "decode": decode_row["launches"],
                              "decode_captured_and_eager": 0,
@@ -6306,8 +6733,9 @@ def main() -> int:
         "replaces_note": "the gradient of the scan, which the reference "
                          "takes by XLA autodiff of src/repro/models/ssm.py:"
                          "82-86; its Pallas kernel has no backward",
-        "launches": lm_train_launches[1],
-        "launches_by_path": {**{f"training_{k}": v[1] for k, v in
+        "launches": lm_train_launches[1] + mesh_launches[1],
+        "launches_by_path": {"mesh_all_ranks": mesh_launches[1],
+                             **{f"training_{k}": v[1] for k, v in
                                 lm_train["launches_by_path"].items()},
                              "training_held_against_plain": sum(
                                  r["backward"] for r in

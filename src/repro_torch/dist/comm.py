@@ -46,7 +46,7 @@ from typing import Callable
 import torch
 import torch.distributed as dist
 
-BACKENDS = ("nccl", "gloo")
+BACKENDS = ("nccl", "gloo", "staged")
 COLLECTIVES = ("all_gather", "reduce_scatter", "all_reduce")
 
 _stats = {name: {"calls": 0, "seconds": 0.0, "bytes": 0}
@@ -117,6 +117,8 @@ def init_rank(rank: int, world: int, store_path: str, *,
               backend: str) -> None:
     """Join the default process group as ``rank`` of ``world`` through a
     ``FileStore`` at ``store_path``."""
+    if backend == "staged":
+        from . import staged  # noqa: F401  (registers the backend)
     store = dist.FileStore(store_path, world)
     dist.init_process_group(backend, store=store, rank=rank,
                             world_size=world)

@@ -25,6 +25,16 @@ backward's one launch carries its chunks' cotangent from the last chunk
 to the first itself (a chained scan over blocks), so it has no helper
 launch; its per-slice partial sums of g_C are summed by one ``torch.sum``.
 
+On the mesh path (DTensor operands) and while the dry run counts
+(``models.common.cost_mode()``), the call goes through the custom ops
+``repro_torch::selective_scan_fwd`` / ``selective_scan_bwd``: the same
+kernels on CUDA tensors (the plain versions on the CPU), with a fake
+implementation that gives their shapes, an autograd formula (the
+backward op on the forward's chunk states) and a DTensor sharding rule:
+B over any mesh dimension, or Di (C replicated), or nothing.  Each rank
+then launches the kernel on its own ``(B/dp, S, N, Di/mp)`` block, and
+the launch counts are per process (per rank).
+
 Any ``S`` and ``Di`` are taken as they are: the kernels bounds-check the
 ragged ends, so nothing is padded (the reference pads S to its chunk and
 Di to 128 with the neutral dA = 1, dBx = 0).
@@ -36,7 +46,7 @@ import ctypes
 import torch
 
 from .ref import (selective_scan_backward_from_states_plain,
-                  selective_scan_plain)
+                  selective_scan_chunk_states_plain, selective_scan_plain)
 
 MAX_N = 32           # N · 16 threads in a forward block, N ≤ 32
 CHUNK = 64           # steps per chunk state (the kernels' kChunk)
@@ -203,10 +213,98 @@ class _Scan(torch.autograd.Function):
         return selective_scan_backward(*ctx.saved_tensors, gy)
 
 
+# ------------------------------------------------------------ custom ops
+@torch.library.custom_op("repro_torch::selective_scan_fwd", mutates_args=())
+def _fwd_op(dA: torch.Tensor, dBx: torch.Tensor, C: torch.Tensor,
+            keep_states: bool) -> tuple[torch.Tensor, torch.Tensor]:
+    """y and, with ``keep_states``, the chunk states (else a (B, 0, N,
+    Di) tensor): the kernel on CUDA, the plain versions on the CPU."""
+    B, S, N, Di = dA.shape
+    y, st = _forward(dA, dBx, C, keep_states)
+    return y, (dA.new_empty((B, 0, N, Di)) if st is None else st)
+
+
+def _forward(dA, dBx, C, keep_states):
+    if dA.device.type == "cuda":
+        return _launch(dA, dBx, C, states=keep_states)
+    return (selective_scan_plain(dA, dBx, C),
+            selective_scan_chunk_states_plain(dA, dBx, CHUNK)
+            if keep_states else None)
+
+
+@_fwd_op.register_fake
+def _(dA, dBx, C, keep_states):
+    B, S, N, Di = dA.shape
+    return (dA.new_empty((B, S, Di)),
+            dA.new_empty((B, _chunks(S) if keep_states else 0, N, Di)))
+
+
+@torch.library.custom_op("repro_torch::selective_scan_bwd", mutates_args=())
+def _bwd_op(dA: torch.Tensor, dBx: torch.Tensor, C: torch.Tensor,
+            states: torch.Tensor, gy: torch.Tensor
+            ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    return selective_scan_backward(dA, dBx, C, states, gy)
+
+
+@_bwd_op.register_fake
+def _(dA, dBx, C, states, gy):
+    return torch.empty_like(dA), torch.empty_like(dA), torch.empty_like(C)
+
+
+def _setup(ctx, inputs, output):
+    dA, dBx, C, _ = inputs
+    ctx.save_for_backward(dA, dBx, C, output[1])
+
+
+def _backward(ctx, gy, _gst):
+    g_dA, g_dBx, g_C = torch.ops.repro_torch.selective_scan_bwd(
+        *ctx.saved_tensors, gy.contiguous())
+    return g_dA, g_dBx, g_C, None
+
+
+_fwd_op.register_autograd(_backward, setup_context=_setup)
+
+
+def _register_sharding():
+    """B over a mesh dimension, or Di with C whole, or replicated."""
+    from torch.distributed.tensor import Replicate, Shard
+    from torch.distributed.tensor.experimental import register_sharding
+    R = Replicate()
+
+    @register_sharding(torch.ops.repro_torch.selective_scan_fwd.default)
+    def _fwd(dA, dBx, C, keep_states):
+        return [([R, R], [R, R, R, None]),
+                ([Shard(0), Shard(0)], [Shard(0), Shard(0), Shard(0), None]),
+                ([Shard(2), Shard(3)], [Shard(3), Shard(3), R, None])]
+
+    @register_sharding(torch.ops.repro_torch.selective_scan_bwd.default)
+    def _bwd(dA, dBx, C, states, gy):
+        return [([R, R, R], [R, R, R, R, R]),
+                ([Shard(0)] * 3, [Shard(0)] * 5),
+                # g_C sums over Di: a partial sum on each Di shard
+                ([Shard(3), Shard(3), _partial()],
+                 [Shard(3), Shard(3), R, Shard(3), Shard(2)])]
+
+
+def _partial():
+    from torch.distributed.tensor import Partial
+    return Partial()
+
+
+_register_sharding()
+
+
+def _scan_op(dA, dBx, C):
+    keep = torch.is_grad_enabled() and (dA.requires_grad or dBx.requires_grad
+                                        or C.requires_grad)
+    return torch.ops.repro_torch.selective_scan_fwd(dA, dBx, C, keep)[0]
+
+
 def selective_scan(dA, dBx, C):
     """dA/dBx ``(B, S, N, Di)``, C ``(B, S, N)`` → y ``(B, S, Di)``
     float32.  The plain version for CPU tensors, the CUDA kernel for CUDA
-    tensors (with its backward kernel when a gradient is wanted)."""
+    tensors (with its backward kernel when a gradient is wanted); DTensor
+    operands, and any operands in cost mode, through the custom ops."""
     if dA.ndim != 4 or dBx.shape != dA.shape or C.ndim != 3 \
             or tuple(C.shape) != tuple(dA.shape[:3]):
         raise ValueError("selective_scan takes dA and dBx (B, S, N, Di) and "
@@ -216,6 +314,10 @@ def selective_scan(dA, dBx, C):
         raise ValueError("operands on several devices: "
                          f"{dA.device}, {dBx.device}, {C.device}")
     dA, dBx, C = (t.to(torch.float32) for t in (dA, dBx, C))
+    from torch.distributed.tensor import DTensor
+    from repro_torch.models.common import cost_mode
+    if cost_mode() or any(isinstance(t, DTensor) for t in (dA, dBx, C)):
+        return _scan_op(dA, dBx, C)
     if dA.device.type == "cpu":
         return selective_scan_plain(dA, dBx, C)
     if dA.device.type != "cuda":

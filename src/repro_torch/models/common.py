@@ -1,15 +1,20 @@
 """Shared transformer building blocks of the LM side (bf16 activations
-with float32 islands, as the JAX package computes them), and the
-next-token loss.
+with float32 islands, as the JAX package computes them), the next-token
+loss, and the perf-option registry.
 
-Not ported: the JAX package's cost mode and ``scan_layers`` (the port
-loops over layers in Python, ``layer_params`` giving each layer's views)
-and its perf-option registry: ``transformer.moe_ffn`` is the default
-MoE dispatch, and the other options have no counterpart here
-(``ssm_backend``: the device picks the scan kernel or its plain version,
-see ``models/ssm.py``).  ``gqa_attention`` has no caller in the JAX
-package's models (its transformer imports it and attends through
-``_attn_block``), so it is not ported.
+The perf options (``PERF_DEFAULTS``, ``set_perf_options``) carry the
+reference's keys and defaults; a value the port cannot honour raises
+(``set_perf_options``).  ``ssm_backend`` keeps the port's deviation: the
+device picks the scan kernel or its plain version (``models/ssm.py``),
+so it takes only its default, ``"xla"``, and ``"pallas"`` raises.  The
+cost mode
+(``set_cost_mode``) is on while ``launch/dryrun.py`` counts a step; the
+port loops over layers in Python (``layer_params`` gives each layer's
+views), so it has no scan to unroll, and the mode only routes the
+selective scan through its custom op, whose kernel bytes the counter
+prices (``kernels/selective_scan/ops.py``).  ``gqa_attention`` has no
+caller in the JAX package's models (its transformer imports it and
+attends through ``_attn_block``), so it is not ported.
 """
 from __future__ import annotations
 
@@ -17,18 +22,119 @@ import math
 
 import torch
 import torch.nn.functional as F
-from torch.utils.checkpoint import checkpoint
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 NEG_INF = -2.0e38          # f32-safe mask value
 
+_COST_MODE = [False]
+
+
+def set_cost_mode(on: bool):
+    _COST_MODE[0] = bool(on)
+
+
+def cost_mode() -> bool:
+    return _COST_MODE[0]
+
+
+# The reference's perf options, with its keys and defaults; each value the
+# port honours is listed, and ``set_perf_options`` raises on any other.
+PERF_DEFAULTS = {
+    "moe_dispatch": "global",      # global cumsum | "batched" | "shard_map"
+    "ssm_scan_dtype": "float32",   # mamba recurrence precision
+    "remat_policy": "full",        # full recompute | "dots" | "dots_nb"
+    "seq_parallel": False,         # Megatron SP residual activations
+    "bf16_norm_grad": False,       # bf16 dx cotangent through RMSNorm
+    "ssm_backend": "xla",          # the device picks the scan either way
+}
+PERF_VALUES = {
+    "moe_dispatch": ("global", "batched", "shard_map"),
+    "ssm_scan_dtype": ("float32",),
+    "remat_policy": ("full", "dots", "dots_nb"),
+    "seq_parallel": (False, True),
+    "bf16_norm_grad": (False, True),
+    "ssm_backend": ("xla",),
+}
+_PERF = dict(PERF_DEFAULTS)
+
+
+def set_perf_options(**kw):
+    """Set perf options (``None`` leaves one as it is).  An unknown key or
+    a value the port cannot honour raises; ``ssm_scan_dtype="bfloat16"``
+    raises ``NotImplementedError``: the CUDA scan is float32 only, and so
+    does ``ssm_backend="pallas"``: the device picks the scan."""
+    for k, v in kw.items():
+        if v is None:
+            continue
+        if k not in PERF_VALUES:
+            raise KeyError(f"unknown perf option {k!r}; known: "
+                           f"{sorted(PERF_VALUES)}")
+        if k == "ssm_scan_dtype" and v == "bfloat16":
+            raise NotImplementedError(
+                "ssm_scan_dtype='bfloat16' needs a bf16 selective-scan "
+                "kernel; the port's CUDA scan is float32 only")
+        if k == "ssm_backend" and v != "xla":
+            raise NotImplementedError(
+                f"ssm_backend={v!r}: the port has no backend choice; the "
+                "tensor's device picks the scan (the CUDA kernel on the "
+                "card, its plain version on the CPU)")
+        if v not in PERF_VALUES[k]:
+            raise NotImplementedError(
+                f"perf option {k}={v!r} is not ported; the port takes "
+                f"{PERF_VALUES[k]}")
+    for k, v in kw.items():
+        if v is not None:
+            _PERF[k] = v
+
+
+def reset_perf_options():
+    _PERF.update(PERF_DEFAULTS)
+
+
+def perf_option(key: str):
+    return _PERF[key]
+
 
 def rms_norm(x, w, eps=1e-6, plus_one=False):
-    """RMSNorm computed in float32, cast back to ``x``'s dtype."""
+    """RMSNorm computed in float32, cast back to ``x``'s dtype; with the
+    ``bf16_norm_grad`` option on a bf16 ``x``, through ``_RMSNormBF16Grad``
+    (the reference's ``_rms_norm_bf16grad``)."""
+    if perf_option("bf16_norm_grad") and x.dtype == torch.bfloat16:
+        return _RMSNormBF16Grad.apply(x, w, eps, plus_one)
+    return _rms_norm_impl(x, w, eps, plus_one)
+
+
+def _rms_norm_impl(x, w, eps=1e-6, plus_one=False):
     x32 = x.float()
     var = (x32 * x32).mean(-1, keepdim=True)
     y = x32 * torch.rsqrt(var + eps)
     scale = (1.0 + w.float()) if plus_one else w.float()
     return (y * scale).to(x.dtype)
+
+
+class _RMSNormBF16Grad(torch.autograd.Function):
+    """RMSNorm whose input cotangent is emitted in bf16, with the
+    reference's hand-written vjp (``common.py:_rmsn_bwd``): the float32
+    terms, then dx cast to x's dtype and dw to w's."""
+
+    @staticmethod
+    def forward(ctx, x, w, eps, plus_one):
+        ctx.save_for_backward(x, w)
+        ctx.eps, ctx.plus_one = eps, plus_one
+        return _rms_norm_impl(x, w, eps, plus_one)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w = ctx.saved_tensors
+        x32, g32 = x.float(), g.float()
+        inv = torch.rsqrt((x32 * x32).mean(-1, keepdim=True) + ctx.eps)
+        scale = (1.0 + w.float()) if ctx.plus_one else w.float()
+        gy = g32 * scale
+        dx = inv * (gy - x32 * inv * inv
+                    * (gy * x32).mean(-1, keepdim=True))
+        dw = (g32 * x32 * inv).sum(tuple(range(x.ndim - 1))).to(w.dtype)
+        return dx.to(x.dtype), dw, None, None
 
 
 def layer_norm(x, w, b, eps=1e-5):
@@ -53,6 +159,30 @@ def layer_params(stack: dict, i: int) -> dict:
     """Layer ``i``'s parameters: a view of each stacked ``(L, …)`` leaf."""
     return {k: layer_params(v, i) if isinstance(v, dict) else v[i]
             for k, v in stack.items()}
+
+
+# matmul outputs the ``dots`` / ``dots_nb`` remat policies keep (the
+# reference's ``jax.checkpoint_policies.dots_saveable`` and
+# ``dots_with_no_batch_dims_saveable``: a (B, S, D) @ (D, F) product has
+# no batch dims, attention's batched products have)
+_DOTS_NB = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+_DOTS = _DOTS_NB + (torch.ops.aten.bmm.default, torch.ops.aten.baddbmm.default)
+
+
+def remat_context():
+    """``checkpoint``'s ``context_fn`` for the ``remat_policy`` option:
+    None (recompute everything) for ``full``, else a selective-checkpoint
+    context that saves the matmul outputs of the policy."""
+    saved = {"dots": _DOTS, "dots_nb": _DOTS_NB}.get(
+        perf_option("remat_policy"))
+    if saved is None:
+        return None
+
+    def policy(ctx, op, *args, **kwargs):
+        return (CheckpointPolicy.MUST_SAVE if op in saved
+                else CheckpointPolicy.PREFER_RECOMPUTE)
+
+    return lambda: create_selective_checkpoint_contexts(policy)
 
 
 def run_layers(blk, x, stack: dict, remat: bool, *args):

@@ -4,12 +4,14 @@ per-branch gains.  The stack is heterogeneous: the first ``L - n_global``
 layers use sliding-window attention (a ring-buffer KV cache at decode),
 the last ``n_global_layers`` attend globally (a full KV cache).
 
-The JAX package pins shardings inside the layer (``sharding_ctx``'s
-``constrain_*``); without a mesh those are the identity, so the port
-leaves them out.  Parameters are dicts of stacked ``(L, …)`` tensors and
-the layers run in a Python loop; with ``remat`` each layer runs under
-``torch.utils.checkpoint`` (non-reentrant), as the reference wraps it in
-``jax.checkpoint``: its activations are recomputed in the backward.
+The layer pins its q/k/v shardings with ``sharding_ctx``'s
+``constrain_*`` where the reference does (the identity without a mesh),
+and writes its decode caches through ``write_at`` / ``assign``, which on
+a DTensor cache write each rank's shard.  Parameters are dicts of stacked
+``(L, …)`` tensors and the layers run in a Python loop; with ``remat``
+each layer runs under ``torch.utils.checkpoint`` (non-reentrant), as the
+reference wraps it in ``jax.checkpoint``: its activations are recomputed
+in the backward.
 """
 from __future__ import annotations
 
@@ -19,6 +21,8 @@ import torch
 
 from .common import (apply_norm, apply_rope, gated_mlp, layer_params,
                      rope_tables, run_layers)
+from .sharding_ctx import (assign, constrain_attn_q, constrain_heads,
+                           merge_heads, split_heads, write_at)
 from .ssm import mamba_branch, mamba_defs
 from .transformer import chunked_attention, decode_attn
 
@@ -59,23 +63,24 @@ def hybrid_layer(x, lp, cfg, *, cos, sin, rot, window, cache=None,
     this layer's K/V cache slices are written in place at ``write`` (a
     0-d device tensor, as ``pos``) and ``(x, (new_conv, new_ssm))`` is
     returned; else ``(x, None)``."""
-    B, Sq, _ = x.shape
     h = apply_norm(x, lp["ln1"], cfg.norm)
-    q = (h @ lp["wq"]).reshape(B, Sq, cfg.n_heads, cfg.head_dim)
-    k = (h @ lp["wk"]).reshape(B, Sq, cfg.n_kv, cfg.head_dim)
-    v = (h @ lp["wv"]).reshape(B, Sq, cfg.n_kv, cfg.head_dim)
+    q = constrain_attn_q(split_heads(h @ lp["wq"], cfg.n_heads, cfg.head_dim))
+    k = constrain_heads(split_heads(h @ lp["wk"], cfg.n_kv, cfg.head_dim))
+    v = constrain_heads(split_heads(h @ lp["wv"], cfg.n_kv, cfg.head_dim))
     q = apply_rope(q, cos, sin, rot)
     k = apply_rope(k, cos, sin, rot)
     new_state = None
     if cache is not None:
         ck, cv, conv_s, ssm_s = cache
         at = write.reshape(1)
-        ck.index_copy_(1, at, k)
-        cv.index_copy_(1, at, v)
+        write_at(ck, 1, at, k)
+        write_at(cv, 1, at, v)
         attn = decode_attn(q, ck, cv, pos.clamp(max=ck.shape[1] - 1))
     else:
         attn = chunked_attention(q, k, v, window=window, chunk=chunk)
-    attn = attn.reshape(B, Sq, cfg.q_dim) @ lp["wo"]
+    # heads (or, context-parallel, the query sequence) back to batch-only
+    # before the merge into features, as the dense layer pins it
+    attn = merge_heads(constrain_heads(attn)) @ lp["wo"]
 
     if cache is not None:
         ssm, new_conv, new_ssm = mamba_branch(h, lp, cfg, conv_state=conv_s,
@@ -133,7 +138,7 @@ def hybrid_decode_step(params, cfg, token_embed, cache, pos):
                 x, layer_params(stack, i), cfg, cos=cos, sin=sin, rot=rot,
                 window=0, cache=(kc, vc, cache[ck][i], cache[sk][i]),
                 pos=pos, write=write)
-            cache[ck][i].copy_(conv)
-            cache[sk][i].copy_(ssm)
+            assign(cache[ck][i], conv)
+            assign(cache[sk][i], ssm)
     x = apply_norm(x, params["final_norm"], cfg.norm)
     return x, cache

@@ -4,6 +4,7 @@ VLM (llava, the dense backbone behind a prefix of patch embeddings), SSM
 (RWKV6) and encoder-decoder (Whisper, on stub frame embeddings):
 
   * ``model_defs(cfg)``                  — dict of (shape, role) leaves;
+  * ``param_specs(cfg)``                 — (shape, dtype) leaves (dry run);
   * ``init_params(cfg, generator=...)``  — materialised parameters;
   * ``forward_hidden(params, cfg, batch)`` → final hidden states;
   * ``train_loss(params, cfg, batch)``   → mean next-token CE;
@@ -28,6 +29,7 @@ import torch
 from repro_torch.device import resolve_device
 from .common import apply_norm, layer_params, run_layers
 from .hybrid import hybrid_decode_step, hybrid_forward, hybrid_model_defs
+from .sharding_ctx import assign, embed_rows
 from .ssm import RWKV_HEAD_DIM, rwkv_defs, rwkv_layer
 from .transformer import (chunked_xent, dense_decode_step, dense_forward,
                           dense_model_defs, logits_for)
@@ -75,6 +77,13 @@ def map_defs(fn, defs, path=()):
     if _is_shape_leaf(defs):
         return fn(path, defs)
     return {k: map_defs(fn, defs[k], path + (k,)) for k in sorted(defs)}
+
+
+def param_specs(cfg, dtype=DTYPE) -> dict:
+    """(shape, dtype) of every parameter, as the reference's
+    ``param_specs``: every leaf in ``dtype`` (the dry run's arguments;
+    ``init_params`` keeps ``a_log`` in float32)."""
+    return map_defs(lambda _, d: (d[0], dtype), model_defs(cfg))
 
 
 def init_params(cfg, *, generator: torch.Generator, device=None,
@@ -126,7 +135,7 @@ def _embed_tokens(params, cfg, tokens):
     """Embedding rows in bf16; gemma's ``embed_scale`` multiplies them by
     sqrt(float32(d_model)) rounded to bf16 first, as the reference does
     (68.0 for d_model 4608, not 67.88)."""
-    x = params["embed"][tokens].to(DTYPE)
+    x = embed_rows(params["embed"], tokens).to(DTYPE)
     if cfg.embed_scale:       # a Python float: no copy to the device
         x = x * float(torch.tensor(float(cfg.d_model)).sqrt().to(DTYPE))
     return x
@@ -214,7 +223,7 @@ def _rwkv_decode_step(params, cfg, x, cache, pos):
         states = tuple(cache[k][i] for k in ("last1", "wkv", "last2"))
         x, new = rwkv_layer(x, layer_params(stack, i), states=states)
         for old, t in zip(states, new):
-            old.copy_(t)
+            assign(old, t)
     return apply_norm(x, params["final_norm"], "layernorm"), cache
 
 

@@ -1,13 +1,23 @@
 """SSM families: the selective-SSM (Mamba-style) branch of Hymba's hybrid
-layers, and RWKV6 "Finch" (linear attention with a data-dependent decay).
+layers, and RWKV6 "Finch" (linear attention with a data-dependent
+decay).
 
 Mamba's prefill runs the recurrence through ``kernels.selective_scan``:
 its CUDA kernel on the card, its plain version on the CPU.  The JAX
 package picks between an XLA associative scan and its Pallas kernel with
 the ``ssm_backend`` perf option; both compute the same function, so the
-port has no such option.  RWKV's recurrence is a loop over time in plain
-PyTorch (the reference's ``lax.scan``; no Pallas kernel there).  Decode
-is a single-step state update in both.
+device picks here, and the option takes only ``"xla"`` (``"pallas"``
+raises).  ``ssm_scan_dtype`` is
+float32 only (``set_perf_options`` raises on ``bfloat16``: the CUDA scan
+has no bf16 kernel).  On a mesh the scan's operands are pinned to batch
+over data and Di over model (``sharding_ctx.constrain_scan``), so each
+rank launches the kernel on its own block; the input projection's output
+is first gathered whole over model (``constrain_whole``), since it is
+split into x and the gate along its model-sharded feature dim.  RWKV's
+recurrence is a loop over time in plain PyTorch (the reference's
+``lax.scan``; no Pallas kernel there); on a mesh each rank runs it on
+its own (batch, heads) block (``sharding_ctx.per_rank``).  Decode is a
+single-step state update in both.
 """
 from __future__ import annotations
 
@@ -16,6 +26,8 @@ import torch.nn.functional as F
 
 from repro_torch.kernels.selective_scan import selective_scan
 from .common import apply_norm
+from .sharding_ctx import (constrain_ff, constrain_scan, constrain_whole,
+                           pad_seq, per_rank)
 
 
 def mamba_defs(cfg) -> dict:
@@ -37,7 +49,7 @@ def mamba_defs(cfg) -> dict:
 
 def _causal_conv(x, w):
     """x (B, S, Di), w (4, Di) depthwise: y_t = Σ_j w_j · x_{t-3+j}."""
-    pads = F.pad(x, (0, 0, 3, 0))
+    pads = pad_seq(x, 3)
     return sum(pads[:, j:j + x.shape[1]] * w[j] for j in range(4))
 
 
@@ -48,7 +60,7 @@ def mamba_branch(x, lp, cfg, *, conv_state=None, ssm_state=None):
     B, S, D = x.shape
     Di = cfg.ssm_expand * D
     N = cfg.ssm_state
-    xz = x @ lp["in_proj"]
+    xz = constrain_whole(x @ lp["in_proj"])
     xi, z = xz[..., :Di], xz[..., Di:]
     decode = conv_state is not None
     if decode:
@@ -58,8 +70,11 @@ def mamba_branch(x, lp, cfg, *, conv_state=None, ssm_state=None):
     else:
         xi = _causal_conv(xi, lp["conv_w"])
     xi = F.silu(xi)
-    dt = F.softplus((xi @ lp["dt_a"]) @ lp["dt_proj"] + lp["dt_b"])  # (B,S,Di)
-    bc = xi @ lp["bc_w"]
+    # on a mesh: the low-rank Δ and B|C (64 and 2N wide) reduced whole,
+    # Δ then cut over Di (the identity elsewhere)
+    dt = constrain_ff(F.softplus(constrain_whole(xi @ lp["dt_a"])
+                                 @ lp["dt_proj"] + lp["dt_b"]))  # (B,S,Di)
+    bc = constrain_whole(xi @ lp["bc_w"])
     Bm, Cm = bc[..., :N], bc[..., N:]                        # (B, S, N)
     A = -torch.exp(lp["a_log"].float())                      # (Di, N)
     dt32, dtx32 = dt.float(), (dt * xi).float()
@@ -73,7 +88,7 @@ def mamba_branch(x, lp, cfg, *, conv_state=None, ssm_state=None):
         # products as the reference's (B, S, Di, N) ones and its transpose
         dA = (dt32[:, :, None, :] * A.T).exp_()   # in place: S·N·Di f32
         dBx = dtx32[:, :, None, :] * Bm.float()[..., None]
-        y = selective_scan(dA, dBx, Cm.float())
+        y = selective_scan(*constrain_scan(dA, dBx, Cm.float()))
     y = y.to(x.dtype) + xi * lp["d_skip"]
     y = (y * F.silu(z)) @ lp["out_proj"]
     if decode:
@@ -116,7 +131,7 @@ def _token_shift(x, last=None):
     ``last`` (B, 1, D) is returned as it is (decode)."""
     if last is not None:
         return last
-    return F.pad(x, (0, 0, 1, 0))[:, :-1]
+    return pad_seq(x, 1)[:, :-1]
 
 
 def _wkv6(r, k, v, w, u, state=None):
@@ -164,7 +179,10 @@ def rwkv_time_mix(x, lp, *, last=None, state=None):
                            @ lp["w_lora_b"])
     w = torch.exp(-torch.exp(wdec.float())).reshape(B, S, H, RWKV_HEAD_DIM)
     u = lp["u_bonus"].reshape(H, RWKV_HEAD_DIM)
-    y, new_state = _wkv6(r, k, v, w, u, state)
+    y, new_state = per_rank(
+        _wkv6, (r, k, v, w, u, state),
+        ((0, 2),) * 4 + ((None, 0), None if state is None else (0, 1)),
+        ((0, 2), (0, 1)))
     y = y.to(x.dtype).reshape(B, S, D) * g
     return y @ lp["wo"], new_state
 

@@ -7,12 +7,17 @@ sequence-chunked loss.
 Parameters are dicts of stacked ``(L, …)`` tensors and the layers run in
 a Python loop; with ``remat`` each layer runs under
 ``torch.utils.checkpoint`` (non-reentrant), as the reference wraps it in
-``jax.checkpoint``.  The reference pins shardings inside the layer
-(``sharding_ctx``'s ``constrain_*``); without a mesh those are the
-identity, so the port leaves them out, and its mesh-only MoE dispatch
-(``_moe_ffn_shard_map``) too, with the per-sequence one
-(``_moe_ffn_batched``) that only its mesh settings select: ``moe_ffn``
-is the reference's default, global dispatch.
+``jax.checkpoint``; the ``remat_policy`` perf option picks which
+matmul outputs the checkpoint keeps (``common.remat_context``).  The
+layers call ``sharding_ctx``'s ``constrain_*`` where the reference does:
+on DTensors under a registered mesh they pin the Megatron layout, and
+elsewhere they are the identity.  ``moe_ffn`` takes the reference's three
+dispatches, picked by the ``moe_dispatch`` perf option: global (the
+default) and batched (per-sequence queues); shard_map runs the batched
+one, which on DTensors is already the reference's shard_map design (each
+rank its own block, one sum over model).  On DTensors the
+sequence-mixing cores (attention, the MoE dispatch) run on each rank's
+local block.
 
 Attention is plain PyTorch (``matmul`` + softmax) with the reference's
 masks and casts, as the JAX package leaves it to XLA: the bf16 score
@@ -27,10 +32,16 @@ import functools
 import math
 
 import torch
+from torch.distributed.tensor import DTensor, Replicate, Shard
 from torch.utils.checkpoint import checkpoint
 
 from .common import (NEG_INF, activation, apply_norm, apply_rope, gated_mlp,
-                     layer_params, rope_tables, softcap)
+                     layer_params, perf_option, remat_context, rope_tables,
+                     softcap)
+from .sharding_ctx import (constrain_attn_q, constrain_heads,
+                           constrain_hidden, constrain_moe_buf,
+                           _grad_place, local_block, merge_heads,
+                           split_heads, write_at)
 
 
 # ----------------------------------------------------------- param defs
@@ -85,7 +96,7 @@ def dense_model_defs(cfg) -> dict:
 
 # ------------------------------------------------------- chunked attention
 def chunked_attention(q, k, v, *, causal=True, window=0, attn_softcap=0.0,
-                      chunk=1024):
+                      chunk=1024, q_offset=0):
     """Query-chunked GQA attention, bounded score memory.  q (B, Sq, H,
     hd), k/v (B, Sk, KV, hd); ``causal`` masks keys past each query (off:
     Whisper's encoder and cross-attention, every key live); ``window`` > 0
@@ -98,21 +109,85 @@ def chunked_attention(q, k, v, *, causal=True, window=0, attn_softcap=0.0,
     exactly in the reference, so the softmax sums the same terms, and a
     32k-token prefill scores ~2k keys per query in its sliding-window
     layers instead of 32k.  A non-causal chunk scores all of K/V, as the
-    reference's does."""
+    reference's does.  ``q_offset`` is the position of q's first query
+    (keys start at 0).  On DTensors each rank attends its own block
+    (``_on_mesh``)."""
+    if isinstance(q, DTensor):
+        return _on_mesh(functools.partial(
+            chunked_attention, causal=causal, window=window,
+            attn_softcap=attn_softcap, chunk=chunk), q, k, v, q_offset)
     Sq = q.shape[1]
     if Sq <= chunk:
         return _attn_block(q, k, v, causal=causal, window=window,
-                           attn_softcap=attn_softcap)
+                           attn_softcap=attn_softcap, q_offset=q_offset)
     assert Sq % chunk == 0
     outs = []
     for i in range(0, Sq, chunk):
-        hi = min(k.shape[1], i + chunk) if causal else k.shape[1]
-        lo = max(0, i - window + 1) if window > 0 else 0
+        a = q_offset + i
+        hi = min(k.shape[1], a + chunk) if causal else k.shape[1]
+        lo = max(0, a - window + 1) if window > 0 else 0
         outs.append(_attn_block(q[:, i:i + chunk], k[:, lo:hi], v[:, lo:hi],
                                 causal=causal, window=window,
-                                attn_softcap=attn_softcap, q_offset=i,
+                                attn_softcap=attn_softcap, q_offset=a,
                                 k_offset=lo))
     return torch.cat(outs, dim=1)
+
+
+def _contiguous_stride(shape):
+    return torch.empty(shape, device="meta").stride()
+
+
+def _local_blocks(q, k, v, kv_place=None):
+    """Each rank's blocks of q (B, Sq, H, hd) and k/v (B, Sk, KV, hd)
+    DTensors for attention: q keeps its batch, head or query-sequence
+    sharding; k/v follow its batch and head sharding (heads whole where
+    KV does not divide) unless ``kv_place`` gives theirs; the local K/V
+    heads are then picked for the local query heads (the repeat-KV
+    broadcast).  → (q, k, v local, q's placements, global offsets of q's
+    and k's blocks)."""
+    mesh = q.device_mesh
+    H, KV = q.shape[2], k.shape[2]
+    # heads cut unevenly (25 over 16) would not merge back into features
+    qp = [Replicate() if p.is_partial() or (
+        isinstance(p, Shard) and p.dim == 2 and H % n) else p
+        for p, n in zip(q.placements, mesh.mesh.shape)]
+    if kv_place is None:
+        kv_place = []
+        for p, n in zip(qp, mesh.mesh.shape):
+            if isinstance(p, Shard) and p.dim == 0:
+                kv_place.append(Shard(0))
+            elif (isinstance(p, Shard) and p.dim == 2 and KV % n == 0
+                  and KV >= n):
+                kv_place.append(Shard(2))
+            else:
+                kv_place.append(Replicate())
+    q = q.redistribute(mesh, qp)
+    k, v = (t.redistribute(mesh, kv_place) for t in (k, v))
+    qoff = local_block(q.shape, mesh, qp)[1]
+    koff = local_block(k.shape, mesh, kv_place)[1]
+    ql = q.to_local()
+    kl, vl = (t.to_local(grad_placements=_grad_place(t, q)) for t in (k, v))
+    if not (H == KV and kl.shape[2] == ql.shape[2]):
+        heads = ((qoff[2] + torch.arange(ql.shape[2])) // (H // KV)
+                 - koff[2]).to(kl.device)
+        kl, vl = kl.index_select(2, heads), vl.index_select(2, heads)
+    return ql, kl, vl, qp, qoff, koff
+
+
+def _wrap(out, like, place):
+    """A local attention output as the DTensor of ``like``'s shape."""
+    return DTensor.from_local(out.contiguous(), like.device_mesh, place,
+                              run_check=False, shape=like.shape,
+                              stride=_contiguous_stride(like.shape))
+
+
+def _on_mesh(attend, q, k, v, q_offset):
+    """``attend`` (the plain chunked attention) on every rank's block of
+    DTensor q/k/v: batch and heads as q is sharded, a query-sequence
+    shard against all of K/V at its own offset."""
+    ql, kl, vl, qp, qoff, _ = _local_blocks(q, k, v)
+    out = attend(ql, kl, vl, q_offset=q_offset + qoff[1])
+    return _wrap(out, q, qp)
 
 
 def _repeat_kv(k, H):
@@ -155,18 +230,69 @@ def decode_attn(q, ck, cv, pos, *, window=0, attn_softcap=0.0):
     cache ck/cv (B, Smax, KV, hd): slots ≤ ``pos`` are live, and with a
     window only those > ``pos − window``.  Nothing is read on the host,
     so the step can be captured.  A ring buffer passes its last slot
-    index as ``pos`` (slot order is irrelevant to the softmax sum)."""
-    H = q.shape[2]
-    Sk = ck.shape[1]
-    ck, cv = _repeat_kv(ck, H), _repeat_kv(cv, H)
-    scores = _scores(q, ck, attn_softcap)
-    kpos = torch.arange(Sk, device=q.device)
+    index as ``pos`` (slot order is irrelevant to the softmax sum).  On
+    DTensors see ``_decode_on_mesh``."""
+    if isinstance(q, DTensor):
+        return _decode_on_mesh(q, ck, cv, pos, window=window,
+                               attn_softcap=attn_softcap)
+    scores = _decode_scores(q, ck, pos, window, attn_softcap, 0)
+    probs = torch.softmax(scores, dim=-1).to(q.dtype)
+    return (probs @ _repeat_kv(cv, q.shape[2]).transpose(1, 2)).transpose(1, 2)
+
+
+def _decode_scores(q, ck, pos, window, attn_softcap, k_offset):
+    """Float32 scores of q against the cache rows ck, slot ``k_offset +
+    j`` for row j, masked outside the live slots."""
+    scores = _scores(q, _repeat_kv(ck, q.shape[2]), attn_softcap)
+    kpos = torch.arange(ck.shape[1], device=q.device) + k_offset
     live = kpos <= pos
     if window > 0:
         live &= kpos > pos - window
-    scores = scores.masked_fill(~live, NEG_INF)
-    probs = torch.softmax(scores, dim=-1).to(q.dtype)
-    return (probs @ cv.transpose(1, 2)).transpose(1, 2)
+    return scores.masked_fill(~live, NEG_INF)
+
+
+def _decode_on_mesh(q, ck, cv, pos, *, window, attn_softcap):
+    """``decode_attn`` on DTensors: each rank scores the query against its
+    block of the cache as the cache lies (batch, KV heads or, with
+    ``shard_cache_seq``, slots).  Over a slot-sharded mesh dimension the
+    softmax is merged across ranks: the max and the sum of exps are
+    reduced, then the probability-weighted values summed (the cache is
+    never gathered)."""
+    mesh = q.device_mesh
+    cp = list(ck.placements)
+    seq = [isinstance(p, Shard) and p.dim == 1 for p in cp]
+    qp = []
+    for p, c, n in zip(q.placements, cp, mesh.mesh.shape):
+        if isinstance(c, Shard) and c.dim in (0, 2):
+            qp.append(c)
+        elif (isinstance(p, Shard) and p.dim == 2 and not isinstance(c, Shard)
+              and q.shape[2] % n == 0):
+            qp.append(p)
+        else:
+            qp.append(Replicate())
+    kv_place = [c if isinstance(c, Shard) and c.dim in (0, 1, 2)
+                else Replicate() for c in cp]
+    q = q.redistribute(mesh, qp)
+    ql, kl, vl, qp, _, koff = _local_blocks(q, ck, cv, kv_place)
+    pos = pos.to_local() if isinstance(pos, DTensor) else pos
+    scores = _decode_scores(ql, kl, pos, window, attn_softcap, koff[1])
+    if not any(seq):
+        probs = torch.softmax(scores, dim=-1).to(ql.dtype)
+        return _wrap((probs @ vl.transpose(1, 2)).transpose(1, 2), q, qp)
+    from torch.distributed.tensor import Partial
+
+    def merged(t, op):
+        """``t`` reduced with ``op`` over the slot-sharded dims."""
+        place = [Partial(op) if s else p for s, p in zip(seq, qp)]
+        d = DTensor.from_local(t, mesh, place, run_check=False)
+        return d.redistribute(mesh, [Replicate() if s else p
+                                     for s, p in zip(seq, qp)]).to_local()
+
+    m = merged(scores.amax(-1, keepdim=True), "max")
+    e = torch.exp(scores - m)
+    total = merged(e.sum(-1, keepdim=True), "sum")
+    part = ((e / total).to(ql.dtype) @ vl.transpose(1, 2)).transpose(1, 2)
+    return _wrap(merged(part, "sum"), q, qp)
 
 
 # ------------------------------------------------------------------- MoE
@@ -214,9 +340,13 @@ def expert_capacity(T: int, E: int, top_k: int,
 def moe_ffn(x, router_w, ewg, ewu, ewd, *, top_k: int, act: str,
             capacity_factor: float = MOE_CAPACITY_FACTOR):
     """Top-k dispatch with fixed expert capacity (static shapes; overflow
-    entries are dropped).  x (B, S, D) → (B, S, D).  The reference's
-    default (global) dispatch: one queue per expert over all B·S tokens,
-    ``expert_capacity`` long.
+    entries are dropped).  x (B, S, D) → (B, S, D).  The ``moe_dispatch``
+    perf option picks the reference's dispatch: ``global``, one queue per
+    expert over all B·S tokens, ``expert_capacity`` long, or ``batched``
+    (``_moe_ffn_batched``).  ``shard_map`` runs ``batched``: on DTensors
+    that already runs on each rank's block with one sum over model
+    (``_moe_on_mesh``), the design of the reference's ``shard_map``
+    variant, and without a mesh the reference falls back to it too.
 
     The reference scatter-adds each (token, slot) into its (expert,
     position) row, dropped entries adding exact zeros into row cap − 1.
@@ -224,6 +354,19 @@ def moe_ffn(x, router_w, ewg, ewu, ewd, *, top_k: int, act: str,
     atomic, no order to depend on): the kept entries into theirs, the
     dropped ones into a spare row that is cut off.  The combine reads the
     same rows and the spare one (zeros) and weights them by the gate."""
+    dispatch = perf_option("moe_dispatch")
+    fn = _moe_ffn_global if dispatch == "global" else _moe_ffn_batched
+    if isinstance(x, DTensor):
+        return _moe_on_mesh(fn, x, router_w, ewg, ewu, ewd, top_k=top_k,
+                            act=act, capacity_factor=capacity_factor,
+                            per_sequence=dispatch != "global")
+    return fn(x, router_w, ewg, ewu, ewd, top_k=top_k, act=act,
+              capacity_factor=capacity_factor)
+
+
+def _moe_ffn_global(x, router_w, ewg, ewu, ewd, *, top_k: int, act: str,
+                    capacity_factor: float):
+    """The global dispatch on plain tensors (``moe_ffn``'s default)."""
     B, S, D = x.shape
     E = router_w.shape[-1]
     T = B * S
@@ -241,6 +384,84 @@ def moe_ffn(x, router_w, ewg, ewu, ewd, *, top_k: int, act: str,
     return out.reshape(T, top_k, D).sum(1).reshape(B, S, D)
 
 
+def batched_capacity(S: int, E: int, top_k: int,
+                     capacity_factor: float = MOE_CAPACITY_FACTOR) -> int:
+    """Each expert's queue length per sequence in the batched dispatch:
+    the reference's expression, a multiple of 16, at least 8."""
+    return max(8, -(-int(capacity_factor * top_k * S / E) // 16) * 16)
+
+
+def _moe_ffn_batched(x, router_w, ewg, ewu, ewd, *, top_k: int, act: str,
+                     capacity_factor: float):
+    """Per-sequence dispatch: every tensor keeps the batch dim (each
+    sequence's entries queue per expert, ``batched_capacity`` long), so a
+    batch-sharded input dispatches on its own shard.  The gate and up
+    projections run as one product against their concatenation, as the
+    reference fuses them.  Where the reference scatter-sets its token map
+    and lets every dropped entry of an overflowing expert also write slot
+    cap − 1 (its fault: the kept token there gets a dropped token's
+    row), the port writes dropped entries to a spare row, as ``moe_ffn``
+    does."""
+    B, S, D = x.shape
+    E = router_w.shape[-1]
+    k = top_k
+    gates, eidx = _route(x, router_w, k)                      # (B, S, k)
+    cap = batched_capacity(S, E, k, capacity_factor)
+    eflat = eidx.reshape(B, S * k)
+    pos = _positions_in_expert(eflat, E)                      # per sequence
+    rows = torch.where(pos < cap, eflat * cap + pos, E * cap)
+    src = x.repeat_interleave(k, dim=1)                       # (B, S·k, D)
+    buf = x.new_zeros(B, E * cap + 1, D).scatter(
+        1, rows[..., None].expand(-1, -1, D), src)
+    # the reference's constraint; the identity on the plain blocks that
+    # every rank dispatches here
+    buf = constrain_moe_buf(buf[:, :-1].reshape(B, E, cap, D))
+    a = activation(act)
+    dt = x.dtype
+    ff = ewg.shape[-1]
+    hu = buf @ torch.cat([ewg, ewu], -1).to(dt)               # (B,E,cap,2F)
+    y = (a(hu[..., :ff]) * hu[..., ff:]) @ ewd.to(dt)          # (B,E,cap,D)
+    y = torch.cat([y.reshape(B, E * cap, D), y.new_zeros(B, 1, D)], dim=1)
+    out = y.gather(1, rows[..., None].expand(-1, -1, D))
+    out = out * gates.reshape(B, S * k, 1)
+    return out.reshape(B, S, k, D).sum(2)
+
+
+def _moe_on_mesh(fn, x, router_w, ewg, ewu, ewd, *, top_k, act,
+                 capacity_factor, per_sequence):
+    """An MoE dispatch ``fn`` run by every rank on its own block: the
+    batch over the data axes (``per_sequence``; the global queue needs
+    every token, so without it each data rank runs the whole batch), the
+    expert ff over model where it divides, and one sum over model of the
+    (B, S, D) output.  Routing, queues and the expert products are local
+    tensor work."""
+    from torch.distributed.tensor import Partial
+    from .sharding_ctx import _SumOver, _as_dtensor, _replicated_as
+    mesh = x.device_mesh
+    names = mesh.mesh_dim_names
+    parts = mesh.mesh.shape[names.index("model")] if "model" in names else 1
+    ff_split = parts > 1 and ewg.shape[-1] % parts == 0
+    R = Replicate()
+    on = lambda data, model: [data if n in ("pod", "data") else model
+                              for n in names]
+    split = on(per_sequence, ff_split)     # where the work is cut
+    batch = Shard(0) if per_sequence else R
+    w_in, w_out = (Shard(2), Shard(1)) if ff_split else (R, R)
+    local = []
+    for t, place in ((x, on(batch, R)), (router_w, on(R, R)),
+                     (ewg, on(R, w_in)), (ewu, on(R, w_in)),
+                     (ewd, on(R, w_out))):
+        t = _replicated_as(t, x).redistribute(mesh, place)
+        # a block held whole where the work is cut gets a partial gradient
+        local.append(t.to_local(grad_placements=[
+            Partial() if cut and not isinstance(p, Shard) else p
+            for p, cut in zip(place, split)]))
+    y = fn(*local, top_k=top_k, act=act, capacity_factor=capacity_factor)
+    if ff_split:
+        y = _SumOver.apply(y, mesh, on(batch, Partial()))
+    return _as_dtensor(y, mesh, on(batch, R), x.shape)
+
+
 # ------------------------------------------------------------ layer body
 def is_local(cfg, i: int) -> bool:
     """Whether layer ``i`` attends through ``cfg.sliding_window``: every
@@ -255,31 +476,32 @@ def dense_layer(x, lp, cfg, *, cos, sin, rot, local, cache=None, pos=None,
     ``cache=(k, v)`` (B, Smax, KV, hd) → decode: this layer's K/V are
     written in place at ``pos`` (a 0-d device tensor) and attention runs
     over the whole cache."""
-    B, Sq, _ = x.shape
     norm = functools.partial(apply_norm, kind=cfg.norm,
                              plus_one=cfg.norm_plus_one)
     h = norm(x, lp["ln1"])
     q, k, v = h @ lp["wq"], h @ lp["wk"], h @ lp["wv"]
     if cfg.qkv_bias:
         q, k, v = q + lp["bq"], k + lp["bk"], v + lp["bv"]
-    q = apply_rope(q.reshape(B, Sq, cfg.n_heads, cfg.head_dim), cos, sin, rot)
-    k = apply_rope(k.reshape(B, Sq, cfg.n_kv, cfg.head_dim), cos, sin, rot)
-    v = v.reshape(B, Sq, cfg.n_kv, cfg.head_dim)
+    q = constrain_attn_q(split_heads(q, cfg.n_heads, cfg.head_dim))
+    k = constrain_heads(split_heads(k, cfg.n_kv, cfg.head_dim))
+    v = constrain_heads(split_heads(v, cfg.n_kv, cfg.head_dim))
+    q = apply_rope(q, cos, sin, rot)
+    k = apply_rope(k, cos, sin, rot)
     window = cfg.sliding_window if local else 0
     if cache is not None:
         ck, cv = cache
         at = pos.reshape(1)
-        ck.index_copy_(1, at, k)
-        cv.index_copy_(1, at, v)
+        write_at(ck, 1, at, k)
+        write_at(cv, 1, at, v)
         attn = decode_attn(q, ck, cv, pos, window=window,
                            attn_softcap=cfg.attn_softcap)
     else:
         attn = chunked_attention(q, k, v, window=window,
                                  attn_softcap=cfg.attn_softcap, chunk=chunk)
-    attn = attn.reshape(B, Sq, cfg.q_dim) @ lp["wo"]
+    attn = merge_heads(constrain_heads(attn)) @ lp["wo"]
     if cfg.post_block_norm:
         attn = norm(attn, lp["ln1_post"])
-    x = x + attn
+    x = constrain_hidden(x + attn)
 
     h = norm(x, lp["ln2"])
     if cfg.n_experts:
@@ -289,7 +511,7 @@ def dense_layer(x, lp, cfg, *, cos, sin, rot, local, cache=None, pos=None,
         f = gated_mlp(h, lp["wg"], lp["wu"], lp["wd"], act=cfg.act)
     if cfg.post_block_norm:
         f = norm(f, lp["ln2_post"])
-    return x + f
+    return constrain_hidden(x + f)
 
 
 # --------------------------------------------------------------- forward
@@ -301,12 +523,17 @@ def dense_forward(params, cfg, embeds, *, remat=True, chunk=1024):
                                 cfg.rope_base)
     stack = params["layers"]
     x = embeds
+    ctx = remat_context() if remat else None
     for i in range(stack["wq"].shape[0]):
         blk = functools.partial(dense_layer, cfg=cfg, cos=cos, sin=sin,
                                 rot=rot, local=is_local(cfg, i), chunk=chunk)
         lp = layer_params(stack, i)
-        x = (checkpoint(blk, x, lp, use_reentrant=False) if remat
-             else blk(x, lp))
+        if not remat:
+            x = blk(x, lp)
+        elif ctx is None:
+            x = checkpoint(blk, x, lp, use_reentrant=False)
+        else:
+            x = checkpoint(blk, x, lp, use_reentrant=False, context_fn=ctx)
     return apply_norm(x, params["final_norm"], cfg.norm, cfg.norm_plus_one)
 
 
@@ -355,7 +582,9 @@ def chunked_xent(x, embed, labels, *, logit_softcap=0.0, chunk=512,
     reference; each chunk's logits are the bf16 product widened to
     float32, soft-capped, masked past ``valid_vocab`` with ``NEG_INF``.
     The label term is a gather, which picks the same float32 as the
-    reference's one-hot contraction.  The mean is over B·S."""
+    reference's one-hot contraction; on vocab-sharded DTensor logits it is
+    that contraction (a select and a sum: each rank's partial sum, then
+    one reduction over model).  The mean is over B·S."""
     B, S, D = x.shape
     W = embed.T if lm_head is None else lm_head          # (D, V)
     V = W.shape[-1]
@@ -374,6 +603,11 @@ def chunked_xent(x, embed, labels, *, logit_softcap=0.0, chunk=512,
             pad = torch.arange(V, device=x.device) >= valid_vocab
             logits = logits.masked_fill(pad, NEG_INF)
         lse = torch.logsumexp(logits, dim=-1)
-        ll = torch.gather(logits, -1, labels[:, i:i + chunk, None])[..., 0]
+        lab = labels[:, i:i + chunk, None]
+        if isinstance(logits, DTensor):     # vocab-parallel: the one-hot sum
+            hit = torch.arange(V, device=x.device) == lab
+            ll = torch.where(hit, logits, 0.0).sum(-1)
+        else:
+            ll = torch.gather(logits, -1, lab)[..., 0]
         total = total + (lse - ll).sum()
     return total / (B * S)

@@ -15,6 +15,8 @@ from __future__ import annotations
 import functools
 
 from .common import apply_norm, layer_params, plain_mlp, run_layers
+from .sharding_ctx import (constrain_heads, embed_rows, merge_heads,
+                           split_heads, write_at)
 from .transformer import chunked_attention, decode_attn
 
 MAX_POS = 65536          # learned positional table size (structural)
@@ -66,22 +68,21 @@ def _mha(h, lp, prefix, cfg, *, kv_src=None, causal, cache=None, pos=None,
     this token's K/V are written in place at ``pos`` (a 0-d device
     tensor) and the query attends over slots ≤ ``pos``.  Returns (out,
     the cache or None)."""
-    B, Sq, D = h.shape
     src = h if kv_src is None else kv_src
-    q = (h @ lp[f"{prefix}wq"] + lp[f"{prefix}bq"]).reshape(
-        B, Sq, cfg.n_heads, cfg.head_dim)
-    k = (src @ lp[f"{prefix}wk"]).reshape(B, -1, cfg.n_kv, cfg.head_dim)
-    v = (src @ lp[f"{prefix}wv"] + lp[f"{prefix}bv"]).reshape(
-        B, -1, cfg.n_kv, cfg.head_dim)
+    q = split_heads(h @ lp[f"{prefix}wq"] + lp[f"{prefix}bq"], cfg.n_heads,
+                    cfg.head_dim)
+    k = split_heads(src @ lp[f"{prefix}wk"], cfg.n_kv, cfg.head_dim)
+    v = split_heads(src @ lp[f"{prefix}wv"] + lp[f"{prefix}bv"], cfg.n_kv,
+                    cfg.head_dim)
     if cache is not None:                        # decode self-attn
         ck, cv = cache
         at = pos.reshape(1)
-        ck.index_copy_(1, at, k)
-        cv.index_copy_(1, at, v)
+        write_at(ck, 1, at, k)
+        write_at(cv, 1, at, v)
         out = decode_attn(q, ck, cv, pos)
     else:
         out = chunked_attention(q, k, v, causal=causal, chunk=chunk)
-    out = out.reshape(B, Sq, cfg.q_dim)
+    out = merge_heads(constrain_heads(out))
     return out @ lp[f"{prefix}wo"] + lp[f"{prefix}bo"], cache
 
 
@@ -126,7 +127,7 @@ def whisper_decode_train(params, cfg, tokens, enc_states, *, remat=True,
     """tokens (B, St) against the encoder's states → the decoder's final
     hidden states (B, St, D)."""
     St = tokens.shape[1]
-    x = params["embed"][tokens] + params["pos_dec"][:St][None]
+    x = embed_rows(params["embed"], tokens) + params["pos_dec"][:St][None]
     blk = functools.partial(_dec_block, cfg=cfg, chunk=chunk)
     return _final(params, "dec_final",
                   run_layers(blk, x, params["dec"], remat, enc_states))
@@ -140,10 +141,9 @@ def whisper_decode_step(params, cfg, token, cache, pos):
     the cross-attention K/V, every slot live (nothing in the step fills
     them, as in the reference).  Returns (the final hidden state (B, 1,
     D), cache)."""
-    x = (params["embed"][token]
+    x = (embed_rows(params["embed"], token)
          + params["pos_dec"].index_select(0, pos.reshape(1))[None])
     stack = params["dec"]
-    B = x.shape[0]
     for i in range(stack["wq"].shape[0]):
         lp = layer_params(stack, i)
         h, _ = _mha(apply_norm(x, lp["ln1"], "layernorm"), lp, "", cfg,
@@ -151,11 +151,11 @@ def whisper_decode_step(params, cfg, token, cache, pos):
                     pos=pos)
         x = x + h
         # cross-attention against the cached encoder K/V (all slots live)
-        q = (apply_norm(x, lp["ln2"], "layernorm") @ lp["xwq"]
-             + lp["xbq"]).reshape(B, 1, cfg.n_heads, cfg.head_dim)
+        q = split_heads(apply_norm(x, lp["ln2"], "layernorm") @ lp["xwq"]
+                        + lp["xbq"], cfg.n_heads, cfg.head_dim)
         xk, xv = cache["xk"][i], cache["xv"][i]
         h = decode_attn(q, xk, xv, xk.shape[1] - 1)
-        x = x + (h.reshape(B, 1, cfg.q_dim) @ lp["xwo"] + lp["xbo"])
+        x = x + (merge_heads(constrain_heads(h)) @ lp["xwo"] + lp["xbo"])
         x = x + plain_mlp(apply_norm(x, lp["ln3"], "layernorm"),
                           lp["w1"], lp["b1"], lp["w2"], lp["b2"])
     return _final(params, "dec_final", x), cache

@@ -9,6 +9,15 @@ divides ``√v`` by ``√b2c`` and applies the decay first, so its
 trajectories drift from the reference's; it is not used.  Leaves are taken
 in ``jax.tree.leaves`` order (list items in turn, dict keys sorted at
 every level), which sets the global norm's summation order.
+
+Leaves may be DTensors (the LM mesh path, ``launch/steps.py``): the
+global norm is one norm over every shard (each leaf's sum of squares is
+reduced over the mesh), and each moment keeps its own placements, the
+parameter's or, under ZeRO-1, those with the data axis added.  The
+update runs on each rank's shard of the moments, the gradient and the
+parameter taken to the moments' placements; a ZeRO-1 parameter is then
+gathered back to its own placements.  Every element's arithmetic is the
+same either way, so ZeRO-1 gives the same bits.
 """
 from __future__ import annotations
 
@@ -16,6 +25,7 @@ from dataclasses import dataclass
 
 import numpy as np
 import torch
+from torch.distributed.tensor import DTensor
 
 
 def tree_leaves(tree) -> list:
@@ -53,7 +63,7 @@ class AdamWConfig:
 
 
 def adamw_init(params):
-    """Zero moments shaped like ``params`` and step 0."""
+    """Zero moments shaped (and placed) like ``params`` and step 0."""
     zeros = lambda p: torch.zeros_like(p, dtype=torch.float32)
     return {"m": tree_map(zeros, params), "v": tree_map(zeros, params),
             "step": 0}
@@ -87,7 +97,8 @@ def adamw_update(params, grads, state, cfg: AdamWConfig, *, inplace=False):
     # device: CUDA divides by a host scalar through its reciprocal, which
     # rounds differently from the reference's division
     one = np.float32(1.0)
-    device = tree_leaves(params)[0].device
+    first = tree_leaves(params)[0]
+    device = (first.to_local() if isinstance(first, DTensor) else first).device
     b1c, b2c = (torch.tensor(one - np.float32(b) ** np.float32(step),
                              device=device) for b in (cfg.b1, cfg.b2))
 
@@ -102,12 +113,28 @@ def adamw_update(params, grads, state, cfg: AdamWConfig, *, inplace=False):
                               + cfg.weight_decay * p32)
         return p32.to(p.dtype), m, v
 
-    def upd_(p, g, m, v):
+    def upd_local(p, g, m, v):
         for part in zip(*(t.view(-1).split(INPLACE_PIECE)
                           for t in (p, g, m, v))):
             new = upd(*part)
             for dst, src in zip(part[:1] + part[2:], new):
                 dst.copy_(src)
+
+    def upd_(p, g, m, v):
+        if not isinstance(p, DTensor):
+            upd_local(p, g, m, v)
+            return p, m, v
+        mesh, place = m.device_mesh, m.placements
+        g = g.redistribute(mesh, place).to_local().contiguous()
+        if p.placements == place:
+            upd_local(p.to_local(), g, m.to_local(), v.to_local())
+            return p, m, v
+        pz = p.redistribute(mesh, place)          # a local cut of p
+        pl = pz.to_local().contiguous()
+        upd_local(pl, g, m.to_local(), v.to_local())
+        new = DTensor.from_local(pl, mesh, place, run_check=False,
+                                 shape=p.shape, stride=p.stride())
+        p.to_local().copy_(new.redistribute(mesh, p.placements).to_local())
         return p, m, v
 
     out = tree_map(upd_ if inplace else upd, params, grads, state["m"],
