@@ -291,7 +291,7 @@ Runs from the root of a checkout and drives ``src/repro_torch`` only
     ``atol=0.15``, Whisper ``atol=0.2`` from the encoder-built
     cross-attention cache, as the reference's test builds it;
     ``rtol=0.05``).  Seconds by part printed.
-22. The LM mesh path (runs last; ``phase_mesh``) — 4 ranks share the
+22. The LM mesh path (after phase 21; ``phase_mesh``) — 4 ranks share the
     card on a (data=2, model=2) ``DeviceMesh`` over the ``staged``
     transport (``dist/staged.py``: gloo with each collective's CUDA
     operands staged through pinned host buffers; every kernel and every
@@ -312,13 +312,28 @@ Runs from the root of a checkout and drives ``src/repro_torch`` only
     temp bytes by the L ∈ {1, 2} extrapolation) beside phase 3's kernel
     grids, which time nothing: per-device GiB against the card's
     80 GB, the bottleneck and its seconds.
+23. scan dtype (runs last; ``phase_scan_dtype``) — the reference's
+    ``ssm_scan_dtype="bfloat16"`` perf option: A, dA and dBx rounded in
+    bf16, then scanned by the float32 kernel (its Pallas route).
+    Hymba-1.5B at full width and 2 layers: a prefill at B = 2, S = 2,048
+    whose every scan launch is held against the plain scan on its own
+    operands (``_scan_held``), each on bf16-valued dA/dBx, the logits
+    against the CPU port under the option within ``atol=0.2,
+    rtol=0.05``; captured decode (``generate``, batch 4, prompt 16, gen 8)
+    against eager under the option (tokens up to each row's first
+    near-tie, step logits within the same tolerance); one ``train_loss``
+    with its gradients at B = 2, S = 128 against the CPU port under the
+    option (loss ``rtol=1e-3``, each leaf 5e-2 relative L2), its 2 × 2
+    forward and 2 backward scans held; then the full config at B = 1,
+    S = 32,768 under the option, two timed runs after a warm-up and the
+    peak memory, beside phase 9's float32 runs of the same weights.
 Each main path (serving per model, each pass of each phase-15 service,
 training per model, each oracle search, each 131k baseline-comparison
 run, each distributed run on each rank, each dynamic batch's operators,
 the ``--mutate`` CLI run, each refresh case's SpMM on each rank, LM
 prefill, each decode run, the consistency forward, each phase-19
-training run, each phase-20 and phase-21 path and each phase-22 step on
-each rank) runs with the
+training run, each phase-20 and phase-21 path, each phase-22 step on
+each rank and each phase-23 run) runs with the
 launch counts set to 0 just before it and read just after.  A
 replayed graph adds the launches its capture recorded
 (``kernels/capture.py``).
@@ -4295,17 +4310,8 @@ def phase_lm_decode_graphs(device, *, batch=4, prompt_len=16, gen=32):
     torch.testing.assert_close(got[..., real], want[..., real],
                                atol=LOGITS_ATOL, rtol=LOGITS_RTOL)
     diff = float((got - want)[..., real].abs().max())
-    agree = np.full(batch, prompt_len + gen)
-    top2 = want[prompt_len - 1:, :, real].topk(2, dim=-1).values.cpu()
-    for i, t in enumerate(range(prompt_len - 1, steps)):
-        tie = (top2[i, :, 0] - top2[i, :, 1] <= TIE).numpy()
-        agree = np.where(tie, np.minimum(agree, t + 1), agree)
-    for b in range(batch):
-        check(torch.equal(captured[b, :agree[b]], eager[b, :agree[b]]),
-              f"row {b}: captured tokens differ from eager before the "
-              f"first near-tie (step {agree[b]})")
-    same_rows = int(sum(torch.equal(captured[b], eager[b])
-                        for b in range(batch)))
+    same_rows = _equal_to_near_tie(captured, eager, want[..., real],
+                                   prompt_len, "")
     dev = _decode_device(params, cfg, device, batch, prompt_len + gen)
     fmt = lambda xs: " / ".join(f"{x:.2f}" for x in xs)
     print(f"[lm decode graphs] {cfg.name}, {cfg.n_layers} layers, batch "
@@ -4323,6 +4329,25 @@ def phase_lm_decode_graphs(device, *, batch=4, prompt_len=16, gen=32):
     return {"ms_per_step_eager": ms[False], "ms_per_step_captured": ms[True],
             "steps": steps, "batch": batch, "rows_equal": same_rows,
             "logits_max_abs_diff": diff, **dev}
+
+
+def _equal_to_near_tie(captured, eager, want, P, tag):
+    """Check each row of the ``captured`` tokens (B, T) equal to
+    ``eager``'s up to its first near-tie: a step whose top-two eager
+    logits (``want``, (T − 1, B, V), teacher-forced along ``eager``) lie
+    within ``TIE``.  Returns the rows equal throughout."""
+    batch, T = eager.shape
+    agree = np.full(batch, T)
+    top2 = want[P - 1:].topk(2, dim=-1).values.cpu()
+    for i in range(top2.shape[0]):
+        tie = (top2[i, :, 0] - top2[i, :, 1] <= TIE).numpy()
+        agree = np.where(tie, np.minimum(agree, P + i), agree)
+    for b in range(batch):
+        check(torch.equal(captured[b, :agree[b]], eager[b, :agree[b]]),
+              f"{tag}row {b}: captured tokens differ from eager before "
+              f"the first near-tie (step {agree[b]})")
+    return int(sum(torch.equal(captured[b], eager[b])
+                   for b in range(batch)))
 
 
 def _scan_bound(shape):
@@ -6442,6 +6467,189 @@ def phase_mesh(device, rec):
             "dryrun": rec}, launches
 
 
+# ------------------------------------------------- phase 23: scan dtype
+SCAN_DTYPE_LAYERS = 2           # 1 SWA + 1 global at full width
+SCAN_DTYPE_PREFILL = (2, 2048)
+SCAN_DTYPE_TRAIN = (2, 128)
+SCAN_DTYPE_DECODE = (4, 16, 8)  # batch, prompt, gen
+
+
+@contextlib.contextmanager
+def _scan_dtype(dtype):
+    """The ``ssm_scan_dtype`` perf option set for the block."""
+    from repro_torch.models.common import (reset_perf_options,
+                                           set_perf_options)
+    set_perf_options(ssm_scan_dtype=dtype)
+    try:
+        yield
+    finally:
+        reset_perf_options()
+
+
+def _bf16_valued(seen):
+    """The branch's ``selective_scan`` (the kernel's wrapper), noting for
+    each call whether dA and dBx hold bf16 values: the option reached the
+    kernel's operands."""
+    def fn(dA, dBx, C):
+        seen.append(all(torch.equal(t.to(torch.bfloat16).float(), t)
+                        for t in (dA, dBx)))
+        return scan.selective_scan(dA, dBx, C)
+    return fn
+
+
+def _captured_equals_eager(cfg, params, device):
+    """``generate`` eager and captured under the option (it is set before
+    the capture): tokens equal up to each row's first near-tie, the step
+    logits teacher-forced along the eager tokens within ``LOGITS_ATOL`` /
+    ``LOGITS_RTOL``; no scan launch.  Returns (rows equal, max |Δ|,
+    bit-equal)."""
+    batch, P, gen = SCAN_DTYPE_DECODE
+    prompt = np.random.default_rng(2).integers(0, cfg.vocab, (batch, P))
+    seqs = {}
+    for graphs in (False, True):
+        seqs[graphs], n = _main_path(lambda: generate(
+            cfg, params, prompt, P + gen, gen, device=device, graphs=graphs))
+        check(n == 0, f"[scan dtype] decode launched the scan {n} times")
+    eager, captured = seqs[False], seqs[True]
+    want = _step_logits(params, cfg, eager, P, device, False)
+    got = _step_logits(params, cfg, eager, P, device, True)
+    real = slice(0, cfg.vocab)
+    torch.testing.assert_close(got[..., real], want[..., real],
+                               atol=LOGITS_ATOL, rtol=LOGITS_RTOL)
+    return (_equal_to_near_tie(captured, eager, want[..., real], P,
+                               "[scan dtype] "),
+            float((got - want)[..., real].abs().max()),
+            bool(torch.equal(got, want)))
+
+
+def phase_scan_dtype(device, prefill_row):
+    """Phase 23 [scan dtype]: the ``ssm_scan_dtype="bfloat16"`` perf
+    option on the main path (A, dA and dBx rounded in bf16, scanned by
+    the float32 kernel).  Hymba-1.5B at full width and
+    ``SCAN_DTYPE_LAYERS`` layers: a prefill at B = 2, S = 2048 with every
+    scan launch held against the plain scan on its own operands
+    (``_scan_held``) and those operands bf16-valued, the logits against
+    the CPU port under the option within ``LOGITS_ATOL`` /
+    ``LOGITS_RTOL``; captured decode against eager under the option; one
+    ``train_loss`` and its gradients at B = 2, S = 128 against the CPU
+    port under the option (loss ``TRAIN_LOSS_RTOL``, each leaf
+    ``TRAIN_GRAD_REL_L2``), its scans held.  Then the full config at
+    B = 1, S = 32768 under the option, a warm-up and two timed runs, and
+    its peak memory, beside phase 9's float32 runs of the same weights
+    and tokens (``prefill_row``).  Returns (row, scan launches: forward,
+    backward)."""
+    from repro_torch.launch.train import device_batch
+    from repro_torch.optim.adamw import tree_map
+    cpu = torch.device("cpu")
+    cfg = get_config("hymba-1.5b").replace(n_layers=SCAN_DTYPE_LAYERS,
+                                           n_global_layers=1)
+    V, L = cfg.vocab, cfg.n_layers
+    held, seen, launches = {}, [], [0, 0]
+    cpu_params = _hymba_params(cfg, cpu, seed=13)
+    params = tree_map(lambda t: t.to(device), cpu_params)
+    tokens = _tokens(cfg, *SCAN_DTYPE_PREFILL, cpu, seed=14)
+    batch = {"tokens": tokens.to(device)}
+    with _scan_dtype("bfloat16"):
+        with _scan_held(held, "prefill"):
+            logits, n_prefill = _with_scan(_bf16_valued(seen),
+                                           lambda: _main_path(
+                lambda: lm.prefill(params, cfg, batch)))
+        check(n_prefill == L and held["prefill"]["forward"] == L
+              and len(seen) == L and all(seen), f"[scan dtype] prefill: "
+              f"{n_prefill} launches, {held['prefill']['forward']} held, "
+              f"bf16-valued operands {seen}; want {L} of each")
+        launches[0] += n_prefill
+        want = lm.prefill(cpu_params, cfg, {"tokens": tokens})
+        mixed = _captured_equals_eager(cfg, params, device)
+    f32 = lm.prefill(params, cfg, batch)           # the default, printed
+    got = logits.cpu()[..., :V]
+    torch.testing.assert_close(got, want[..., :V], atol=LOGITS_ATOL,
+                               rtol=LOGITS_RTOL)
+    vs_cpu = float((got - want[..., :V]).abs().max())
+    vs_f32 = float((logits - f32)[..., :V].abs().max())
+    print(f"[scan dtype] {cfg.name} full width, {L} layers, bf16 scan "
+          f"operands, prefill B={SCAN_DTYPE_PREFILL[0]} "
+          f"S={SCAN_DTYPE_PREFILL[1]}: {n_prefill} scan launches, each on "
+          "bf16-valued dA/dBx; " + _held_line("held", held["prefill"])
+          + f"; logits vs the CPU port under the option max |Δ| "
+          f"{vs_cpu:.4f} (held at atol={LOGITS_ATOL}, rtol={LOGITS_RTOL}); "
+          f"vs the card's float32 option {vs_f32:.4f} (printed)")
+    print(f"[scan dtype] captured decode under the option (batch "
+          f"{SCAN_DTYPE_DECODE[0]}, prompt {SCAN_DTYPE_DECODE[1]}, gen "
+          f"{SCAN_DTYPE_DECODE[2]}): rows equal to eager {mixed[0]}/"
+          f"{SCAN_DTYPE_DECODE[0]}, step logits max |Δ| {mixed[1]:.3e} "
+          f"(bit-equal: {mixed[2]}); no scan launch")
+    del params
+
+    tcpu = _train_params(cfg, seed=11)
+    tcard = tree_map(lambda t: t.to(device), tcpu)
+    with _scan_dtype("bfloat16"):
+        loss_cpu, g_cpu = _loss_grads(cfg, tcpu, device_batch(
+            cfg, *SCAN_DTYPE_TRAIN, 0, 0, cpu))
+        with _scan_held(held, "train"):
+            (loss, g), _ = _main_path(lambda: _loss_grads(
+                cfg, tcard, device_batch(cfg, *SCAN_DTYPE_TRAIN, 0, 0,
+                                         device)))
+            fb = [scan.launch_count("forward"),
+                  scan.launch_count("backward")]
+    check(fb == [2 * L, L] and [held["train"]["forward"],
+                                held["train"]["backward"]] == fb,
+          f"[scan dtype] train_loss launched {fb} scans, held "
+          f"{held['train']}; want {2 * L} forward (the remat recomputes) "
+          f"and {L} backward")
+    launches = [launches[0] + fb[0], fb[1]]
+    errs = _rel_l2(g, g_cpu)
+    worst = _leaf_names(tcpu)[int(np.argmax(errs))]
+    check(abs(loss - loss_cpu) <= TRAIN_LOSS_RTOL * abs(loss_cpu),
+          f"[scan dtype] train_loss card {loss} vs CPU {loss_cpu}")
+    check(max(errs) <= TRAIN_GRAD_REL_L2, f"[scan dtype] gradient leaves "
+          f"off by up to {max(errs):.3e} relative L2 ({worst})")
+    print(f"[scan dtype] train_loss B={SCAN_DTYPE_TRAIN[0]} "
+          f"S={SCAN_DTYPE_TRAIN[1]} under the option, card vs CPU: loss "
+          f"{loss:.6f} vs {loss_cpu:.6f} (held at rtol={TRAIN_LOSS_RTOL}); "
+          f"largest gradient relative L2 {max(errs):.3e} ({worst}; held at "
+          f"{TRAIN_GRAD_REL_L2}); scan launches {fb[0]} forward + {fb[1]} "
+          "backward; " + _held_line("held", held["train"]))
+    del tcard, tcpu
+
+    full = get_config("hymba-1.5b")
+    params = _hymba_params(full, device, seed=0)       # phase 9's
+    S = prefill_row["long_seq_len"]
+    long_batch = {"tokens": _tokens(full, 1, S, device, seed=2)}
+    torch.cuda.empty_cache()
+    times = []
+    with _scan_dtype("bfloat16"):
+        lm.prefill(params, full, long_batch)           # warm-up
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(device)
+        for _ in range(2):
+            t0 = time.perf_counter()
+            out, n = _main_path(lambda: lm.prefill(params, full, long_batch))
+            times.append((time.perf_counter() - t0) * 1e3)
+            check(n == full.n_layers and bool(torch.isfinite(
+                out[..., :V]).all()), f"[scan dtype] 32k prefill: {n} "
+                "launches")
+            launches[0] += n
+    peak = torch.cuda.max_memory_allocated(device)
+    f32_ms, f32_peak = prefill_row["long_ms"], prefill_row["long_peak_bytes"]
+    fmt = lambda xs: " / ".join(f"{x:.1f}" for x in xs)
+    print(f"[scan dtype] {full.name} full config, B=1 S={S}: bf16 scan "
+          f"operands {fmt(times)} ms, peak {peak / 2**30:.2f} GiB; phase "
+          f"9's float32 runs of the same weights and tokens {fmt(f32_ms)} "
+          f"ms, peak {f32_peak / 2**30:.2f} GiB (no claim)")
+    del params
+    torch.cuda.empty_cache()
+    return {"layers": L, "prefill_launches": n_prefill, "held": held,
+            "bf16_valued_operands": seen, "logits_vs_cpu_max_abs": vs_cpu,
+            "logits_vs_float32_max_abs": vs_f32,
+            "decode_rows_equal": mixed[0], "decode_max_abs": mixed[1],
+            "decode_bit_equal": mixed[2], "loss_card": loss,
+            "loss_cpu": loss_cpu, "grad_max_rel_l2": max(errs),
+            "long_seq_len": S, "long_ms": times, "long_peak_bytes": peak,
+            "float32_long_ms": f32_ms, "float32_long_peak_bytes": f32_peak,
+            "train_launches": fb}, launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script needs an "
@@ -6609,6 +6817,10 @@ def main() -> int:
     mesh_json, mesh_launches = phase_mesh(device, dry_rec)
     print(f"[mesh] phase 22 in {time.perf_counter() - t0:.1f} s")
     print("[mesh json] " + json.dumps(mesh_json))
+    t0 = time.perf_counter()
+    dtype_row, dtype_launches = phase_scan_dtype(device, prefill_row)
+    print(f"[scan dtype] phase 23 in {time.perf_counter() - t0:.1f} s")
+    print("[scan dtype json] " + json.dumps(dtype_row))
     print("[lm json] " + json.dumps({"prefill": prefill_row,
                                      "decode": decode_row,
                                      "decode_graphs": decode_graph_row,
@@ -6708,9 +6920,11 @@ def main() -> int:
         "source": "src/repro_torch/csrc/selective_scan.cu",
         "replaces": "src/repro/kernels/selective_scan/kernel.py:46",
         "launches": prefill_launches + consist_launches
-        + decode_row["launches"] + lm_train_launches[0] + mesh_launches[0],
+        + decode_row["launches"] + lm_train_launches[0] + mesh_launches[0]
+        + dtype_launches[0],
         "launches_by_path": {"prefill": prefill_launches,
                              "mesh_all_ranks": mesh_launches[0],
+                             "scan_dtype_bf16": dtype_launches[0],
                              "consistency_forward": consist_launches,
                              "decode": decode_row["launches"],
                              "decode_captured_and_eager": 0,
@@ -6733,8 +6947,10 @@ def main() -> int:
         "replaces_note": "the gradient of the scan, which the reference "
                          "takes by XLA autodiff of src/repro/models/ssm.py:"
                          "82-86; its Pallas kernel has no backward",
-        "launches": lm_train_launches[1] + mesh_launches[1],
+        "launches": lm_train_launches[1] + mesh_launches[1]
+        + dtype_launches[1],
         "launches_by_path": {"mesh_all_ranks": mesh_launches[1],
+                             "scan_dtype_bf16": dtype_launches[1],
                              **{f"training_{k}": v[1] for k, v in
                                 lm_train["launches_by_path"].items()},
                              "training_held_against_plain": sum(

@@ -335,7 +335,7 @@ def main(argv=None):
     ap.add_argument("--opt", action="append", default=[],
                     help="perf option key=value (zero1=true, "
                          "moe_dispatch=batched, remat_policy=dots, "
-                         "shard_cache_seq=true)")
+                         "ssm_scan_dtype=bfloat16, shard_cache_seq=true)")
     args = ap.parse_args(argv)
 
     opts = {}

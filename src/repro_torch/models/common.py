@@ -3,11 +3,13 @@ with float32 islands, as the JAX package computes them), the next-token
 loss, and the perf-option registry.
 
 The perf options (``PERF_DEFAULTS``, ``set_perf_options``) carry the
-reference's keys and defaults; a value the port cannot honour raises
-(``set_perf_options``).  ``ssm_backend`` keeps the port's deviation: the
-device picks the scan kernel or its plain version (``models/ssm.py``),
-so it takes only its default, ``"xla"``, and ``"pallas"`` raises.  The
-cost mode
+reference's keys, defaults and values; a key or value the reference does
+not have raises (``set_perf_options``).  ``ssm_scan_dtype="bfloat16"``
+rounds the scan's operands in bf16 and scans them in float32, as the
+reference's Pallas route does (``models/ssm.py``).  ``ssm_backend``
+keeps the port's deviation: the device picks the scan kernel or its
+plain version (``models/ssm.py``), so it takes only its default,
+``"xla"``, and ``"pallas"`` raises.  The cost mode
 (``set_cost_mode``) is on while ``launch/dryrun.py`` counts a step; the
 port loops over layers in Python (``layer_params`` gives each layer's
 views), so it has no scan to unroll, and the mode only routes the
@@ -42,7 +44,7 @@ def cost_mode() -> bool:
 # port honours is listed, and ``set_perf_options`` raises on any other.
 PERF_DEFAULTS = {
     "moe_dispatch": "global",      # global cumsum | "batched" | "shard_map"
-    "ssm_scan_dtype": "float32",   # mamba recurrence precision
+    "ssm_scan_dtype": "float32",   # dtype of the scan operands A, dA, dBx
     "remat_policy": "full",        # full recompute | "dots" | "dots_nb"
     "seq_parallel": False,         # Megatron SP residual activations
     "bf16_norm_grad": False,       # bf16 dx cotangent through RMSNorm
@@ -50,7 +52,7 @@ PERF_DEFAULTS = {
 }
 PERF_VALUES = {
     "moe_dispatch": ("global", "batched", "shard_map"),
-    "ssm_scan_dtype": ("float32",),
+    "ssm_scan_dtype": ("float32", "bfloat16"),
     "remat_policy": ("full", "dots", "dots_nb"),
     "seq_parallel": (False, True),
     "bf16_norm_grad": (False, True),
@@ -60,20 +62,16 @@ _PERF = dict(PERF_DEFAULTS)
 
 
 def set_perf_options(**kw):
-    """Set perf options (``None`` leaves one as it is).  An unknown key or
-    a value the port cannot honour raises; ``ssm_scan_dtype="bfloat16"``
-    raises ``NotImplementedError``: the CUDA scan is float32 only, and so
-    does ``ssm_backend="pallas"``: the device picks the scan."""
+    """Set perf options (``None`` leaves one as it is).  An unknown key
+    raises ``KeyError``; a value the reference does not have raises
+    ``NotImplementedError``, and so does ``ssm_backend="pallas"``: the
+    device picks the scan."""
     for k, v in kw.items():
         if v is None:
             continue
         if k not in PERF_VALUES:
             raise KeyError(f"unknown perf option {k!r}; known: "
                            f"{sorted(PERF_VALUES)}")
-        if k == "ssm_scan_dtype" and v == "bfloat16":
-            raise NotImplementedError(
-                "ssm_scan_dtype='bfloat16' needs a bf16 selective-scan "
-                "kernel; the port's CUDA scan is float32 only")
         if k == "ssm_backend" and v != "xla":
             raise NotImplementedError(
                 f"ssm_backend={v!r}: the port has no backend choice; the "

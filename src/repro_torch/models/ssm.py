@@ -7,13 +7,18 @@ its CUDA kernel on the card, its plain version on the CPU.  The JAX
 package picks between an XLA associative scan and its Pallas kernel with
 the ``ssm_backend`` perf option; both compute the same function, so the
 device picks here, and the option takes only ``"xla"`` (``"pallas"``
-raises).  ``ssm_scan_dtype`` is
-float32 only (``set_perf_options`` raises on ``bfloat16``: the CUDA scan
-has no bf16 kernel).  On a mesh the scan's operands are pinned to batch
-over data and Di over model (``sharding_ctx.constrain_scan``), so each
-rank launches the kernel on its own block; the input projection's output
-is first gathered whole over model (``constrain_whole``), since it is
-split into x and the gate along its model-sharded feature dim.  RWKV's
+raises).  The ``ssm_scan_dtype`` option (float32 or bfloat16) is the
+dtype A, dA and dBx are built and rounded in, as the reference builds
+them; the recurrence itself runs in float32 either way, on the operands
+cast back: the reference's Pallas route, which casts them to float32
+before its float32 kernel (its default XLA route combines them in the
+option's dtype instead).  Decode casts the step's dA and dBx to float32
+as the reference does, and the state stays float32.  On a mesh the
+scan's operands are pinned to batch over data and Di over model
+(``sharding_ctx.constrain_scan``), so each rank launches the kernel on
+its own block; the input projection's output is first gathered whole
+over model (``constrain_whole``), since it is split into x and the gate
+along its model-sharded feature dim.  RWKV's
 recurrence is a loop over time in plain PyTorch (the reference's
 ``lax.scan``; no Pallas kernel there); on a mesh each rank runs it on
 its own (batch, heads) block (``sharding_ctx.per_rank``).  Decode is a
@@ -25,7 +30,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels.selective_scan import selective_scan
-from .common import apply_norm
+from .common import apply_norm, perf_option
 from .sharding_ctx import (constrain_ff, constrain_scan, constrain_whole,
                            pad_seq, per_rank)
 
@@ -76,18 +81,22 @@ def mamba_branch(x, lp, cfg, *, conv_state=None, ssm_state=None):
                                  @ lp["dt_proj"] + lp["dt_b"]))  # (B,S,Di)
     bc = constrain_whole(xi @ lp["bc_w"])
     Bm, Cm = bc[..., :N], bc[..., N:]                        # (B, S, N)
-    A = -torch.exp(lp["a_log"].float())                      # (Di, N)
-    dt32, dtx32 = dt.float(), (dt * xi).float()
+    # A, dA and dBx rounded in the scan dtype (the identity in float32),
+    # each cast to float32 as soon as it is built, so that no bf16
+    # operand outlives its float32 copy
+    sdt = getattr(torch, perf_option("ssm_scan_dtype"))
+    A = (-torch.exp(lp["a_log"].float())).to(sdt)            # (Di, N)
+    dts, dtxs, Bs = dt.to(sdt), (dt * xi).to(sdt), Bm.to(sdt)
     if decode:
-        dA = torch.exp(dt32[:, 0, :, None] * A)              # (B, Di, N)
-        dBx = dtx32[:, 0, :, None] * Bm.float()[:, 0, None, :]
+        dA = torch.exp(dts[:, 0, :, None] * A).float()       # (B, Di, N)
+        dBx = (dtxs[:, 0, :, None] * Bs[:, 0, None, :]).float()
         h = dA * ssm_state + dBx
         y = (h * Cm.float()[:, 0, None, :]).sum(-1)[:, None]
     else:
         # built directly in the scan's (B, S, N, Di) layout: the same
         # products as the reference's (B, S, Di, N) ones and its transpose
-        dA = (dt32[:, :, None, :] * A.T).exp_()   # in place: S·N·Di f32
-        dBx = dtx32[:, :, None, :] * Bm.float()[..., None]
+        dA = (dts[:, :, None, :] * A.T).exp_().float()   # exp in place
+        dBx = (dtxs[:, :, None, :] * Bs[..., None]).float()
         y = selective_scan(*constrain_scan(dA, dBx, Cm.float()))
     y = y.to(x.dtype) + xi * lp["d_skip"]
     y = (y * F.silu(z)) @ lp["out_proj"]

@@ -9,6 +9,9 @@ against the JAX package's.
   ``compile_cell(...).memory_analysis().argument_size_in_bytes`` over 16
   forced host devices (a subprocess), and a fake-process-group run of
   each cell (another subprocess) counts FLOPs, bytes and collectives.
+* ``--opt ssm_scan_dtype=bfloat16`` runs hymba's train_4k cell (reduced
+  config, 256 fake ranks) through the CLI, and on the 4×4 cell its
+  argument bytes equal the reference's under the same option.
 * ``report.py`` turns a record into the reference's table rows.
 """
 import dataclasses
@@ -116,9 +119,11 @@ REF_SCRIPT = textwrap.dedent('''
     from repro.models import sharding_ctx
     mesh = jax.make_mesh((4, 4), ("data", "model"), **_axis_type_kwargs(2))
     out = {}
-    for arch in sys.argv[2:]:
+    opts = json.loads(sys.argv[2])
+    for arch in sys.argv[3:]:
         cell = ShapeCell(*json.loads(sys.argv[1]))
-        ma = compile_cell(get_reduced(arch), cell, mesh).memory_analysis()
+        ma = compile_cell(get_reduced(arch), cell, mesh,
+                          opts=opts).memory_analysis()
         out[arch] = int(ma.argument_size_in_bytes)
         sharding_ctx.set_mesh(None)
     print(json.dumps(out))
@@ -149,11 +154,17 @@ def subprocess_runs():
                XLA_FLAGS="--xla_force_host_platform_device_count=16 "
                          "--xla_cpu_multi_thread_eigen=false "
                          "intra_op_parallelism_threads=1")
-    args = [json.dumps(CELL), *ARCHS]
+    return _run_scripts(env, (REF_SCRIPT, [json.dumps(CELL), "{}", *ARCHS]),
+                        (FAKE_SCRIPT, [json.dumps(CELL), *ARCHS]))
+
+
+def _run_scripts(env, *scripts):
+    """Each (script, argv) in a subprocess, side by side: the JSON of each
+    one's last line of output."""
     procs = [subprocess.Popen([sys.executable, "-c", script, *args], env=env,
                               stdout=subprocess.PIPE,
                               stderr=subprocess.PIPE, text=True)
-             for script in (REF_SCRIPT, FAKE_SCRIPT)]
+             for script, args in scripts]
     outs = []
     try:
         for p in procs:
@@ -188,6 +199,55 @@ def test_fake_run_counts_per_rank(subprocess_runs, arch):
     assert share < cost["flops"] < 2.5 * share
     assert cost["bytes"] > fake[arch]["arg_bytes"]
     assert cost["coll::all-reduce::n"] > 0 and cost["temp_bytes"] > 0
+
+
+# the port's dry-run CLI on hymba's train_4k cell of the single pod (256
+# fake ranks) under the option, at the reduced config (a full-size
+# config is not traced in these tests), and its fake run on CELL at 4×4
+FAKE_OPT_SCRIPT = textwrap.dedent('''
+    import json, os, sys
+    from repro_torch.configs import get_reduced
+    from repro_torch.configs.base import ShapeCell
+    from repro_torch.launch import dryrun
+    arch, out_dir, opt = sys.argv[2], sys.argv[3], sys.argv[4]
+    dryrun.get_config = get_reduced
+    dryrun.main(["--arch", arch, "--shape", "train_4k", "--mesh", "single",
+                 "--opt", opt, "--out", out_dir])
+    with open(os.path.join(out_dir, arch + "_train_4k_single.json")) as f:
+        rec = json.load(f)
+    mesh = dryrun.fake_mesh({"data": 4, "model": 4}, "cpu")
+    k, v = opt.split("=")
+    cfg, cell = get_reduced(arch), ShapeCell(*json.loads(sys.argv[1]))
+    flat = dryrun.run_step(cfg, cell, mesh, opts={k: v})
+    print(json.dumps({"record": rec, "cost": flat, "arg_bytes":
+                      dryrun.arg_bytes(cfg, cell, mesh, opts={k: v})}))
+''')
+
+
+def test_scan_dtype_option_runs_and_keeps_arg_bytes(tmp_path):
+    """``--opt ssm_scan_dtype=bfloat16``: the CLI runs hymba's train_4k
+    cell of the single pod (reduced config) and records the option; its
+    argument bytes are the cell's without the option, and on CELL at 4×4
+    the fake run's equal the reference's ``compile_cell`` under the same
+    option (the option changes no argument)."""
+    from repro_torch.configs.base import SHAPES
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), JAX_PLATFORMS="cpu",
+               OMP_NUM_THREADS="1",
+               XLA_FLAGS="--xla_force_host_platform_device_count=16 "
+                         "--xla_cpu_multi_thread_eigen=false "
+                         "intra_op_parallelism_threads=1")
+    opt = {"ssm_scan_dtype": "bfloat16"}
+    reference, port = _run_scripts(
+        env, (REF_SCRIPT, [json.dumps(CELL), json.dumps(opt), "hymba-1.5b"]),
+        (FAKE_OPT_SCRIPT, [json.dumps(CELL), "hymba-1.5b", str(tmp_path),
+                           "ssm_scan_dtype=bfloat16"]))
+    rec, cfg = port["record"], get_reduced("hymba-1.5b")
+    assert rec["ok"] and rec["opts"] == opt and rec["n_devices"] == 256
+    assert rec["flops"] > 0 and rec["temp_bytes"] > 0
+    assert rec["arg_bytes"] == tdry.arg_bytes(cfg, SHAPES["train_4k"],
+                                              tdry.MESHES["single"])
+    assert port["arg_bytes"] == reference["hymba-1.5b"]
+    assert port["cost"]["flops"] > 0
 
 
 def _record():

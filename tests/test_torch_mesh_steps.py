@@ -7,7 +7,9 @@ and the JAX package's ``steps.jit_*`` on ``make_host_mesh(2)``.
   Each rank runs, for reduced hymba, chatglm3, granite-moe (dispatch
   ``global`` and ``batched``), rwkv6 and whisper, one train step, a
   prefill and 2 decode steps, sharded and unsharded, on the same weights
-  and batch (made from a seed with numpy).
+  and batch (made from a seed with numpy); and hymba's train step and
+  prefill again under ``ssm_scan_dtype="bfloat16"``, sharded against
+  unsharded.
 * The reference runs the same steps on the same numpy weights in two
   subprocesses (half the cases each) over 4 forced host devices, beside
   the ranks; the port's ``batched`` dispatch is held against the
@@ -215,12 +217,68 @@ def _seq_sharded_decode(flat, np_batch):
     return out
 
 
+def _scan_dtype_case(flat, np_batch):
+    """Hymba under ``ssm_scan_dtype="bfloat16"``: one unclipped train step
+    and a prefill on the (data=2, model=2) mesh and unsharded, and the
+    scan's (B, S, N, Di) blocks and dtypes as each rank's custom op got
+    them."""
+    from repro_torch.configs import get_reduced
+    from repro_torch.configs.base import ShapeCell
+    from repro_torch.kernels.selective_scan import ops
+    from repro_torch.launch import mesh as M, sharding as sh, steps
+    from repro_torch.launch.train import build_step
+    from repro_torch.models import common, lm
+    from repro_torch.optim import AdamWConfig, adamw_init
+    from repro_torch.optim.adamw import tree_map
+    cfg = get_reduced("hymba-1.5b")
+    mesh = M.make_host_mesh(2, device_type="cpu")
+    bspec = lm.input_specs(cfg, ShapeCell("t", S, B, "train"))
+    batch = _batch(cfg, np_batch)
+    params = _tree(flat, cfg)
+    unclipped = AdamWConfig(lr=1e-4, grad_clip=0.0)
+    out, blocks = {}, set()
+    forward = ops._forward
+
+    def seen(dA, dBx, C, keep_states):
+        blocks.add((tuple(dA.shape), str(dA.dtype), str(dBx.dtype)))
+        return forward(dA, dBx, C, keep_states)
+
+    common.reset_perf_options()
+    common.set_perf_options(ssm_scan_dtype="bfloat16")
+    try:
+        p1 = tree_map(lambda t: t.clone(), params)
+        st = adamw_init(p1)
+        _, st, _, loss = build_step(cfg, unclipped, donate=True)(
+            p1, st, None, batch)
+        with torch.no_grad():
+            want = lm.prefill(params, cfg, batch)
+        out["plain"] = {"loss": float(loss), "m": _np_tree(st["m"]),
+                        "prefill": want.float().numpy()}
+        ops._forward = seen
+        dp = sh.distribute_params(params, cfg, mesh)
+        db = sh.distribute(batch, sh.batch_placements(bspec, mesh), mesh)
+        ost = steps.init_opt_state(cfg, mesh)
+        _, ost, dl = steps.sharded_train_step(cfg, mesh, unclipped)(dp, ost,
+                                                                    db)
+        dp = sh.distribute_params(params, cfg, mesh)
+        got = steps.sharded_prefill_step(cfg, mesh)(dp, db).full_tensor()
+        out["mesh"] = {"loss": float(dl.full_tensor()),
+                       "m": _np_tree(sh.full_tree(ost["m"])),
+                       "prefill": got.numpy()}
+    finally:
+        ops._forward = forward
+        common.reset_perf_options()
+    out["blocks"] = sorted(blocks)
+    return out
+
+
 def _rank_main(inputs_path):
     from repro_torch.dist import staged
     with open(inputs_path, "rb") as f:
         inputs = pickle.load(f)
     out = {_name(a, d): _run_case(a, d, *inputs[a]) for a, d in CASES}
     out["seq_decode"] = _seq_sharded_decode(*inputs["hymba-1.5b"])
+    out["scan_dtype"] = _scan_dtype_case(*inputs["hymba-1.5b"])
     out["transport"] = staged.stats()
     return out
 
@@ -451,6 +509,30 @@ def test_seq_sharded_decode_writes_and_merges(runs):
     assert max(r["cache"].values()) < 5e-2, r["cache"]
 
 
+def test_scan_dtype_bf16_mesh_matches_unsharded(runs):
+    """``ssm_scan_dtype="bfloat16"`` on the mesh: the train step's loss,
+    gradient norm and every leaf, and the prefill logits, against the
+    unsharded port under the same option at this file's tolerances; each
+    rank's scan ran on its own (B/2, S, N, Di/2) block of float32
+    operands (the cast comes before the custom op)."""
+    from repro_torch.configs import get_reduced
+    _, ranks, _ = runs
+    r = ranks[0]["scan_dtype"]
+    got, want = r["mesh"], r["plain"]
+    np.testing.assert_allclose(got["loss"], want["loss"], rtol=LOSS_RTOL)
+    np.testing.assert_allclose(_global_norm(got["m"]),
+                               _global_norm(want["m"]), rtol=NORM_RTOL)
+    w = dict(_leaves(want["m"]))
+    for name, g in _leaves(got["m"]):
+        assert _rel_l2(g, w[name]) < GRAD_REL_L2, name
+    np.testing.assert_allclose(got["prefill"], want["prefill"], **MODEL_TOL)
+    cfg = get_reduced("hymba-1.5b")
+    block = (B // 2, S, cfg.ssm_state, cfg.ssm_expand * cfg.d_model // 2)
+    for rank in ranks:
+        assert rank["scan_dtype"]["blocks"] == [
+            (block, "torch.float32", "torch.float32")]
+
+
 def test_transport_carried_the_collectives(runs):
     """The staged transport ran the mesh's collectives on every rank."""
     _, ranks, _ = runs
@@ -533,8 +615,9 @@ def test_batched_capacity_is_the_reference_s():
 
 def test_unported_perf_options_raise():
     from repro_torch.models import common
-    with pytest.raises(NotImplementedError, match="bf16"):
-        common.set_perf_options(ssm_scan_dtype="bfloat16")
+    common.set_perf_options(ssm_scan_dtype="bfloat16")   # the reference's
+    assert common.perf_option("ssm_scan_dtype") == "bfloat16"
+    common.reset_perf_options()
     with pytest.raises(NotImplementedError):
         common.set_perf_options(moe_dispatch="ragged")
     with pytest.raises(NotImplementedError, match="device picks"):
