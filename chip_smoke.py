@@ -327,13 +327,33 @@ Runs from the root of a checkout and drives ``src/repro_torch`` only
     forward and 2 backward scans held; then the full config at B = 1,
     S = 32,768 under the option, two timed runs after a warm-up and the
     peak memory, beside phase 9's float32 runs of the same weights.
+24. elastic restore and GAT's ``att_dim`` (runs last; ``phase_elastic``,
+    ``phase_gat_att_dim``).  4 ranks share the card over the ``staged``
+    transport as in phase 22: Hymba-1.5B at full width with 2 layers on
+    the (data=2, model=2) mesh takes 2 ZeRO-1 steps (``launch/steps.py``,
+    B = 4, S = 256, AdamW at lr 1e-4 clipped at 1.0), saves through
+    ``CheckpointManager`` (each DTensor gathered on every rank one leaf
+    at a time, rank 0 writing; the save's device peak above the state at
+    most 3 × the largest leaf), takes the third step in memory (the
+    uninterrupted run),
+    then restores onto (data=4, model=1) and onto the card without a
+    mesh (rank 0), one step each: every restored leaf's full tensor
+    bit-equal to the saved one, each third loss within ``rtol=1e-3`` of
+    the uninterrupted one, every scan launch held against the plain
+    scan.  Then GAT with ``att_dim = 32`` (Q and K 32 wide a head, Vf 64
+    or 16) at 1 and 4 heads on the 1,024-node task: 3 ``train_gnn`` steps
+    on the card against the CPU port (losses ``rtol=1e-4``), every launch
+    of the three kernels held against its plain version
+    (``_held_against_plain``), the widths each kernel ran at printed and
+    checked.
 Each main path (serving per model, each pass of each phase-15 service,
 training per model, each oracle search, each 131k baseline-comparison
 run, each distributed run on each rank, each dynamic batch's operators,
 the ``--mutate`` CLI run, each refresh case's SpMM on each rank, LM
 prefill, each decode run, the consistency forward, each phase-19
 training run, each phase-20 and phase-21 path, each phase-22 step on
-each rank and each phase-23 run) runs with the
+each rank, each phase-23 run and each phase-24 step and GAT run) runs
+with the
 launch counts set to 0 just before it and read just after.  A
 replayed graph adds the launches its capture recorded
 (``kernels/capture.py``).
@@ -6650,6 +6670,272 @@ def phase_scan_dtype(device, prefill_row):
             "train_launches": fb}, launches
 
 
+# ---------------------------------- phase 24: elastic restore, att_dim
+ELASTIC_TRAIN = (4, 256)        # B, S of each sharded step
+ELASTIC_LOSS_RTOL = 1e-3
+ELASTIC_SAVE_LEAVES = 3         # a save's device peak, in largest leaves
+ATT_DIM = 32                    # GAT's attention width a head
+ATT_STEPS = 3
+
+
+def _bits_equal(got, want):
+    """Names of the leaves of two ``_flat`` dicts whose bits differ."""
+    bits = lambda t: t.view(torch.int16) if t.dtype == torch.bfloat16 \
+        else t.view(torch.int32) if t.dtype == torch.float32 else t
+    return [k for k, t in got.items()
+            if not (torch.is_tensor(t) and torch.equal(
+                bits(t.to(want[k].device)), bits(want[k])))
+            and not (not torch.is_tensor(t) and t == want[k])]
+
+
+def _host_flat(tree):
+    """``_state_flat`` with each DTensor leaf gathered to its full tensor
+    and copied to the host one leaf at a time (every rank, same order)."""
+    from torch.distributed.tensor import DTensor
+    return {k: (v.full_tensor() if isinstance(v, DTensor) else v).to(
+        "cpu", copy=True) if torch.is_tensor(v) else v
+        for k, v in _state_flat(tree).items()}
+
+
+def _state_flat(tree):
+    """``(params, opt_state)`` as name → leaf, the step count included."""
+    params, opt = tree
+    out = {"params/" + "/".join(k): v for k, v in _flat(params)}
+    for part in ("m", "v"):
+        out.update({f"{part}/" + "/".join(k): v
+                    for k, v in _flat(opt[part])})
+    out["step"] = opt["step"]
+    return out
+
+
+def _elastic_rank(ckpt_dir):
+    """One rank of phase 24's mesh part: 2 ZeRO-1 steps on (2, 2), save
+    (its device peak above the state measured), the third step in
+    memory, then restores onto (4, 1) and (rank 0) onto the card without
+    a mesh, one step each."""
+    import torch.distributed as dist
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.launch import mesh as mesh_mod, sharding as sh, steps
+    from repro_torch.launch.train import build_step
+    from repro_torch.optim import AdamWConfig
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    rank = dist.get_rank()
+    device = torch.device("cuda", torch.cuda.current_device())
+    cfg = _mesh_cfg("hymba-1.5b")
+    B, S = ELASTIC_TRAIN
+    cell = ShapeCell("elastic", S, B, "train")
+    batches = [_mesh_tokens(cfg, B, S, device, seed=10 + i)
+               for i in range(3)]
+    opt_cfg = AdamWConfig(lr=1e-4, grad_clip=1.0)
+    held, out = {}, {"rank": rank, "ms": {}, "loss": {}}
+    launches = {"forward": 0, "backward": 0}
+
+    def on(mesh, batch):
+        return sh.distribute(batch, sh.batch_placements(
+            lm.input_specs(cfg, cell), mesh), mesh)
+
+    def run(tag, fn):
+        _reset_counts()
+        with _scan_held(held, f"elastic {tag} rank {rank}"):
+            res, out["ms"][tag] = _sync_ms(fn)
+        launches["forward"] += scan.launch_count("forward")
+        launches["backward"] += scan.launch_count("backward")
+        check(not any(_counts().values()), f"[elastic] GNN kernels "
+              f"launched on the LM path: {_counts()}")
+        return res
+
+    mesh = mesh_mod.make_host_mesh(2, device_type="cuda")
+    pp, _ = steps.train_state_placements(cfg, mesh, zero1=True)
+    dp = sh.distribute(_hymba_params(cfg, device, seed=0), pp, mesh)
+    ost = steps.init_opt_state(cfg, mesh, zero1=True)
+    step = steps.sharded_train_step(cfg, mesh, opt_cfg)
+    for i in range(2):
+        dp, ost, loss = run(f"(2,2) step {i + 1}",
+                            lambda: step(dp, ost, on(mesh, batches[i])))
+        out["loss"][f"(2,2) step {i + 1}"] = float(loss.full_tensor())
+    mgr = CheckpointManager(ckpt_dir)
+    torch.cuda.synchronize()
+    peak_steps = torch.cuda.max_memory_allocated(device)
+    base = torch.cuda.memory_allocated(device)
+    torch.cuda.reset_peak_memory_stats(device)
+    t0 = time.perf_counter()
+    mgr.save(1, (dp, ost))
+    mgr.wait()
+    out["save_s"] = time.perf_counter() - t0
+    out["save_peak_bytes"] = torch.cuda.max_memory_allocated(device) - base
+    out["latest"] = mgr.latest_step()
+    nbytes = [v.shape.numel() * v.element_size()
+              for v in _state_flat((dp, ost)).values() if torch.is_tensor(v)]
+    out["largest_leaf_bytes"], out["state_bytes"] = max(nbytes), sum(nbytes)
+    saved = _host_flat((dp, ost))
+    dp, ost, loss = run("(2,2) step 3",
+                        lambda: step(dp, ost, on(mesh, batches[2])))
+    out["loss"]["(2,2) step 3"] = float(loss.full_tensor())
+    del dp, ost
+    mesh41 = mesh_mod.make_host_mesh(1, device_type="cuda")
+    t0 = time.perf_counter()
+    got, tree = mgr.restore(placements=steps.train_state_placements(
+        cfg, mesh41, zero1=True), mesh=mesh41)
+    out["restore_s"] = time.perf_counter() - t0
+    out["unequal"] = {"(4,1)": _bits_equal(_host_flat(tree), saved)}
+    step41 = steps.sharded_train_step(cfg, mesh41, opt_cfg)
+    _, _, loss = run("(4,1) step 3",
+                     lambda: step41(*tree, on(mesh41, batches[2])))
+    out["loss"]["(4,1) step 3"] = float(loss.full_tensor())
+    del tree
+    if rank == 0:
+        t0 = time.perf_counter()
+        _, tree = mgr.restore(device=device)
+        out["restore_one_s"] = time.perf_counter() - t0
+        out["unequal"]["one card"] = _bits_equal(_host_flat(tree), saved)
+        one = build_step(cfg, opt_cfg, donate=True)
+        _, _, _, loss = run("one card step 3",
+                            lambda: one(*tree, None, batches[2]))
+        out["loss"]["one card step 3"] = float(loss)
+        del tree
+    dist.barrier()
+    out.update(step=got, launches=launches, held={
+        k: {kk: vv for kk, vv in v.items() if kk != "shapes"}
+        | {"shapes": [list(x) for x in v["shapes"]]}
+        for k, v in held.items()},
+        peak_gib=max(peak_steps, torch.cuda.max_memory_allocated(device))
+        / 2**30)
+    return out
+
+
+def phase_elastic(device):
+    """Phase 24's mesh part: the ranks (``_elastic_rank``), their losses
+    and checks.  Returns (json, scan launches summed over the ranks'
+    steps: forward, backward)."""
+    import shutil
+    from repro_torch.dist import comm
+    from repro_torch.dist.staged import TRANSPORT
+    ckpt = ROOT / "build" / "elastic_ckpt"
+    shutil.rmtree(ckpt, ignore_errors=True)
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    ranks = comm.spawn(_elastic_rank, 4, (str(ckpt),),
+                       backend="staged", device="cuda", threads=2)
+    wall = time.perf_counter() - t0
+    size = sum(f.stat().st_size for f in ckpt.rglob("*") if f.is_file())
+    shutil.rmtree(ckpt, ignore_errors=True)
+    r0 = ranks[0]
+    want = r0["loss"]["(2,2) step 3"]
+    for r in ranks:
+        check(r["step"] == 1 and r["latest"] == 1, f"[elastic] rank "
+              f"{r['rank']}: restored step {r['step']}, latest "
+              f"{r['latest']}")
+        for where, names in r["unequal"].items():
+            check(not names, f"[elastic] rank {r['rank']}: {where}: "
+                  f"{len(names)} leaves not bit-equal to the saved ones, "
+                  f"e.g. {names[:3]}")
+        for tag, loss in r["loss"].items():
+            check(loss == r0["loss"][tag], f"[elastic] rank {r['rank']}: "
+                  f"{tag} loss {loss} against rank 0's {r0['loss'][tag]}")
+        check(r["save_peak_bytes"] <= ELASTIC_SAVE_LEAVES
+              * r["largest_leaf_bytes"], f"[elastic] rank {r['rank']}: the "
+              f"save's device peak {r['save_peak_bytes']} B above the "
+              f"state is over {ELASTIC_SAVE_LEAVES} × the largest leaf's "
+              f"{r['largest_leaf_bytes']} B (full state "
+              f"{r['state_bytes']} B)")
+        for name, h in r["held"].items():
+            print(f"[elastic held] {_held_line(name, h)}")
+    for tag in ("(4,1) step 3", "one card step 3"):
+        got = r0["loss"][tag]
+        check(abs(got - want) <= ELASTIC_LOSS_RTOL * abs(want),
+              f"[elastic] {tag}: loss {got} against the uninterrupted "
+              f"{want}")
+    B, S = ELASTIC_TRAIN
+    save_peak = max(r["save_peak_bytes"] for r in ranks)
+    launches = [sum(r["launches"]["forward"] for r in ranks),
+                sum(r["launches"]["backward"] for r in ranks)]
+    print(f"[elastic] hymba-1.5b full width, {MESH_LAYERS} layers, B={B} "
+          f"S={S}, ZeRO-1; transport: {TRANSPORT}: losses on (2,2) "
+          + ", ".join(f"{r0['loss'][f'(2,2) step {i}']:.6f}"
+                      for i in (1, 2, 3))
+          + f"; saved after step 2 ({size / 2**30:.3f} GiB on disk, "
+          f"{r0['save_s']:.2f} s on rank 0 with the gathers, device peak "
+          f"above the state {save_peak / 2**20:.1f} MiB a rank at most, "
+          f"largest leaf {r0['largest_leaf_bytes'] / 2**20:.1f} MiB, full "
+          f"state {r0['state_bytes'] / 2**20:.1f} MiB), restored "
+          f"onto (4,1) in {r0['restore_s']:.2f} s: step 3 loss "
+          f"{r0['loss']['(4,1) step 3']:.6f}, onto the card without a mesh "
+          f"in {r0['restore_one_s']:.2f} s: "
+          f"{r0['loss']['one card step 3']:.6f} (uninterrupted "
+          f"{want:.6f}); every leaf bit-equal; ms per step "
+          + ", ".join(f"{k} {v:.1f}" for k, v in r0["ms"].items())
+          + f"; scan launches (forward, backward) over the ranks "
+          f"{launches}; {wall:.1f} s with the ranks' start; peak "
+          f"{max(r['peak_gib'] for r in ranks):.2f} GiB a rank")
+    return {"transport": TRANSPORT, "seconds": wall, "bytes": size,
+            "B": B, "S": S, "losses": r0["loss"], "ms": r0["ms"],
+            "save_s": r0["save_s"], "restore_s": r0["restore_s"],
+            "save_peak_bytes": [r["save_peak_bytes"] for r in ranks],
+            "largest_leaf_bytes": r0["largest_leaf_bytes"],
+            "state_bytes": r0["state_bytes"],
+            "restore_one_s": r0["restore_one_s"],
+            "peak_gib": [r["peak_gib"] for r in ranks]}, launches
+
+
+def _held_widths(rec, kernel):
+    """The dense operand's width of each held launch: ParamSpMM's B,
+    the SDDMMs' Q (a held shape is n_rows, then the operand's shape, then
+    for the SDDMMs K's rows)."""
+    at = -1 if kernel == "paramspmm" else -2
+    return sorted({s[at] for s in rec[kernel]["shapes"]})
+
+
+def phase_gat_att_dim(device):
+    """Phase 24's GAT part: ``att_dim`` apart from the message width at 1
+    and 4 heads, 3 steps on the card against the CPU port, every launch
+    held.  Returns (json rows, launches by kernel)."""
+    task = community_task()
+    hidden, layers = TRAIN_SHAPES["gat"]
+    dims = [task.features.shape[1]] + [hidden] * (layers - 1) + \
+        [task.n_classes]
+    rows, launches = [], dict.fromkeys(KERNELS, 0)
+    for heads in (1, 4):
+        params = init_gat(dims, generator=torch.Generator().manual_seed(0),
+                          heads=heads, att_dim=ATT_DIM)
+        kw = dict(model="gat", hidden=hidden, n_layers=layers,
+                  steps=ATT_STEPS, seed=0, heads=heads, params=params)
+        cpu = train_gnn(task, device="cpu", **kw)
+        held = {}
+        name = f"gat att_dim={ATT_DIM} heads={heads}"
+        with _held_against_plain(held, name):
+            card = train_gnn(task, device=device, **kw)
+        counts = _counts()
+        for k in KERNELS:
+            launches[k] += counts[k]
+        check(all(counts[k] > 0 for k in KERNELS),
+              f"[att_dim] {name}: launches {counts}")
+        check(np.allclose(card.losses, cpu.losses, rtol=TRAIN_RTOL, atol=0),
+              f"[att_dim] {name}: card losses {card.losses} against the "
+              f"CPU's {cpu.losses}")
+        dv = hidden // heads
+        widths = {k: _held_widths(held[name], k) for k in KERNELS}
+        check(widths["sddmm_softmax"] == [ATT_DIM]
+              and {ATT_DIM, dv, task.n_classes} <= set(widths["paramspmm"])
+              and set(widths["sddmm"]) == {dv, task.n_classes},
+              f"[att_dim] {name}: widths {widths}")
+        err = {k: held[name][k]["max_abs_err"] for k in KERNELS}
+        gap = max(abs(a - b) / abs(b) for a, b in zip(card.losses,
+                                                       cpu.losses))
+        print(f"[att_dim] GAT {dims}, heads {heads}, att_dim {ATT_DIM} "
+              f"(dv {dv}, last {task.n_classes}) on {task.csr.n_rows} "
+              f"nodes: {ATT_STEPS} steps, card losses "
+              + ", ".join(f"{x:.7f}" for x in card.losses)
+              + " (CPU " + ", ".join(f"{x:.7f}" for x in cpu.losses)
+              + f"), largest relative gap {gap:.3e}; launches {counts}, every one held (max |Δ| {err}); widths "
+              f"{widths}")
+        rows.append({"heads": heads, "att_dim": ATT_DIM, "dims": dims,
+                     "losses": card.losses, "cpu_losses": cpu.losses,
+                     "max_rel_gap": gap, "launches": counts,
+                     "widths": widths, "held_max_abs_err": err})
+    return rows, launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script needs an "
@@ -6821,6 +7107,13 @@ def main() -> int:
     dtype_row, dtype_launches = phase_scan_dtype(device, prefill_row)
     print(f"[scan dtype] phase 23 in {time.perf_counter() - t0:.1f} s")
     print("[scan dtype json] " + json.dumps(dtype_row))
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    elastic_json, elastic_launches = phase_elastic(device)
+    att_rows, att_launches = phase_gat_att_dim(device)
+    print(f"[elastic] phase 24 in {time.perf_counter() - t0:.1f} s")
+    print("[elastic json] " + json.dumps({"mesh": elastic_json,
+                                          "gat_att_dim": att_rows}))
     print("[lm json] " + json.dumps({"prefill": prefill_row,
                                      "decode": decode_row,
                                      "decode_graphs": decode_graph_row,
@@ -6830,7 +7123,7 @@ def main() -> int:
                 + oracle_launches[k] + baseline_launches[k]
                 + dist_launches[k] + sum(v[k] for v in
                                          dyn["launches"].values())
-                for k in KERNELS}
+                + att_launches[k] for k in KERNELS}
     dyn_paths = lambda k: {**{p: v[k] for p, v in dyn["launches"].items()},
                            "dynamic_held_against_plain":
                                dyn["held_launches"][k]}
@@ -6858,6 +7151,7 @@ def main() -> int:
                                  graph_launches[False][0],
                              "training": train_launches["paramspmm"]
                              + large_launches["paramspmm"],
+                             "training_att_dim": att_launches["paramspmm"],
                              "oracle": oracle_launches["paramspmm"],
                              "baselines_comparison":
                                  baseline_launches["paramspmm"],
@@ -6884,6 +7178,7 @@ def main() -> int:
                                  graph_launches[False][1],
                              "training": train_launches["sddmm_softmax"]
                              + large_launches["sddmm_softmax"],
+                             "training_att_dim": att_launches["sddmm_softmax"],
                              "oracle": oracle_launches["sddmm_softmax"],
                              "distributed": dist_launches["sddmm_softmax"],
                              "distributed_held_comparison":
@@ -6903,6 +7198,7 @@ def main() -> int:
         "launches": launches["sddmm"],
         "launches_by_path": {"training": train_launches["sddmm"]
                              + large_launches["sddmm"],
+                             "training_att_dim": att_launches["sddmm"],
                              "oracle": oracle_launches["sddmm"],
                              "distributed": dist_launches["sddmm"],
                              "distributed_held_comparison":
@@ -6921,9 +7217,11 @@ def main() -> int:
         "replaces": "src/repro/kernels/selective_scan/kernel.py:46",
         "launches": prefill_launches + consist_launches
         + decode_row["launches"] + lm_train_launches[0] + mesh_launches[0]
-        + dtype_launches[0],
+        + dtype_launches[0] + elastic_launches[0],
         "launches_by_path": {"prefill": prefill_launches,
                              "mesh_all_ranks": mesh_launches[0],
+                             "elastic_restore_all_ranks":
+                                 elastic_launches[0],
                              "scan_dtype_bf16": dtype_launches[0],
                              "consistency_forward": consist_launches,
                              "decode": decode_row["launches"],
@@ -6948,8 +7246,10 @@ def main() -> int:
                          "takes by XLA autodiff of src/repro/models/ssm.py:"
                          "82-86; its Pallas kernel has no backward",
         "launches": lm_train_launches[1] + mesh_launches[1]
-        + dtype_launches[1],
+        + dtype_launches[1] + elastic_launches[1],
         "launches_by_path": {"mesh_all_ranks": mesh_launches[1],
+                             "elastic_restore_all_ranks":
+                                 elastic_launches[1],
                              "scan_dtype_bf16": dtype_launches[1],
                              **{f"training_{k}": v[1] for k, v in
                                 lm_train["launches_by_path"].items()},

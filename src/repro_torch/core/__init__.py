@@ -9,7 +9,8 @@ submodule imports.
 from .calibrate import (CalibrationResult, CalibrationSample, fit,
                         fit_columns, spearman)
 from .cost_model import (H100, CostBreakdown, CostModel, Hardware,
-                         kernel_cost, sddmm_cost, unfused_bytes,
+                         degraded_kernel_cost, kernel_cost,
+                         pack_setup_seconds, sddmm_cost, unfused_bytes,
                          unfused_penalty, useful_flops)
 from .features import FEATURE_NAMES, MatrixFeatures, extract_features
 from .pcsr import (LANES, PCSR, PCSRStats, SUBLANES, SpMMConfig,
@@ -23,7 +24,8 @@ __all__ = [
     "build_pcsr", "pad_pcsr", "pcsr_stats", "balanced_capacity",
     "pcsr_to_coo", "slot_transfer_map", "transpose_csr", "transpose_pcsr",
     "LANES", "SUBLANES", "Hardware", "H100", "CostBreakdown",
-    "CostModel", "kernel_cost", "sddmm_cost", "unfused_bytes",
+    "CostModel", "degraded_kernel_cost", "kernel_cost",
+    "pack_setup_seconds", "sddmm_cost", "unfused_bytes",
     "unfused_penalty", "useful_flops",
     "CalibrationResult", "CalibrationSample", "fit", "fit_columns",
     "spearman",

@@ -350,6 +350,15 @@ class CostModel:
             return bd.total
         return self.calibration.price(bd, op)
 
+    def fusion_savings(self, dim: int, config: SpMMConfig,
+                       op: str = "gat", *, H: int = 1) -> float:
+        """Seconds the fused pipeline saves over the unfused one; for
+        ``op="spmm"`` the fused side pays the epilogue operand reads, the
+        unfused side the separate elementwise passes."""
+        return (self.time(dim, config, op, H=H, fused=False)
+                - self.time(dim, config, op, H=H, fused=True,
+                            epilogue=op == "spmm"))
+
     def best(self, dim: int, space, op: str = "spmm", *, H: int = 1,
              fused: bool = True) -> tuple[SpMMConfig, float]:
         """The cheapest config of ``space`` (the first on a tie) and its

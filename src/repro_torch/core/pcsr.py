@@ -128,6 +128,32 @@ class PCSR:
         return int(self.trow.shape[0])
 
     @property
+    def num_slots(self) -> int:
+        return self.num_chunks * self.K
+
+    @property
+    def padding_ratio(self) -> float:
+        """PR_V (paper Eq. 2): 1 − nnz / (nnz_V · V)."""
+        if self.nnz_vec == 0:
+            return 0.0
+        return 1.0 - self.nnz / (self.nnz_vec * self.config.V)
+
+    @property
+    def split_ratio(self) -> float:
+        """SR (paper Eq. 4): reassigned-rowPtr length over original."""
+        return self.num_chunks / max(1, self.n_nonempty_blocks)
+
+    @property
+    def slot_fill(self) -> float:
+        """Fraction of chunk slots holding a real vector."""
+        return self.nnz_vec / max(1, self.num_slots)
+
+    def nbytes(self) -> int:
+        """Host bytes of the packed arrays."""
+        return (self.colidx.nbytes + self.lrow.nbytes + self.trow.nbytes
+                + self.init.nbytes + self.vals.nbytes)
+
+    @property
     def fini(self) -> np.ndarray:
         """(C,) int32 — 1 iff the chunk is the LAST chunk of its block:
         the chunk after which a block's output tile is complete and the
@@ -488,16 +514,16 @@ def pcsr_to_coo(p: PCSR):
     return rows, cols, p.vals.reshape(-1)[flat]
 
 
-def transpose_pcsr(p: PCSR) -> PCSR:
-    """PCSR of Aᵀ under the forward PCSR's configuration, built from its
-    own edge list; every backward SpMM runs on it."""
+def transpose_pcsr(p: PCSR, config: SpMMConfig | None = None) -> PCSR:
+    """PCSR of Aᵀ under the forward PCSR's configuration (or ``config``),
+    built from its own edge list; every backward SpMM runs on it."""
     rows, cols, vals = pcsr_to_coo(p)
     order = np.lexsort((rows, cols))           # CSR of Aᵀ: sort by (col, row)
     t_indptr = np.concatenate(
         [[0], np.cumsum(np.bincount(cols, minlength=p.n_cols))]).astype(
             np.int64)
     return build_pcsr(t_indptr, rows[order], vals[order],
-                      p.n_cols, p.n_rows, p.config)
+                      p.n_cols, p.n_rows, config or p.config)
 
 
 def slot_transfer_map(p: PCSR, p_t: PCSR):

@@ -84,6 +84,14 @@ class CSRMatrix:
                                   self.n_rows, self.n_cols,
                                   sum_duplicates=False)
 
+    def row_normalize(self) -> "CSRMatrix":
+        """D⁻¹A: each row's values over its degree (at least 1)."""
+        deg = np.maximum(self.degrees, 1).astype(np.float32)
+        rows = np.repeat(np.arange(self.n_rows), self.degrees)
+        return CSRMatrix(self.indptr, self.indices,
+                         (self.data / deg[rows]).astype(np.float32),
+                         self.n_rows, self.n_cols)
+
     def gcn_normalize(self) -> "CSRMatrix":
         """Â = D^{-1/2}(A+I)D^{-1/2} (GCN propagation matrix)."""
         if self.n_rows != self.n_cols:

@@ -17,3 +17,8 @@ def spmm_ref(indptr, indices, data, B: torch.Tensor, n_rows: int):
     contrib = vals[:, None] * B.index_select(0, cols)     # (nnz, dim)
     out = B.new_zeros((n_rows, B.shape[1]))
     return out.index_add_(0, rows, contrib)
+
+
+def spmm_dense_ref(A_dense, B: torch.Tensor) -> torch.Tensor:
+    """Dense oracle for small property tests: ``A·B``."""
+    return torch.as_tensor(A_dense).to(B.dtype) @ B

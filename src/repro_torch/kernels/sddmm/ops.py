@@ -257,17 +257,20 @@ def sddmm_softmax_stats(pcsr: PCSR, Q, K, *, scale: float | None = None,
 
 
 def sddmm_softmax(pcsr: PCSR, Q, K, *, scale: float | None = None,
-                  slope: float = 0.2):
+                  slope: float = 0.2, with_logits: bool = False):
     """GAT attention weights softmax_row(LeakyReLU(scale·Q·Kᵀ)) on A's
     pattern, in covered slot layout: the *materialised-α* form (stats
     pass + one elementwise normalize).  The GAT path never runs it: the
-    SpMM prologue takes the stats instead."""
+    SpMM prologue takes the stats instead.  Returns ``alpha``, or
+    ``(alpha, logits)`` with ``with_logits``: the post-LeakyReLU scores,
+    masked slots −inf."""
     logits, rowmax, rowsum = sddmm_softmax_stats(pcsr, Q, K, scale=scale,
                                                  slope=slope)
     steer = device_steering(pcsr, Q.device)
     cfg = pcsr.config
-    return normalize_from_stats(logits, rowmax, rowsum, steer.lrow,
-                                steer.trow, R=cfg.R, V=cfg.V, K=pcsr.K)
+    alpha = normalize_from_stats(logits, rowmax, rowsum, steer.lrow,
+                                 steer.trow, R=cfg.R, V=cfg.V, K=pcsr.K)
+    return (alpha, logits) if with_logits else alpha
 
 
 def _launch(steer: Steering, Q, K_mat, *, V, R, K, n_rows):

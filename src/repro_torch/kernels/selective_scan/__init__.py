@@ -5,11 +5,11 @@ from .ops import (CHUNK, launch_count, reset_launch_count, selective_scan,
 from .ref import (selective_scan_backward_from_states_plain,
                   selective_scan_backward_plain,
                   selective_scan_chunk_states_plain, selective_scan_plain,
-                  selective_scan_states_plain)
+                  selective_scan_ref, selective_scan_states_plain)
 
 __all__ = ["CHUNK", "launch_count", "reset_launch_count", "selective_scan",
            "selective_scan_backward",
            "selective_scan_backward_from_states_plain",
            "selective_scan_backward_plain",
            "selective_scan_chunk_states_plain", "selective_scan_plain",
-           "selective_scan_states_plain"]
+           "selective_scan_ref", "selective_scan_states_plain"]

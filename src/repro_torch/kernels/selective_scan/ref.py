@@ -21,6 +21,9 @@ def selective_scan_plain(dA, dBx, C):
     return y
 
 
+selective_scan_ref = selective_scan_plain     # the reference's name
+
+
 def selective_scan_states_plain(dA, dBx):
     """Every hidden state ``h (B, S, N, Di)`` of the recurrence above."""
     h = dA.new_zeros(dA.shape[:1] + dA.shape[2:])

@@ -16,16 +16,17 @@ the mesh's order (a dim over ``("pod", "data")`` is ``Shard(d)`` on both,
 pod the outer split, as in the reference).  ``mesh`` is a
 ``DeviceMesh`` or a dict of axis name → size (``mesh.axis_sizes``), so the
 placements of a 512-rank mesh can be had without one.  ``distribute``
-cuts the full tensors every rank holds into their DTensors.
+(``models/sharding_ctx.py``) cuts the full tensors every rank holds into
+their DTensors, and ``full_tree`` gathers them back.
 """
 from __future__ import annotations
 
 import math
 
-import torch
 from torch.distributed.tensor import DTensor, Replicate, Shard
 
 from repro_torch.models import lm
+from repro_torch.models.sharding_ctx import distribute  # noqa: F401
 from .mesh import axis_sizes, data_axes, model_axis_size
 
 
@@ -71,24 +72,6 @@ def role_pspec(role: str, shape, mesh) -> list:
 def param_placements(cfg, mesh):
     return lm.map_defs(lambda _, d: role_pspec(d[1], d[0], mesh),
                        lm.model_defs(cfg))
-
-
-def distribute(tree, place, mesh):
-    """Every tensor leaf of ``tree`` as a DTensor with the placements of
-    the same leaf of ``place``: each rank copies its own block of the
-    full tensor it holds (the same on every rank: no data moves, and the
-    DTensor owns its memory, so in-place steps leave ``tree`` alone)."""
-    from repro_torch.models.sharding_ctx import local_block
-    if isinstance(tree, dict):
-        return {k: distribute(v, place[k], mesh) for k, v in tree.items()}
-    size, off = local_block(tree.shape, mesh, place)
-    local = tree.detach()
-    for d, (n, o) in enumerate(zip(size, off)):
-        local = local.narrow(d, o, n)
-    local = local.clone(memory_format=torch.contiguous_format)
-    return DTensor.from_local(local, mesh, place, run_check=False,
-                              shape=tree.shape,
-                              stride=tree.contiguous().stride())
 
 
 def distribute_params(params, cfg, mesh):
@@ -164,7 +147,11 @@ def local_bytes(specs, place, mesh) -> int:
 
 
 def full_tree(tree):
-    """Each DTensor leaf gathered to the full tensor on every rank."""
+    """Each DTensor leaf gathered to the full tensor on every rank (a
+    collective per leaf: every rank walks the tree in the same order).  A
+    replicated leaf's full tensor is its local block itself, not a copy."""
     if isinstance(tree, dict):
         return {k: full_tree(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(full_tree(v) for v in tree)
     return tree.full_tensor() if isinstance(tree, DTensor) else tree

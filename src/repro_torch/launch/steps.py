@@ -14,7 +14,9 @@ the model (RoPE tables, masks, positions) are taken as replicated
 * ``sharded_train_step`` (``jit_train_step``): loss, gradient and AdamW
   with global-norm clipping; parameters and moments updated in place, as
   the reference donates them; ``zero1`` shards the moments over the data
-  axis too (``_zero1_spec``).
+  axis too (``_zero1_spec``).  Its state checkpoints through
+  ``CheckpointManager`` and resumes on any mesh shape, or on one device,
+  with ``train_state_placements`` of the new mesh.
 * ``sharded_prefill_step`` (``jit_prefill_step``): the last token's
   logits.
 * ``sharded_decode_step`` (``jit_decode_step``): one token, the cache
@@ -66,6 +68,15 @@ def opt_state_placements(cfg, mesh, zero1: bool = False):
     else:
         ps = sh.param_placements(cfg, mesh)
     return {"m": ps, "v": ps, "step": sh.replicated(mesh)}
+
+
+def train_state_placements(cfg, mesh, zero1: bool = False):
+    """Placements of a ``(params, opt_state)`` training state on ``mesh``:
+    the tree ``CheckpointManager.restore(placements=)`` takes to resume a
+    checkpoint of ``sharded_train_step``'s state on this mesh, whatever
+    mesh saved it."""
+    return (sh.param_placements(cfg, mesh),
+            opt_state_placements(cfg, mesh, zero1))
 
 
 def init_opt_state(cfg, mesh, zero1: bool = False, device=None):

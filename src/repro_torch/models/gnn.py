@@ -96,12 +96,12 @@ def gin_forward(params, X, spmm):
 
 # -------------------------------------------------------------------- GAT
 def init_gat(layer_dims, *, generator: torch.Generator, device="cpu",
-             heads: int = 1):
+             heads: int = 1, att_dim: int | None = None):
     """Dot-product attention GAT: per layer ``wq``/``wk`` project into the
-    attention space (the per-head output dim) and ``wv`` transforms the
-    message features.  With ``heads > 1`` hidden layers concatenate the
-    per-head outputs (their width must divide by ``heads``) and the last
-    layer averages full-width heads."""
+    attention space (``att_dim`` per head, by default the per-head output
+    dim) and ``wv`` transforms the message features.  With ``heads > 1``
+    hidden layers concatenate the per-head outputs (their width must
+    divide by ``heads``) and the last layer averages full-width heads."""
     params = []
     L = len(layer_dims) - 1
     for i in range(L):
@@ -110,9 +110,10 @@ def init_gat(layer_dims, *, generator: torch.Generator, device="cpu",
         if concat and out % heads:
             raise ValueError(f"layer dim {out} not divisible by {heads} heads")
         dv = out // heads if concat else out
+        da = att_dim or dv
         params.append({
-            "wq": _dense_init(layer_dims[i], heads * dv, generator, device),
-            "wk": _dense_init(layer_dims[i], heads * dv, generator, device),
+            "wq": _dense_init(layer_dims[i], heads * da, generator, device),
+            "wk": _dense_init(layer_dims[i], heads * da, generator, device),
             "wv": _dense_init(layer_dims[i], heads * dv, generator, device),
             "b": torch.zeros(out, device=device),
         })
@@ -120,7 +121,9 @@ def init_gat(layer_dims, *, generator: torch.Generator, device="cpu",
 
 
 def gat_forward(params, X, gat_msg, heads: int = 1):
-    """h'_i = Σ_j α_ij · (h_j·Wv), α = softmax_j(LeakyReLU(q_i·k_j/√d)).
+    """h'_i = Σ_j α_ij · (h_j·Wv), α = softmax_j(LeakyReLU(q_i·k_j/√d)),
+    d the width of a head of q and k (``att_dim``), which may differ from
+    the width of a head of Wv.
 
     ``gat_msg(Q, K, Vf)`` is the attention message
     (``core.engine.make_gat_message_fn``).  With ``heads > 1`` the

@@ -22,6 +22,11 @@ token shift and the causal conv), ``embed_rows`` (a vocab-parallel
 lookup), ``split_heads`` / ``merge_heads`` (heads a mesh axis does not
 divide).  Each local block whose gradient is a sum over ranks is marked
 so (``_grad_place``).  On plain tensors each is the plain op.
+
+``distribute`` cuts full tensors into DTensors, each rank copying its
+own block (``local_block``): the parameters' first placement
+(``launch/sharding.py``) and a checkpoint's restore onto a mesh
+(``checkpoint/manager.py``).
 """
 from __future__ import annotations
 
@@ -186,6 +191,40 @@ def local_block(shape, mesh, place):
             size[d] = min(full, start + step) - start
             off[d] += start
     return size, off
+
+
+def distribute(tree, place, mesh, device=None):
+    """Every tensor leaf of ``tree`` as a DTensor with the placements of
+    the same leaf of ``place``: each rank copies its own block of the
+    full tensor it holds (the same on every rank: no data moves, and the
+    DTensor owns its memory, so in-place steps leave ``tree`` alone).
+    Trees nest dicts, lists and tuples; a leaf that is no tensor (an
+    AdamW step count) stays as it is, and a tensor whose placements are
+    ``None`` stays a plain tensor.  With ``device`` each block (and each
+    plain tensor) is cut on the tensor's device and then moved there.
+    A ``None`` in ``place`` where ``tree`` has a subtree keeps the whole
+    subtree plain (a launcher checkpoint's compression state)."""
+    if isinstance(tree, dict):
+        return {k: distribute(v, None if place is None else place[k], mesh,
+                              device) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        place = [None] * len(tree) if place is None else place
+        return type(tree)(distribute(v, p, mesh, device)
+                          for v, p in zip(tree, place))
+    if not isinstance(tree, torch.Tensor):
+        return tree
+    if place is None:
+        return tree if device is None else tree.to(device)
+    size, off = local_block(tree.shape, mesh, place)
+    local = tree.detach()
+    for d, (n, o) in enumerate(zip(size, off)):
+        local = local.narrow(d, o, n)
+    local = local.clone(memory_format=torch.contiguous_format)
+    if device is not None:
+        local = local.to(device)
+    return DTensor.from_local(local, mesh, place, run_check=False,
+                              shape=tree.shape,
+                              stride=tree.contiguous().stride())
 
 
 def _replicated_as(value, like):

@@ -69,11 +69,11 @@ def adamw_init(params):
             "step": 0}
 
 
-def global_norm(grads):
+def global_norm(tree):
     """√(Σ g²) over every tensor of a tree, in float32, summed in the
     reference's leaf order."""
     return torch.sqrt(sum(torch.sum(torch.square(g.float()))
-                          for g in tree_leaves(grads)))
+                          for g in tree_leaves(tree)))
 
 
 @torch.no_grad()

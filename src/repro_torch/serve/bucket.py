@@ -107,6 +107,10 @@ class PackGeom:
         num_chunks = n_blocks + -(-bucket.e_ceil // K)
         return PackGeom(config, n_rows, n_blocks, num_chunks, K)
 
+    @property
+    def num_slots(self) -> int:
+        return self.num_chunks * self.K
+
     def bounds(self, cap: int | None = None) -> ScheduleBounds:
         """The work schedule's bounds over every batch packed into this
         geometry (``cap``: a smaller unit cap, to force split groups)."""

@@ -377,6 +377,27 @@ def test_restore_of_an_empty_directory(tmp_path):
 
 
 # ------------------------------------------------------- the train entry
+def test_launchers_agree_at_the_cli_lr(monkeypatch):
+    """Both packages' ``launch.train`` on reduced hymba at the CLI's
+    default lr 3e-3, 10 steps at batch 4 and length 32, from the same
+    seed: the port's launcher starts from the reference's
+    ``init_params(PRNGKey(0))`` (carried across bit for bit) and reads
+    the same ``batch_for_step`` batches, so its losses follow the
+    reference's within ``test_build_step_matches_reference``'s
+    ``rtol=1e-2`` and fall alike."""
+    argv = ["--arch", ARCH, "--reduced", "--steps", "10", "--lr", "3e-3",
+            "--batch", "4", "--seq", "32", "--log-every", "100"]
+    want = rtrain.train(argv)
+    ref_params = jax.tree.map(np.asarray, rlm.init_params(
+        jax.random.PRNGKey(0), rconfigs.get_reduced(ARCH)))
+    monkeypatch.setattr(ttrain.lm, "init_params",
+                        lambda cfg, *, generator, device:
+                        lm_params_to_torch(ref_params, device))
+    got = ttrain.train(argv + ["--device", "cpu"])
+    np.testing.assert_allclose(got, want, rtol=1e-2)
+    assert got[-1] < got[0] and want[-1] < want[0]
+
+
 def _cli(*extra):
     return ["--arch", ARCH, "--reduced", "--device", "cpu", "--batch", "2",
             "--seq", "16", "--log-every", "100", *extra]
