@@ -1,0 +1,8 @@
+"""Device-idle ms a step while the host was in the program's
+``gnn.optimizer`` range, over the labelled window (profiled with the host,
+so it reads high against ``device_idle``): ``spans.idle_in_ms``."""
+from perfbench import spans
+
+
+def read(ctx):
+    return spans.idle_in_ms(ctx.labels, "gnn.optimizer")

@@ -40,11 +40,18 @@ edges on the same device:
     PYTHONPATH=src python -m repro_torch.apps.gnn --device cpu --mutate 3
 
 Spans (``repro_torch.obs``; ``--trace PATH`` writes them as Chrome-trace
-JSON, which ``repro_torch.apps.obs_report`` reads): ``gnn.pack``
-(reorder, config pick, PCSR of A and Aᵀ), ``gnn.first_step`` (step 0:
-kernel build and load, allocator growth), ``gnn.step`` per later step,
-``gnn.eval``; with ``--mutate`` a ``gnn.mutate`` instant a batch and
-``dynamic.repack`` per re-pack.
+JSON, which ``repro_torch.apps.obs_report`` reads; each is also a
+``torch.profiler`` range): ``gnn.pack`` (reorder, config pick, PCSR of A
+and Aᵀ), holding on one device ``pack.reorder``, ``pack.pick`` (absent
+when a config is given) and ``pack.pcsr`` (two ``pcsr.build``);
+``gnn.first_step`` (step 0: kernel build and load, allocator growth; for
+GAT also ``gat.transpose_side``, Aᵀ's steering and slot transfer map,
+built at the first backward) and ``gnn.step`` per later step, each
+holding, with ``step=``, ``gnn.forward`` (the model and the loss),
+``gnn.backward`` (autograd, and the partitioned gradient all-reduce),
+``gnn.optimizer`` (AdamW) and ``gnn.sync`` (the loss to the host, the
+device synchronised); ``gnn.eval``; with ``--mutate`` a ``gnn.mutate``
+instant a batch and ``dynamic.repack`` per re-pack.
 """
 from __future__ import annotations
 
@@ -270,24 +277,28 @@ def train_gnn(task: NodeTask, *, model: str = "gcn", hidden: int = 64,
     for step in range(steps):
         t0 = time.perf_counter()
         with span("gnn.first_step" if step == 0 else "gnn.step", step=step):
-            loss = node_ce_loss(fwd(params, X, spmm), labels, tmask,
-                                total=n_train)
-            grads = torch.autograd.grad(loss, [v for layer in params
-                                               for v in layer.values()])
-            if comm is not None:   # one collective: gradients and loss
-                flat = comm.all_reduce_sum(torch.cat(
-                    [g.reshape(-1) for g in grads]
-                    + [loss.detach().reshape(1)]))
-                loss = flat[-1]
-                grads = [f.reshape(g.shape) for f, g in zip(
-                    flat[:-1].split([g.numel() for g in grads]), grads)]
-            it = iter(grads)
-            grads = [{k: next(it) for k in layer} for layer in params]
-            params, opt = adamw_update(params, grads, opt, opt_cfg)
-            params = [{k: v.requires_grad_() for k, v in layer.items()}
-                      for layer in params]
-            res.losses.append(float(loss.detach()))
-            _sync(device)
+            with span("gnn.forward", step=step):
+                loss = node_ce_loss(fwd(params, X, spmm), labels, tmask,
+                                    total=n_train)
+            with span("gnn.backward", step=step):
+                grads = torch.autograd.grad(loss, [v for layer in params
+                                                   for v in layer.values()])
+                if comm is not None:   # one collective: gradients and loss
+                    flat = comm.all_reduce_sum(torch.cat(
+                        [g.reshape(-1) for g in grads]
+                        + [loss.detach().reshape(1)]))
+                    loss = flat[-1]
+                    grads = [f.reshape(g.shape) for f, g in zip(
+                        flat[:-1].split([g.numel() for g in grads]), grads)]
+            with span("gnn.optimizer", step=step):
+                it = iter(grads)
+                grads = [{k: next(it) for k in layer} for layer in params]
+                params, opt = adamw_update(params, grads, opt, opt_cfg)
+                params = [{k: v.requires_grad_() for k, v in layer.items()}
+                          for layer in params]
+            with span("gnn.sync", step=step):
+                res.losses.append(float(loss.detach()))
+                _sync(device)
         if step > 0:       # step 0 builds and loads the kernels
             elapsed += time.perf_counter() - t0
         if on_step is not None:        # outside the timed step

@@ -35,6 +35,8 @@ from typing import Callable, Optional
 import numpy as np
 import torch
 
+from repro_torch.obs.trace import span
+
 from .pcsr import PCSR, SpMMConfig, build_pcsr, slot_transfer_map, \
     transpose_pcsr
 from .sparse import CSRMatrix
@@ -161,16 +163,20 @@ class TransposeSide:
 
     @staticmethod
     def build(pcsr: PCSR, pcsr_t: PCSR, device) -> "TransposeSide":
+        """Aᵀ's side on ``device``, under the span ``gat.transpose_side``."""
         from repro_torch.kernels.paramspmm.ops import device_steering
-        f_idx, t_idx = slot_transfer_map(pcsr, pcsr_t)
-        cfg = pcsr_t.config
-        return TransposeSide(
-            steer=device_steering(pcsr_t, device),
-            geo=dict(n_blocks=pcsr_t.n_blocks, R=cfg.R, V=cfg.V, K=pcsr_t.K,
-                     dblk=cfg.dblk, n_rows=pcsr_t.n_rows),
-            shape=(pcsr_t.covered_num_chunks, cfg.V, pcsr_t.K),
-            f_idx=torch.as_tensor(f_idx, dtype=torch.int64, device=device),
-            t_idx=torch.as_tensor(t_idx, dtype=torch.int64, device=device))
+        with span("gat.transpose_side"):
+            f_idx, t_idx = slot_transfer_map(pcsr, pcsr_t)
+            cfg = pcsr_t.config
+            return TransposeSide(
+                steer=device_steering(pcsr_t, device),
+                geo=dict(n_blocks=pcsr_t.n_blocks, R=cfg.R, V=cfg.V,
+                         K=pcsr_t.K, dblk=cfg.dblk, n_rows=pcsr_t.n_rows),
+                shape=(pcsr_t.covered_num_chunks, cfg.V, pcsr_t.K),
+                f_idx=torch.as_tensor(f_idx, dtype=torch.int64,
+                                      device=device),
+                t_idx=torch.as_tensor(t_idx, dtype=torch.int64,
+                                      device=device))
 
     def to_transpose(self, x):
         """Re-lay a ``(..., C, V, K)`` slot tensor of A onto Aᵀ's covered
@@ -442,13 +448,14 @@ class ParamSpMMOperator:
                  build_transpose: bool = True, device=None):
         self.csr = csr
         self.config = config
-        self.pcsr = build_pcsr(csr.indptr, csr.indices, csr.data,
-                               csr.n_rows, csr.n_cols, config)
-        self.pcsr_t = None
-        if build_transpose:
-            t = csr.transpose()
-            self.pcsr_t = build_pcsr(t.indptr, t.indices, t.data,
-                                     t.n_rows, t.n_cols, config)
+        with span("pack.pcsr"):
+            self.pcsr = build_pcsr(csr.indptr, csr.indices, csr.data,
+                                   csr.n_rows, csr.n_cols, config)
+            self.pcsr_t = None
+            if build_transpose:
+                t = csr.transpose()
+                self.pcsr_t = build_pcsr(t.indptr, t.indices, t.data,
+                                         t.n_rows, t.n_cols, config)
         if device is not None:
             from repro_torch.kernels.paramspmm.ops import device_steering
             for p in (self.pcsr, self.pcsr_t):

@@ -30,11 +30,10 @@ from __future__ import annotations
 
 import dataclasses
 from dataclasses import dataclass
-from time import perf_counter
 
 import numpy as np
 
-from repro_torch.obs import metrics as _obs_metrics, trace as _obs_trace
+from repro_torch.obs import trace as _obs_trace
 
 LANES = 128          # column quantum of a dim tile: Dblk = F·LANES
 SUBLANES = 8         # chunk-capacity quantum
@@ -188,11 +187,7 @@ class PCSR:
         """
         cache = self.__dict__.setdefault("_steering_cache", {})
         if covered in cache:
-            _obs_metrics.counter("pack_cache_hits_total").inc(
-                H=1, covered=covered)
             return cache[covered]
-        _obs_metrics.counter("pack_cache_misses_total").inc(
-            H=1, covered=covered)
         colidx, lrow = self.colidx, self.lrow
         trow, init, fini, vals = self.trow, self.init, self.fini, self.vals
         if covered:
@@ -285,12 +280,8 @@ def build_pcsr(indptr, indices, data, n_rows, n_cols,
     with _obs_trace.span("pcsr.build", config=str(config.astuple()),
                          n_rows=int(n_rows),
                          nnz=int(np.asarray(indices).shape[0])):
-        t0 = perf_counter()
-        p = _build_pcsr(indptr, indices, data, n_rows, n_cols,
-                        config, unbalanced_cap, capacity)
-        _obs_metrics.histogram("pack_build_seconds").observe(
-            perf_counter() - t0, config=str(config.astuple()))
-    return p
+        return _build_pcsr(indptr, indices, data, n_rows, n_cols,
+                           config, unbalanced_cap, capacity)
 
 
 def _build_pcsr(indptr, indices, data, n_rows, n_cols,

@@ -3,7 +3,10 @@
 Tracing is off by default and every instrumentation point in the hot
 paths degrades to a near-zero no-op.  Enable with ``obs.tracing(path)``,
 the ``--trace`` flag of ``repro_torch.apps.serve_gnn``, or for a whole
-process with ``REPRO_TRACE=trace.json`` (written at exit).
+process with ``REPRO_TRACE=trace.json`` (written at exit).  While it is
+on, every span is also a ``torch.profiler.record_function`` range, so a
+``torch.profiler`` that records CPU activity shows the spans beside the
+host and device ops, on their clock.
 """
 from repro_torch.obs.trace import (
     tracing, start_tracing, stop_tracing, trace_enabled, span, instant,

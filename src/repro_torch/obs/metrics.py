@@ -1,6 +1,6 @@
 """Labeled counter/gauge/histogram registry for the obs layer.
 
-Instruments are cheap named handles — ``counter("pack_cache_hits_total")``
+Instruments are cheap named handles — ``counter("serve_cache_hits_total")``
 returns the same object every call — and every mutating method
 (``inc``/``set``/``observe``) is a no-op unless a tracing session is active, so
 instrumented hot paths cost a dict lookup and a boolean check when the

@@ -13,6 +13,12 @@ event per metric series is appended at export.  The top-level keys
 ``repro_metrics`` and ``repro_decisions`` carry the full metric snapshot
 and the config-pick decision log (``repro_torch.obs.decisions``).
 
+While a session is on, each span is also a ``torch.profiler.
+record_function`` range over the same interval, so any ``torch.profiler``
+that records CPU activity holds every span as a ``user_annotation`` event
+on the clock of its host and device ops.  The exported file keeps the
+spans on this module's own clock (``perf_counter``).
+
 Kernel launches are not traced here: each kernel wrapper keeps its own
 launch count (``repro_torch.kernels.paramspmm.ops.launch_count``).
 """
@@ -23,6 +29,8 @@ import os
 import threading
 from time import perf_counter
 from typing import Any, Optional
+
+from torch.autograd.profiler import record_function
 
 __all__ = ["tracing", "start_tracing", "stop_tracing", "trace_enabled",
            "span", "instant", "export_trace", "trace_events"]
@@ -53,22 +61,27 @@ def trace_enabled() -> bool:
 
 
 class _Span:
-    """Context manager emitting one ``"X"`` complete event on exit."""
+    """Context manager emitting one ``"X"`` complete event on exit, inside
+    a ``record_function`` range of the same name."""
 
-    __slots__ = ("_state", "_name", "_cat", "_args", "_ts")
+    __slots__ = ("_state", "_name", "_cat", "_args", "_ts", "_rf")
 
     def __init__(self, state, name, cat, args):
         self._state, self._name, self._cat, self._args = \
             state, name, cat, args
 
     def __enter__(self):
+        self._rf = record_function(self._name)
+        self._rf.__enter__()
         self._ts = self._state.now_us()
         return self
 
     def __exit__(self, *exc):
         st = self._state
+        dur = st.now_us() - self._ts
+        self._rf.__exit__(*exc)
         st.add({"name": self._name, "cat": self._cat, "ph": "X",
-                "ts": self._ts, "dur": st.now_us() - self._ts,
+                "ts": self._ts, "dur": dur,
                 "pid": os.getpid(), "tid": threading.get_ident(),
                 "args": self._args})
         return False
@@ -91,7 +104,8 @@ _NULL_SPAN = _NullSpan()
 
 def span(name: str, cat: str = "repro", **args: Any):
     """Open a nestable span: ``with span("serve.batch", bucket=k): ...``.
-    Returns a shared null context manager when tracing is disabled."""
+    Returns a shared null context manager when tracing is disabled (no
+    ``record_function`` then)."""
     st = _STATE
     if st is None:
         return _NULL_SPAN

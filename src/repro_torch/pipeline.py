@@ -2,7 +2,10 @@
 prediction (``pick_config``) → PCSR generation (``core.pcsr.build_pcsr``,
 for A and Aᵀ) → computing engine (``core.engine.ParamSpMMOperator``, the
 CUDA kernels).  ``ParamSpMM`` runs all three for one matrix, after the
-locality reorder of paper §4.4."""
+locality reorder of paper §4.4.  Spans (``repro_torch.obs``):
+``pack.reorder`` (the reorder and its two padding-ratio passes),
+``pack.pick`` (``pick_config``, absent when a config is given) and
+``pack.pcsr`` (the PCSRs of A and Aᵀ, in ``ParamSpMMOperator``)."""
 from __future__ import annotations
 
 import numpy as np
@@ -11,6 +14,7 @@ from .core import (CostModel, CSRMatrix, H100, Hardware, SpMMConfig,
                    config_space, extract_features, pcsr_stats)
 from .core.engine import ParamSpMMOperator
 from .core.reorder import apply_reorder, rabbit_reorder
+from .obs.trace import span
 
 
 def pick_config(csr: CSRMatrix, dim: int, *, decider=None,
@@ -68,19 +72,21 @@ class ParamSpMM:
         device = resolve_device(device)
         self.perm = None
         if reorder:
-            perm = rabbit_reorder(csr)
-            cand = apply_reorder(csr, perm)
-            if _pr2(cand) <= _pr2(csr):
-                self.perm = perm
-                csr = cand
-            else:
-                self.perm = np.arange(csr.n_rows)
+            with span("pack.reorder"):
+                perm = rabbit_reorder(csr)
+                cand = apply_reorder(csr, perm)
+                if _pr2(cand) <= _pr2(csr):
+                    self.perm = perm
+                    csr = cand
+                else:
+                    self.perm = np.arange(csr.n_rows)
         self.csr = csr
         self.dim = dim
         if config is None:
-            config = pick_config(csr, dim, decider=decider, select=select,
-                                 op=op, heads=heads, hardware=hardware,
-                                 device=device)
+            with span("pack.pick"):
+                config = pick_config(csr, dim, decider=decider,
+                                     select=select, op=op, heads=heads,
+                                     hardware=hardware, device=device)
         self.config = config
         self.op = ParamSpMMOperator(csr, config,
                                     build_transpose=build_transpose,
