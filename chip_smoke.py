@@ -38,7 +38,12 @@ Runs from the root of a checkout and drives ``src/repro_torch`` only
    outputs and gradients on the card against the port on the CPU
    (``make_spmm_fn``, ``make_fused_spmm_fn`` with bias + relu, scale +
    leaky_relu and residual — bit-exact on integer operands —, and the
-   GAT message at 1 and 4 heads within ``rtol=1e-5, atol=1e-4``);
+   GAT message at 1 and 4 heads within ``rtol=1e-5, atol=1e-4``, one
+   slot-pass launch a backward).  The GAT backward's slot pass
+   (``csrc/gat_backward.cu``) against its plain version on the same CUDA
+   tensors, bit for bit, for every subset of its outputs, at 1, 4 and 8
+   heads on rmat13 (V ∈ {1, 2}) and on phase 6's 131k GAT pack, with its
+   time there beside its byte bound and the plain version's;
 4. serving — GCN then GIN at the published widths ([16, 64, 64, 64, 64,
    16], ``configs/gcn.py`` / ``configs/gin.py``) through
    ``GNNService(device="cuda")`` on ``corpus("serve")``'s rmat13, a
@@ -366,6 +371,7 @@ from __future__ import annotations
 import collections
 import contextlib
 import functools
+import itertools
 import json
 import os
 import subprocess
@@ -1485,6 +1491,16 @@ def _counts():
             "sddmm": sddmm_ops.launch_count("sddmm")}
 
 
+# the training paths' kernels: the three above and the GAT backward's slot
+# pass, which no other phase's bookkeeping holds
+TRAIN_KERNELS = KERNELS + ("gat_backward",)
+
+
+def _train_counts():
+    return dict(_counts(), gat_backward=sddmm_ops.launch_count(
+        "gat_backward"))
+
+
 def _reset_counts():
     ops.reset_launch_count()
     sddmm_ops.reset_launch_count()
@@ -1567,13 +1583,14 @@ def phase_autograd(device):
         x = [torch.from_numpy(rng.standard_normal(lead + (union.n_rows, d))
                               .astype(np.float32)) for _ in range(4)]
         want = _grads(f, x[:3], x[3])
-        before = _counts()
+        before = _train_counts()
         got = _grads(f, [a.to(device) for a in x[:3]], x[3].to(device))
         torch.cuda.synchronize()
-        ran = {k: v - before[k] for k, v in _counts().items()}
-        check(ran == {"paramspmm": 4, "sddmm_softmax": 1, "sddmm": 1},
+        ran = {k: v - before[k] for k, v in _train_counts().items()}
+        check(ran == {"paramspmm": 4, "sddmm_softmax": 1, "sddmm": 1,
+                      "gat_backward": 1},
               f"GAT message at H={H}: launches {ran}, expected 4 paramspmm "
-              "+ 1 sddmm_softmax + 1 sddmm")
+              "+ 1 sddmm_softmax + 1 sddmm + 1 gat_backward")
         for a, b in zip(got, want):
             a = a.cpu()
             check(bool(torch.isfinite(a).all()), f"GAT H={H}: not finite")
@@ -1586,24 +1603,146 @@ def phase_autograd(device):
     return worst
 
 
+def _slot_pass_operands(p, p_t, H, d, rng, device):
+    """A's steering, Aᵀ's side and the GAT backward's slot-pass operands
+    (logits, stats, dα, rowdot) from seeded ``(H, n, d)`` Q, K, Vf and
+    dOut on ``device`` (no head axis for H = 1)."""
+    steer = ops.device_steering(p, device)
+    t = engine.TransposeSide.build(p, p_t, device)
+    lead = (H,) if H > 1 else ()
+    Q, K, Vf, dOut = (torch.from_numpy(rng.standard_normal(
+        lead + (p.n_rows, d)).astype(np.float32)).to(device)
+        for _ in range(4))
+    g = _geo(p)
+    logits, rm, rs = sddmm_ops._stats_call(steer, Q, K, scale=d ** -0.5,
+                                           slope=SLOPE, **g)
+    out = ops._call(steer, Vf, vals=logits, rowmax=rm, rowsum=rs,
+                    dblk=p.config.dblk, **g)
+    dalpha = sddmm_ops._call(steer, dOut, Vf, **{k: g[k] for k in (
+        "n_blocks", "R", "V", "K", "n_rows")})
+    rowdot = engine._row_dot(dOut, out, p.n_blocks * p.config.R)
+    kw = dict(R=p.config.R, V=p.config.V, K=p.K, t_shape=t.shape,
+              scale=d ** -0.5, slope=SLOPE, dalpha=dalpha, rowdot=rowdot)
+    return steer, t, (logits, rm, rs), kw
+
+
+def _slot_pass_held(steer, t, stats, kw, what):
+    """The slot-pass kernel against its plain version on the same CUDA
+    tensors for every subset of its outputs: the largest gap in ulps
+    (0: bit-equal), checked 0, and Aᵀ slots without an edge +0."""
+    worst = 0
+    for needs in itertools.product((False, True), repeat=3):
+        if not any(needs):
+            continue
+        nd = needs[0] or needs[1]
+        args = dict(kw, need_q=needs[0], need_k=needs[1], need_v=needs[2],
+                    dalpha=kw["dalpha"] if nd else None,
+                    rowdot=kw["rowdot"] if nd else None)
+        want = sddmm_ops.gat_backward_plain(steer, t.src, *stats, **args)
+        n0 = sddmm_ops.launch_count("gat_backward")
+        # the kernel may hand dα's storage back as an Aᵀ output
+        got = sddmm_ops.gat_backward(steer, t.src, *stats, **dict(
+            args, dalpha=kw["dalpha"].clone() if nd else None))
+        torch.cuda.synchronize()
+        check(sddmm_ops.launch_count("gat_backward") == n0 + 1,
+              f"{what}: the slot pass did not launch its kernel")
+        for name, a, b in zip(("de", "de_T", "alpha_T"), got, want):
+            if a is None:
+                continue
+            ulps = int((a.view(torch.int32).long()
+                        - b.view(torch.int32).long()).abs().max())
+            worst = max(worst, ulps)
+            check(ulps == 0, f"{what} {needs} {name}: {ulps} ulps from "
+                  "the plain version")
+            if name != "de":
+                empty = a.reshape(a.shape[:-3] + (-1,))[..., t.src < 0]
+                check(not bool(empty.view(torch.int32).any()),
+                      f"{what} {name}: an Aᵀ slot without an edge is not "
+                      "+0")
+    return worst
+
+
+def phase_gat_backward(device):
+    """Phase 3, the GAT backward's slot pass (``csrc/gat_backward.cu``):
+    the kernel against its plain version on the same CUDA tensors, bit for
+    bit, for every subset of its three outputs: at 1, 4 and 8 heads and
+    V = 1 and 2 on rmat13's serving union, and at 1, 4 and 8 heads on
+    phase 6's 131k GAT training pack; there also its time (CUDA events and
+    the profiler's device time) beside its byte bound and the plain
+    version's.  Returns (cases, worst ulp gap, timing rows)."""
+    rng = np.random.default_rng(41)
+    union = _union(rmat(13, 8, seed=31), 8, seed=5)
+    cases = worst = 0
+    for V in (1, 2):
+        p = build_pcsr(union.indptr, union.indices, union.data,
+                       union.n_rows, union.n_cols, SpMMConfig(V=V, W=16 // V))
+        p_t = transpose_pcsr(p)
+        for H in (1, 4, 8):
+            steer, t, stats, kw = _slot_pass_operands(p, p_t, H, 64 // H,
+                                                      rng, device)
+            worst = max(worst, _slot_pass_held(
+                steer, t, stats, kw, f"slot pass rmat13 V={V} H={H}"))
+            cases += 7
+    task = _large_task()
+    op = ParamSpMM(task.csr.gcn_normalize(), 64, op="gat",
+                   build_transpose=True, device=device)
+    p, p_t = op.op.pcsr, op.op.pcsr_t
+    rows = []
+    for H in (1, 4, 8):
+        steer, t, stats, kw = _slot_pass_operands(p, p_t, H, 64 // H, rng,
+                                                  device)
+        worst = max(worst, _slot_pass_held(steer, t, stats, kw,
+                                           f"slot pass 131k H={H}"))
+        cases += 7
+        n_a, n_t = stats[0].numel(), t.src.numel() * H
+        # each input read once, each output written once: logits, dα,
+        # the stats and rowdot, the steering rows and the map; de, de_T,
+        # α_T
+        nbytes = 4 * (3 * n_a + 2 * n_t + 3 * stats[1].numel()
+                      + t.src.numel() + steer.lrow.numel()
+                      + steer.trow.numel())
+        bound_ms, _ = _bound(nbytes, 0)
+        plain = lambda: sddmm_ops.gat_backward_plain(steer, t.src, *stats,
+                                                     **kw)
+        plain_ms = cuda_ms(plain, reps=5, warmup=1)
+        # dα's storage comes back as α_T: the timed calls overwrite it
+        fn = lambda: sddmm_ops.gat_backward(steer, t.src, *stats, **kw)
+        row = {"H": H, "nodes": p.n_rows, "config": list(p.config.astuple()),
+               "slots_a": n_a // H, "slots_t": n_t // H,
+               "ms": cuda_ms(fn, reps=20),
+               "device_ms": device_ms(fn, "gat_backward"),
+               "bound_ms": bound_ms, "plain_ms": plain_ms}
+        rows.append(row)
+        dev = row["device_ms"] or row["ms"]
+        print(f"[gat backward] 131k H={H}: kernel {row['ms']:.4f} ms "
+              f"(device {_ms(row['device_ms'])}), bound {bound_ms:.4f} ms "
+              f"({dev / bound_ms:.2f}×), plain {row['plain_ms']:.4f} ms")
+    print(f"[gat backward] {cases} kernel-vs-plain cases (every subset of "
+          f"de, de_T, α_T), all bit-equal (largest gap {worst} ulps); Aᵀ "
+          "slots without an edge +0")
+    return cases, worst, rows
+
+
 # ------------------------------------------------------------- training
 def launches_per_step(model, n_layers):
     """Kernel launches one training step makes, from the model's
     structure.  GCN/GIN: every layer's aggregation forward, and its dB
     backward on the transpose PCSR except layer 0's (the features need no
     gradient).  GAT, per layer: the SDDMM → softmax stats and the
-    prologue SpMM forward; the raw SDDMM (dα) and three SpMMs (dQ, dK,
-    dVf) backward."""
+    prologue SpMM forward; the raw SDDMM (dα), the slot pass and three
+    SpMMs (dQ, dK, dVf) backward."""
     if model == "gat":
         return {"paramspmm": 4 * n_layers, "sddmm_softmax": n_layers,
-                "sddmm": n_layers}
-    return {"paramspmm": 2 * n_layers - 1, "sddmm_softmax": 0, "sddmm": 0}
+                "sddmm": n_layers, "gat_backward": n_layers}
+    return {"paramspmm": 2 * n_layers - 1, "sddmm_softmax": 0, "sddmm": 0,
+            "gat_backward": 0}
 
 
 def eval_launches(model, n_layers):
     """Launches of the evaluation forward after the last step."""
     return {"paramspmm": n_layers,
-            "sddmm_softmax": n_layers if model == "gat" else 0, "sddmm": 0}
+            "sddmm_softmax": n_layers if model == "gat" else 0, "sddmm": 0,
+            "gat_backward": 0}
 
 
 # profiler kernel names → family; a split group's merge kernel is its
@@ -1611,7 +1750,8 @@ def eval_launches(model, n_layers):
 _FAMILIES = (("paramspmm", ("paramspmm_kernel", "paramspmm_merge_kernel")),
              ("sddmm_softmax", ("sddmm_softmax_kernel",
                                 "sddmm_softmax_merge_kernel")),
-             ("sddmm", ("sddmm_kernel",)))
+             ("sddmm", ("sddmm_kernel",)),
+             ("gat_backward", ("gat_backward_slots",)))
 
 
 def _kernel_family(name):
@@ -1635,9 +1775,9 @@ def _train_counted(task, name, device, steps, on_step=None):
     res = train_gnn(task, model=model, hidden=hidden, n_layers=layers,
                     steps=steps, seed=0, heads=heads, device=device,
                     on_step=on_step)
-    counts = _counts()
+    counts = _train_counts()
     want = {k: steps * per_step[k] + eval_launches(model, layers)[k]
-            for k in KERNELS}
+            for k in TRAIN_KERNELS}
     check(counts == want, f"{name}: launches {counts}, the model's "
           f"structure gives {want} ({per_step} per step × {steps} + eval)")
     return res, counts
@@ -1686,9 +1826,8 @@ def train_on_card(task, name, device, steps):
     # profiler's time per wrapper launch (main kernel and merge together,
     # over the main kernel's count) × the launches a step makes (the
     # wrappers' counts, checked above), the rest summed over the window
-    total = {"paramspmm": 0.0, "sddmm_softmax": 0.0, "sddmm": 0.0,
-             "other": 0.0}
-    seen = dict.fromkeys(KERNELS, 0)
+    total = dict.fromkeys(TRAIN_KERNELS + ("other",), 0.0)
+    seen = dict.fromkeys(TRAIN_KERNELS, 0)
     for e in saved[0]:
         t = getattr(e, "device_time_total", None)
         if t is None:
@@ -1699,24 +1838,24 @@ def train_on_card(task, name, device, steps):
         total[fam] += t / 1e3
         if main:
             seen[fam] += e.count
-    check(all(seen[k] > 0 for k in KERNELS if per_step[k]),
+    check(all(seen[k] > 0 for k in TRAIN_KERNELS if per_step[k]),
           f"{name}: the profiler saw no launch of {seen} (device time "
           "not measured)")
     dev = {k: total[k] / seen[k] * per_step[k] if seen[k] else 0.0
-           for k in KERNELS}
+           for k in TRAIN_KERNELS}
     dev["other"] = total["other"] / (steps - 1)
-    if any(seen[k] != (steps - 1) * per_step[k] for k in KERNELS):
+    if any(seen[k] != (steps - 1) * per_step[k] for k in TRAIN_KERNELS):
         print(f"[profile] {name}: the profiler recorded {seen} launches "
               f"of ours in {steps - 1} steps, the wrappers "
               f"{ {k: (steps - 1) * v for k, v in per_step.items()} }")
-    launches = {k: counts[k] + counts_p[k] for k in KERNELS}
+    launches = {k: counts[k] + counts_p[k] for k in TRAIN_KERNELS}
     return (res, per_step, dev, spans, res_p.seconds_per_step * 1e3,
             launches)
 
 
 def _train_line(tag, model, task, res, per_step, dev, spans, prof_ms):
     ms = res.seconds_per_step * 1e3
-    kern = sum(dev[k] for k in KERNELS)
+    kern = sum(dev[k] for k in TRAIN_KERNELS)
     busy = kern + dev["other"]
     print(f"[{tag}] {model}: {task.csr.n_rows} nodes, config "
           f"{res.config.astuple()}; launches per step {per_step}; "
@@ -1752,7 +1891,7 @@ def phase_train(device, *, steps=10):
         torch.ones(1, device=device).add_(1)            # outside any step
         torch.cuda.synchronize()
     task = community_task()
-    rows, launches = [], dict.fromkeys(KERNELS, 0)
+    rows, launches = [], dict.fromkeys(TRAIN_KERNELS, 0)
     for name in ("gcn", "gin", "gat", "gat_mh"):
         model, heads = name.split("_")[0], TRAIN_HEADS.get(name, 1)
         hidden, layers = TRAIN_SHAPES[model]
@@ -1760,7 +1899,7 @@ def phase_train(device, *, steps=10):
                         steps=steps, seed=0, heads=heads, device="cpu")
         res, per_step, dev, spans, prof_ms, ran = train_on_card(
             task, name, device, steps)
-        for k in KERNELS:
+        for k in TRAIN_KERNELS:
             launches[k] += ran[k]
         check(res.config == cpu.config, f"{name}: configs differ")
         check(np.isfinite(res.losses).all(), f"{name}: loss not finite")
@@ -1837,12 +1976,12 @@ def phase_train_large(device, *, steps=5):
     print(f"[train large] task: {task.csr.n_rows} nodes, {task.csr.nnz} "
           f"nonzeros, max degree {int(task.csr.degrees.max())}, "
           f"{task.n_classes} classes ({time.perf_counter() - t0:.1f} s)")
-    rows, launches = [], dict.fromkeys(KERNELS, 0)
+    rows, launches = [], dict.fromkeys(TRAIN_KERNELS, 0)
     for model in ("gcn", "gin", "gat"):
         t0 = time.perf_counter()
         res, per_step, dev, spans, prof_ms, ran = train_on_card(
             task, model, device, steps)
-        for k in KERNELS:
+        for k in TRAIN_KERNELS:
             launches[k] += ran[k]
         check(np.isfinite(res.losses).all(), f"{model}: loss not finite")
         check(res.losses[-1] < res.losses[0],
@@ -6987,6 +7126,10 @@ def main() -> int:
     t0 = time.perf_counter()
     err_autograd = phase_autograd(device)
     print(f"[autograd] in {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    _, _, slot_rows = phase_gat_backward(device)
+    print(f"[gat backward] in {time.perf_counter() - t0:.1f} s")
+    print("[gat backward json] " + json.dumps(slot_rows))
 
     t0 = time.perf_counter()
     launches = sum(phase_serve(m, device) for m in ("gcn", "gin"))

@@ -152,14 +152,15 @@ def attend_scores(scores, mask, rows, n_segments: int, *, dim_k: int,
 class TransposeSide:
     """What the GAT backward needs beyond A's steering, on one device:
     the covered steering and geometry of Aᵀ's PCSR (``pcsr_t``) and the
-    slot transfer map, as flat indices into the *covered* layouts (their
-    first entries are the uncovered ones ``slot_transfer_map`` indexes)."""
+    slot map ``src`` onto it: for each of Aᵀ's covered slots, A's covered
+    flat slot holding the same edge, or −1 where the slot holds none (the
+    covered layouts begin with the uncovered ones ``slot_transfer_map``
+    indexes)."""
 
     steer: object               # kernels.paramspmm.ops.Steering of Aᵀ
     geo: dict                   # n_blocks, R, V, K, dblk, n_rows of Aᵀ
     shape: tuple                # covered slot shape (C_t, V, K_t)
-    f_idx: torch.Tensor         # (nnz,) int64 into A's slots
-    t_idx: torch.Tensor         # (nnz,) int64 into Aᵀ's slots
+    src: torch.Tensor           # (C_t·V·K_t,) int32 into A's slots, or −1
 
     @staticmethod
     def build(pcsr: PCSR, pcsr_t: PCSR, device) -> "TransposeSide":
@@ -168,36 +169,25 @@ class TransposeSide:
         with span("gat.transpose_side"):
             f_idx, t_idx = slot_transfer_map(pcsr, pcsr_t)
             cfg = pcsr_t.config
+            shape = (pcsr_t.covered_num_chunks, cfg.V, pcsr_t.K)
+            src = np.full(int(np.prod(shape)), -1, dtype=np.int32)
+            src[t_idx] = f_idx
             return TransposeSide(
                 steer=device_steering(pcsr_t, device),
                 geo=dict(n_blocks=pcsr_t.n_blocks, R=cfg.R, V=cfg.V,
                          K=pcsr_t.K, dblk=cfg.dblk, n_rows=pcsr_t.n_rows),
-                shape=(pcsr_t.covered_num_chunks, cfg.V, pcsr_t.K),
-                f_idx=torch.as_tensor(f_idx, dtype=torch.int64,
-                                      device=device),
-                t_idx=torch.as_tensor(t_idx, dtype=torch.int64,
-                                      device=device))
-
-    def to_transpose(self, x):
-        """Re-lay a ``(..., C, V, K)`` slot tensor of A onto Aᵀ's covered
-        slots; every slot that holds no edge is 0."""
-        lead = x.shape[:-3]
-        n = self.shape[0] * self.shape[1] * self.shape[2]
-        out = x.new_zeros(lead + (n,))
-        out[..., self.t_idx] = x.reshape(lead + (-1,))[..., self.f_idx]
-        return out.reshape(lead + self.shape)
+                shape=shape, src=torch.as_tensor(src, device=device))
 
 
-def _row_dot(dOut, out, rows, n_segments: int):
-    """Per-slot broadcast of Σ_j α_ij·dα_ij over each destination row i,
-    taken as dOut_i · out_i (dα_ij = dOut_i · Vf_j and out_i = Σ_j α_ij
-    Vf_j): a product with the forward's output and a gather, no scatter.
-    ``dOut`` and ``out`` are ``(..., n_rows, dv)``, ``rows`` the ``(C, V,
-    K)`` slot rows; rows past ``n_rows`` (padding) give 0.  With no
-    atomic in the sum, two calls give the same bits."""
+def _row_dot(dOut, out, n_segments: int):
+    """Σ_j α_ij·dα_ij for each destination row i, taken as dOut_i · out_i
+    (dα_ij = dOut_i · Vf_j and out_i = Σ_j α_ij Vf_j): a product with the
+    forward's output, no scatter.  ``dOut`` and ``out`` are ``(...,
+    n_rows, dv)``; returns ``(..., n_segments)``, rows past ``n_rows``
+    (padding) 0.  With no atomic in the sum, two calls give the same
+    bits."""
     d = (dOut * out).sum(-1)
-    d = torch.nn.functional.pad(d, (0, n_segments - d.shape[-1]))
-    return d[..., rows]
+    return torch.nn.functional.pad(d, (0, n_segments - d.shape[-1]))
 
 
 def _pad_rows(x, n: int):
@@ -225,20 +215,21 @@ class _GATMessage(torch.autograd.Function):
     residuals are the logits, the two row stats and the output.
     Backward, flash style (the reference's ``f_bwd``)::
 
-        α   = exp(logits − rowmax)/rowsum        (recomputed)
         dα  = SDDMM(pcsr, dOut, Vf)               (raw SDDMM kernel)
+        α   = exp(logits − rowmax)/rowsum        (recomputed)
         dx  = α ⊙ (dα − dOut·out)                 (softmax vjp)
         de  = dx · scale · LeakyReLU'(x)          (sign of the logits)
         dQ  = SpMM(pcsr,  de, K)                  (ParamSpMM, vals given)
         dK  = SpMM(pcsrᵀ, T(de), Q)
         dVf = SpMM(pcsrᵀ, T(α), dOut)
 
-    ``T`` re-lays slot tensors onto Aᵀ's covered slots
-    (``TransposeSide.to_transpose``).  The vjp's Σ_row α·dα is dOut·out
-    per row (``_row_dot``): no atomic sum, so the backward is
-    deterministic.  Masked, padding and coverage slots carry logit −inf,
-    so α = 0 there, and the raw SDDMM writes 0 there, so they add exact
-    zeros."""
+    ``T`` re-lays slot tensors onto Aᵀ's covered slots through
+    ``TransposeSide.src``.  α, dx, de, T(de) and T(α) are one slot pass
+    (``kernels.sddmm.ops.gat_backward``: one kernel launch on CUDA
+    tensors).  The vjp's Σ_row α·dα is dOut·out per row (``_row_dot``): no
+    atomic sum, so the backward is deterministic.  Masked, padding and
+    coverage slots carry logit −inf, so α = 0 there, and the raw SDDMM
+    writes 0 there, so they add exact zeros."""
 
     @staticmethod
     def forward(ctx, Q, K_mat, Vf, spec: _GATSpec):
@@ -269,31 +260,29 @@ class _GATMessage(torch.autograd.Function):
         g, steer = spec.geo, spec.steer
         R, V, K = g["R"], g["V"], g["K"]
         dOut = dOut.contiguous()
-        alpha = normalize_from_stats(logits, rowmax, rowsum, steer.lrow,
-                                     steer.trow, R=R, V=V, K=K)
-        dQ = dK = dVf = None
+        dalpha = rowdot = None
+        scale = 1.0
         if need_q or need_k:
             # 1/√d in float32, as the reference computes it
             scale = (1.0 / torch.sqrt(torch.tensor(
                 float(Q.shape[-1]), dtype=torch.float32))).item()
             dalpha = sddmm_ops._call(steer, dOut, Vf, n_blocks=g["n_blocks"],
                                      R=R, V=V, K=K, n_rows=g["n_rows"])
-            rows = _slot_rows(steer.lrow, steer.trow, V=V, R=R, K=K)
-            dx = alpha * (dalpha - _row_dot(dOut, out, rows,
-                                            g["n_blocks"] * R))
-            # LeakyReLU' from the saved logits: LeakyReLU keeps the sign,
-            # and masked slots (−inf) have dx = 0, so their branch is inert
-            de = dx * scale * torch.where(logits >= 0, 1.0, spec.slope)
-            if need_q:
-                dQ = _pad_rows(spmm_ops._call(steer, K_mat, vals=de, **g),
-                               Q.shape[-2])
-            if need_k:
-                dK = _pad_rows(spmm_ops._call(t.steer, Q,
-                                              vals=t.to_transpose(de),
-                                              **t.geo), K_mat.shape[-2])
+            rowdot = _row_dot(dOut, out, g["n_blocks"] * R)
+        de, de_t, alpha_t = sddmm_ops.gat_backward(
+            steer, t.src, logits, rowmax, rowsum, R=R, V=V, K=K,
+            t_shape=t.shape, scale=scale, slope=spec.slope, dalpha=dalpha,
+            rowdot=rowdot, need_q=need_q, need_k=need_k, need_v=need_v)
+        del dalpha          # read by the slot pass only; may hold de_t/α_t
+        dQ = dK = dVf = None
+        if need_q:
+            dQ = _pad_rows(spmm_ops._call(steer, K_mat, vals=de, **g),
+                           Q.shape[-2])
+        if need_k:
+            dK = _pad_rows(spmm_ops._call(t.steer, Q, vals=de_t, **t.geo),
+                           K_mat.shape[-2])
         if need_v:
-            dVf = _pad_rows(spmm_ops._call(t.steer, dOut,
-                                           vals=t.to_transpose(alpha),
+            dVf = _pad_rows(spmm_ops._call(t.steer, dOut, vals=alpha_t,
                                            **t.geo), Vf.shape[-2])
         return dQ, dK, dVf, None
 

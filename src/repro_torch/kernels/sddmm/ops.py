@@ -26,6 +26,15 @@ single-head steering.  Stats are dense float32 ``(n_blocks·R,)`` per head
 ``sddmm_plain``: gather + dot on the real slots), on a CUDA tensor the
 kernel in ``repro_torch/csrc/sddmm_softmax.cu`` or ``csrc/sddmm.cu``, or
 an error.  Each kernel launch adds one to its ``launch_count(name)``.
+
+``gat_backward(steer, src, logits, rowmax, rowsum, ...)`` is the GAT
+backward's slot pass between the raw SDDMM (dα) and the three backward
+SpMMs: α from the stats, the softmax vjp ``dx = α·(dα − rowdot[row])``,
+``de = dx·scale·LeakyReLU'(logit)``, and the transfer of ``de`` and α onto
+Aᵀ's covered slots through the int32 map ``src`` (A's covered flat slot of
+each Aᵀ slot, −1 where it holds no edge, which reads 0).  On a CPU tensor
+its plain version (``gat_backward_plain``), on a CUDA tensor one launch of
+``csrc/gat_backward.cu``, bit-equal to it.
 """
 from __future__ import annotations
 
@@ -46,13 +55,13 @@ from repro_torch.kernels.paramspmm.ops import (Steering, SteeringArgs,
 # warp's lanes; sddmm's Q tile (R rows, d tiled to fit) is sized for it
 MAX_R = 32
 
-KERNELS = ("sddmm_softmax", "sddmm")
+KERNELS = ("sddmm_softmax", "sddmm", "gat_backward")
 _launches = dict.fromkeys(KERNELS, 0)
 
 
 def launch_count(name: str = "sddmm_softmax") -> int:
-    """Launches of kernel ``name`` (``"sddmm_softmax"`` or ``"sddmm"``)
-    since the last ``reset_launch_count()``."""
+    """Launches of kernel ``name`` (``"sddmm_softmax"``, ``"sddmm"`` or
+    ``"gat_backward"``) since the last ``reset_launch_count()``."""
     return _launches[name]
 
 
@@ -139,6 +148,9 @@ _ENTRY = {           # kernel → (C entry point, its argument types)
     "sddmm": ("repro_sddmm_f32",
               [ctypes.POINTER(SteeringArgs), _P, _I, _P] + [_I] * 7
               + [_P, _P]),
+    "gat_backward": ("repro_gat_backward_f32",
+                     [_P] * 8 + [ctypes.c_longlong] * 2 + [_I] * 5
+                     + [_F, _F] + [_P] * 5),
 }
 _LIBS: dict = {}
 
@@ -150,7 +162,8 @@ def _lib(name: str):
         from repro_torch.kernels import build
         lib = build.load(name)
         fn_name, argtypes = _ENTRY[name]
-        check_steering_args(lib, name)
+        if name != "gat_backward":          # it takes no SteeringArgs
+            check_steering_args(lib, name)
         if name == "sddmm_softmax":
             lib.repro_sddmm_sum_bytes.restype = ctypes.c_int
             # the Σexp type the library was built with (float32 as
@@ -321,3 +334,132 @@ def sddmm(pcsr: PCSR, Q, K):
     return _call(device_steering(pcsr, Q.device), Q, K,
                  n_blocks=pcsr.n_blocks, R=cfg.R, V=cfg.V, K=pcsr.K,
                  n_rows=pcsr.n_rows)
+
+
+def slot_transfer(x, src, shape):
+    """``x`` ``([H,] C, V, K)`` over A's covered slots, re-laid onto Aᵀ's
+    covered slots ``shape``: slot t takes ``x``'s flat slot ``src[t]``,
+    and exactly 0 where ``src[t]`` is −1 (no edge)."""
+    lead = x.shape[:-3]
+    flat = x.reshape(lead + (-1,)).index_select(-1, src.clamp_min(0).long())
+    return torch.where(src >= 0, flat, 0.0).reshape(lead + tuple(shape))
+
+
+def gat_backward_plain(steer: Steering, src, logits, rowmax, rowsum, *, R,
+                       V, K, t_shape, scale: float, slope: float,
+                       dalpha=None, rowdot=None, need_q=True, need_k=True,
+                       need_v=True):
+    """The slot pass's plain PyTorch version, on any device; returns
+    ``(de, de_T, α_T)``, each None unless asked for."""
+    alpha = normalize_from_stats(logits, rowmax, rowsum, steer.lrow,
+                                 steer.trow, R=R, V=V, K=K)
+    de = None
+    if need_q or need_k:
+        rows = _slot_rows(steer.lrow, steer.trow, V=V, R=R, K=K)
+        dx = alpha * (dalpha - rowdot[..., rows])
+        # LeakyReLU' from the saved logits: LeakyReLU keeps the sign, and
+        # masked slots (−inf) have dx = 0, so their branch is inert
+        de = dx * scale * torch.where(logits >= 0, 1.0, slope)
+    return (de if need_q else None,
+            slot_transfer(de, src, t_shape) if need_k else None,
+            slot_transfer(alpha, src, t_shape) if need_v else None)
+
+
+def _gat_backward_launch(steer: Steering, src, logits, rowmax, rowsum, *,
+                         R, V, K, t_shape, scale, slope, dalpha, rowdot,
+                         need_q, need_k, need_v):
+    """Check the operands and launch the slot-pass kernel."""
+    lead = tuple(logits.shape[:-3])
+    H = lead[0] if lead else 1
+    C = int(steer.trow.shape[0])
+    n_seg = rowmax.shape[-1]
+    t_shape = tuple(t_shape)
+    n_a, n_t = C * V * K, int(np.prod(t_shape))
+    need_dx = need_q or need_k
+    shapes = [("logits", logits, lead + (C, V, K)),
+              ("rowmax", rowmax, lead + (n_seg,)),
+              ("rowsum", rowsum, lead + (n_seg,))]
+    if need_dx:
+        shapes += [("dalpha", dalpha, logits.shape),
+                   ("rowdot", rowdot, rowmax.shape)]
+    for name, t, shape in shapes:
+        if tuple(t.shape) != tuple(shape):
+            raise ValueError(f"gat_backward: {name} must be {tuple(shape)}, "
+                             f"got {tuple(t.shape)}")
+        if t.dtype != torch.float32 or not t.is_contiguous():
+            raise TypeError(f"CUDA gat_backward takes {name} as contiguous "
+                            f"float32, got {t.dtype}")
+    for name, t in (("src", src), ("lrow", steer.lrow), ("trow", steer.trow)):
+        if t.dtype != torch.int32 or not t.is_contiguous():
+            raise TypeError(f"CUDA gat_backward takes {name} as contiguous "
+                            f"int32, got {t.dtype}")
+    if tuple(src.shape) != (n_t,):
+        raise ValueError(f"gat_backward: src must be ({n_t},), got "
+                         f"{tuple(src.shape)}")
+    devices = {t.device for t in (logits, rowmax, rowsum, src, steer.lrow,
+                                  steer.trow)}
+    devices |= {t.device for t in (dalpha, rowdot) if t is not None}
+    if len(devices) != 1:
+        raise ValueError(f"operands on several devices: {devices}")
+    dev = logits.device
+    empty = lambda shape: torch.empty(shape, dtype=torch.float32, device=dev)
+    # dα is dead once the pass has read it (the kernel's second phase never
+    # does), so its storage holds the first Aᵀ output where it fits
+    spare = dalpha if need_dx else None
+
+    def t_out():
+        nonlocal spare
+        if spare is not None and spare.numel() >= H * n_t:
+            out, spare = spare.view(-1)[:H * n_t].view(lead + t_shape), None
+            return out
+        return empty(lead + t_shape)
+
+    de = empty(logits.shape) if need_q else None
+    de_t = t_out() if need_k else None
+    alpha_t = t_out() if need_v else None
+    n_p = int(need_k) + int(need_v)
+    work = empty((n_a * H * n_p,)) if n_p else None
+    if H == 0 or not (need_q or n_p):
+        return de, de_t, alpha_t
+    lib = _lib("gat_backward")
+    ptr = lambda t: None if t is None else t.data_ptr()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = lib.repro_gat_backward_f32(
+            ptr(logits), ptr(dalpha if need_dx else None), ptr(rowmax),
+            ptr(rowsum), ptr(rowdot if need_dx else None), ptr(steer.lrow),
+            ptr(steer.trow), ptr(src), n_a, n_t, H, V, K, R, n_seg,
+            float(scale), float(slope), ptr(de), ptr(de_t), ptr(alpha_t),
+            ptr(work), stream)
+    if err != 0:
+        raise RuntimeError("gat_backward kernel launch failed: "
+                           + lib.repro_cuda_error_string(err).decode())
+    count_launches("gat_backward")
+    return de, de_t, alpha_t
+
+
+def gat_backward(steer: Steering, src, logits, rowmax, rowsum, *, R, V, K,
+                 t_shape, scale: float = 1.0, slope: float = 0.2,
+                 dalpha=None, rowdot=None, need_q=True, need_k=True,
+                 need_v=True):
+    """The GAT backward's slot pass over A's covered steering ``steer``:
+    ``(de, de_T, α_T)``, each None unless asked for (``need_q``: ``de`` in
+    A's layout, ``need_k``: ``de_T`` and ``need_v``: ``α_T`` on Aᵀ's
+    covered slots ``t_shape``).  ``logits`` are the forward's ``([H,] C,
+    V, K)``, the stats ``([H,] n_blocks·R)``; ``de`` needs ``dalpha`` (the
+    raw SDDMM's dα, ``logits``' shape) and ``rowdot`` (dOut·out per row,
+    the stats' shape).  ``src`` is ``TransposeSide.src``.  The plain
+    version for CPU tensors, one launch of the CUDA kernel for CUDA ones,
+    which may return an Aᵀ output in ``dalpha``'s storage: the caller
+    passes a dα it does not read again."""
+    if (need_q or need_k) and (dalpha is None or rowdot is None):
+        raise ValueError("gat_backward: de needs dalpha and rowdot")
+    kw = dict(R=R, V=V, K=K, t_shape=t_shape, scale=scale, slope=slope,
+              dalpha=dalpha, rowdot=rowdot, need_q=need_q, need_k=need_k,
+              need_v=need_v)
+    if logits.device.type == "cpu":
+        return gat_backward_plain(steer, src, logits, rowmax, rowsum, **kw)
+    if logits.device.type != "cuda":
+        raise ValueError(f"gat_backward runs on cpu or cuda, not "
+                         f"{logits.device}")
+    return _gat_backward_launch(steer, src, logits, rowmax, rowsum, **kw)

@@ -379,9 +379,10 @@ def test_gat_row_dot_equals_the_index_add_row_sum(heads):
            + rows.reshape(1, -1))
     old = flat.new_zeros(flat.shape[0] * n_seg).index_add_(
         0, seg.reshape(-1), flat.reshape(-1))[seg].reshape(alpha.shape)
-    new = tengine._row_dot(dOut, out, rows, n_seg)
+    # _row_dot gives each row's sum; the slot pass gathers it per slot
+    new = tengine._row_dot(dOut, out, n_seg)[..., rows]
     assert new.shape == alpha.shape
-    assert torch.equal(new, tengine._row_dot(dOut, out, rows, n_seg))
+    assert torch.equal(new, tengine._row_dot(dOut, out, n_seg)[..., rows])
     np.testing.assert_allclose(new.numpy(), old.numpy(), rtol=0, atol=ATOL)
 
 

@@ -202,8 +202,8 @@ def test_entry_points_default_to_cuda(monkeypatch):
 
 def test_kernel_sources_build_targets_hopper():
     from repro_torch.kernels import build
-    assert build.sources() == ["paramspmm", "sddmm", "sddmm_softmax",
-                               "selective_scan"]
+    assert build.sources() == ["gat_backward", "paramspmm", "sddmm",
+                               "sddmm_softmax", "selective_scan"]
     assert "-gencode=arch=compute_90a,code=sm_90a" in build.NVCC_FLAGS
     assert "--use_fast_math" not in build.NVCC_FLAGS
     for name, tpu in (("paramspmm", "paramspmm/kernel.py"),
@@ -214,6 +214,10 @@ def test_kernel_sources_build_targets_hopper():
         src = (build.CSRC_DIR / f"{name}.cu").read_text()
         assert "torch/extension.h" not in src
         assert f"src/repro/kernels/{tpu}" in src
+    # the GAT backward's slot pass replaces no TPU kernel, and says so
+    src = (build.CSRC_DIR / "gat_backward.cu").read_text()
+    assert "torch/extension.h" not in src
+    assert "Replaces no TPU kernel" in src
     # the build directory is one git ignores
     ignored = (ROOT / ".gitignore").read_text().split()
     assert "build/" in ignored

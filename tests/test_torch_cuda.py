@@ -17,7 +17,9 @@ slot without a stored nonzero exactly 0, at every load width and a d wider
 than its Q tile, with split work units and on a hub graph; a CUDA call
 launches the kernel and never reaches the plain version.  The training operators'
 gradients on the card match the port on the CPU (bit-exact with integer
-operands for the SpMMs, ``rtol=1e-5, atol=1e-4`` otherwise), and a short
+operands for the SpMMs, ``rtol=1e-5, atol=1e-4`` otherwise), the GAT
+backward's slot pass gives its plain version's bits for every subset of
+its outputs (Aᵀ slots without an edge +0), and a short
 ``train_gnn`` on the card follows the CPU's losses within ``rtol=1e-4``.
 The ParamSpMM and SDDMM → softmax kernels are also held with work units
 cut to a few real slots (every real group split, partials merged in unit
@@ -625,15 +627,65 @@ def test_gat_message_grads_on_card_match_cpu(cuda_device, cfg, H):
     cpu[0][..., 60, :] = 0.0                     # a row of zero logits
     f = engine.make_gat_message_fn(p, p_t)
     want = _grads(f, cpu[:3], cpu[3])
-    before = (ops.launch_count(), sddmm_ops.launch_count("sddmm_softmax"),
-              sddmm_ops.launch_count("sddmm"))
+    counts = lambda: (ops.launch_count(),
+                      *(sddmm_ops.launch_count(k) for k in sddmm_ops.KERNELS))
+    before = counts()
     got = _grads(f, [a.to(cuda_device) for a in cpu[:3]],
                  cpu[3].to(cuda_device))
     torch.cuda.synchronize()
-    after = (ops.launch_count(), sddmm_ops.launch_count("sddmm_softmax"),
-             sddmm_ops.launch_count("sddmm"))
-    assert tuple(a - b for a, b in zip(after, before)) == (4, 1, 1)
+    after = counts()
+    # paramspmm, sddmm_softmax, sddmm, gat_backward (the slot pass)
+    assert tuple(a - b for a, b in zip(after, before)) == (4, 1, 1, 1)
     _assert_close(got, want, False)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cfg", CONFIGS[::3], ids=lambda c: str(c.astuple()))
+@pytest.mark.parametrize("H", [None, 1, 8])
+def test_gat_backward_slot_pass_matches_plain_bit_for_bit(cuda_device, cfg,
+                                                          H):
+    """The slot-pass kernel gives its plain version's bits on the same
+    CUDA tensors for every subset of its outputs; Aᵀ slots without an edge
+    read +0, and a CUDA call never reaches the plain version."""
+    p = _pack(cfg, False, explicit_zeros=True)
+    p_t = transpose_pcsr(p)
+    steer = ops.device_steering(p, cuda_device)
+    t = engine.TransposeSide.build(p, p_t, cuda_device)
+    g = torch.Generator(device=cuda_device).manual_seed(3)
+    lead = () if H is None else (H,)
+    Q, K, Vf, dOut = (torch.randn(lead + (90, 16), generator=g,
+                                  device=cuda_device) for _ in range(4))
+    geo = dict(n_blocks=p.n_blocks, R=cfg.R, V=cfg.V, K=p.K, n_rows=90)
+    logits, rm, rs = sddmm_ops._stats_call(steer, Q, K, scale=0.25, **geo)
+    out = ops._call(steer, Vf, vals=logits, rowmax=rm, rowsum=rs,
+                    dblk=cfg.dblk, **geo)
+    dalpha = sddmm_ops._call(steer, dOut, Vf, **geo)
+    rowdot = engine._row_dot(dOut, out, p.n_blocks * cfg.R)
+    kw = dict(R=cfg.R, V=cfg.V, K=p.K, t_shape=t.shape, scale=0.25,
+              slope=0.2)
+    for nq, nk, nv in [(q, k, v) for q in (0, 1) for k in (0, 1)
+                       for v in (0, 1) if q or k or v]:
+        nd = bool(nq or nk)
+        args = dict(kw, need_q=bool(nq), need_k=bool(nk), need_v=bool(nv),
+                    dalpha=dalpha if nd else None,
+                    rowdot=rowdot if nd else None)
+        want = sddmm_ops.gat_backward_plain(steer, t.src, logits, rm, rs,
+                                            **args)
+        before = sddmm_ops.launch_count("gat_backward")
+        # the kernel may hand dα's storage back as an Aᵀ output
+        got = sddmm_ops.gat_backward(steer, t.src, logits, rm, rs,
+                                     **dict(args, dalpha=dalpha.clone()
+                                            if nd else None))
+        torch.cuda.synchronize()
+        assert sddmm_ops.launch_count("gat_backward") == before + 1
+        for a, b in zip(got, want):
+            assert (a is None) == (b is None)
+            if a is not None:
+                assert torch.equal(a.view(torch.int32), b.view(torch.int32))
+        for x in got[1:]:
+            if x is not None:
+                empty = x.reshape(x.shape[:-3] + (-1,))[..., t.src < 0]
+                assert not bool(empty.view(torch.int32).any())
 
 
 @pytest.mark.cuda
