@@ -47,7 +47,10 @@ when a config is given) and ``pack.pcsr`` (two ``pcsr.build``);
 ``gnn.first_step`` (step 0: kernel build and load, allocator growth; for
 GAT also ``gat.transpose_side``, Aᵀ's steering and slot transfer map,
 built at the first backward) and ``gnn.step`` per later step, each
-holding, with ``step=``, ``gnn.forward`` (the model and the loss),
+holding, with ``step=``, ``gnn.forward`` (the model and, in
+``gnn.loss``, the loss; a GAT layer's ``gat.scores`` (additive: el/er,
+and the logits/stats launch) and ``gat.aggregate`` (the prologue SpMM),
+the additive GAT's ``gat.skip``),
 ``gnn.backward`` (autograd, and the partitioned gradient all-reduce),
 ``gnn.optimizer`` (AdamW) and ``gnn.sync`` (the loss to the host, the
 device synchronised); ``gnn.eval``; with ``--mutate`` a ``gnn.mutate``
@@ -67,9 +70,11 @@ from repro_torch.core.baselines import (make_cusparse_analog,
 from repro_torch.core.pcsr import SpMMConfig
 from repro_torch.data.tasks import NodeTask
 from repro_torch.device import resolve_device
-from repro_torch.models.gnn import (accuracy, gat_forward, gcn_forward,
-                                    gin_forward, init_gat, init_gcn,
-                                    init_gin, node_ce_loss)
+from repro_torch.models.gnn import (accuracy, gat_additive_forward,
+                                    gat_forward, gcn_forward, gin_forward,
+                                    init_gat, init_gat_additive, init_gcn,
+                                    init_gin, label_accuracy, node_bce_loss,
+                                    node_ce_loss)
 from repro_torch.obs import instant, span, tracing
 from repro_torch.optim import AdamWConfig, adamw_init, adamw_update
 from repro_torch.pipeline import ParamSpMM
@@ -121,13 +126,37 @@ def build_spmm(task: NodeTask, dim: int, mode: str = "paramspmm", *,
     return baselines[mode](csr, device), None, None
 
 
-def _init_params(model, dims, heads, seed, device):
+def _init_params(model, dims, heads, seed, device, attention="dot"):
     gen = torch.Generator().manual_seed(seed)
     if model == "gcn":
         return init_gcn(dims, generator=gen, device=device)
     if model == "gin":
         return init_gin(dims, generator=gen, device=device)
+    if attention == "additive":
+        return init_gat_additive(dims, heads, generator=gen, device=device)
     return init_gat(dims, generator=gen, device=device, heads=heads)
+
+
+def _gat_heads(model, attention, heads, n_layers, partitions):
+    """The per-layer head counts of the additive GAT's ``heads`` (an int
+    for every layer, or one a layer); the dot-product GAT's int as it
+    is."""
+    if attention not in ("dot", "additive"):
+        raise ValueError(f"unknown attention {attention!r}")
+    if attention == "dot":
+        if model == "gat" and not isinstance(heads, int):
+            raise ValueError("per-layer heads need attention='additive'")
+        return heads
+    if model != "gat":
+        raise ValueError("attention='additive' is a GAT option")
+    if partitions:
+        raise NotImplementedError("the additive GAT trains on one device")
+    per_layer = [heads] * n_layers if isinstance(heads, int) \
+        else [int(h) for h in heads]
+    if len(per_layer) != n_layers:
+        raise ValueError(f"{len(per_layer)} head counts for {n_layers} "
+                         "layers")
+    return per_layer
 
 
 def _sync(device):
@@ -168,7 +197,8 @@ def train_gnn(task: NodeTask, *, model: str = "gcn", hidden: int = 64,
               overlap: bool = False, dist_backend: str | None = None,
               dist_group=None, fused: bool = True,
               spmm_kwargs: dict | None = None, params=None,
-              device=None, on_step=None) -> GNNTrainResult:
+              attention: str = "dot", device=None,
+              on_step=None) -> GNNTrainResult:
     """Train ``model`` on ``task`` with AdamW(``lr``) for ``steps`` full
     batch steps on ``device`` (default CUDA).
 
@@ -179,7 +209,14 @@ def train_gnn(task: NodeTask, *, model: str = "gcn", hidden: int = 64,
     ``(1+ε)h`` term, to the SpMM's fused epilogue; ``fused=False`` keeps
     ``spmm(h) @ W + b``.  GAT picks its config for the SDDMM + SpMM pair
     at ``heads`` heads and always packs the transpose PCSR for its
-    backward.  ``spmm_kwargs`` go to ``ParamSpMM`` (``config=``,
+    backward.  ``attention="additive"`` trains the published GAT
+    (``models.gnn.gat_additive_forward``: ELU between layers, the
+    identity skip where a layer keeps its width): ``heads`` an int or one
+    count a layer, ``hidden`` the concatenated width; its config is
+    picked at the first layer's heads.  Multi-hot labels ``(n, C)`` train
+    on the sigmoid cross-entropy (``node_bce_loss``; ``val_acc`` is then
+    the share of val (node, label) pairs right), class ids ``(n,)`` on
+    the softmax one.  ``spmm_kwargs`` go to ``ParamSpMM`` (``config=``,
     ``reorder=``, ``hardware=``, ...), or to ``DistGraph`` when
     partitioned.  ``on_step(step)`` is called after each step (e.g. a
     profiler's ``step``).
@@ -197,6 +234,10 @@ def train_gnn(task: NodeTask, *, model: str = "gcn", hidden: int = 64,
     ``config`` is then the per-shard list."""
     if model not in ("gcn", "gin", "gat"):
         raise ValueError(f"unknown model {model!r}")
+    heads = _gat_heads(model, attention, heads, n_layers, partitions)
+    multi_label = np.ndim(task.labels) == 2      # multi-hot: a column a class
+    if partitions and multi_label:
+        raise NotImplementedError("multi-hot labels train on one device")
     comm = None
     if partitions:
         import torch.distributed as dist
@@ -223,7 +264,7 @@ def train_gnn(task: NodeTask, *, model: str = "gcn", hidden: int = 64,
             raise ValueError("gat needs the PCSR message fn "
                              "(spmm_mode='paramspmm')")
         kw.setdefault("op", "gat")
-        kw.setdefault("heads", heads)
+        kw.setdefault("heads", heads if isinstance(heads, int) else heads[0])
         if not partitions:
             kw["build_transpose"] = True
     with span("gnn.pack", model=model, mode=spmm_mode,
@@ -239,7 +280,12 @@ def train_gnn(task: NodeTask, *, model: str = "gcn", hidden: int = 64,
         spmm = lambda B: graph(B)
 
     as_t = lambda a: torch.as_tensor(a, device=device)
-    X, labels = as_t(task.features), as_t(task.labels).long()
+    X, labels = as_t(task.features), as_t(task.labels)
+    if multi_label:
+        labels, loss_fn, acc_fn = labels.float(), node_bce_loss, \
+            label_accuracy
+    else:
+        labels, loss_fn, acc_fn = labels.long(), node_ce_loss, accuracy
     tmask, vmask = as_t(task.train_mask), as_t(task.val_mask)
     n_train = None
     if comm is not None:      # this rank's rows; counts are global
@@ -254,7 +300,7 @@ def train_gnn(task: NodeTask, *, model: str = "gcn", hidden: int = 64,
 
     dims = [X.shape[1]] + [hidden] * (n_layers - 1) + [task.n_classes]
     if params is None:
-        params = _init_params(model, dims, heads, seed, device)
+        params = _init_params(model, dims, heads, seed, device, attention)
     params = [{k: v.detach().to(device=device, dtype=torch.float32)
                .requires_grad_() for k, v in layer.items()}
               for layer in params]
@@ -267,8 +313,13 @@ def train_gnn(task: NodeTask, *, model: str = "gcn", hidden: int = 64,
             spmm = graph.gat_message
         else:
             from repro_torch.core.engine import make_gat_message_fn
-            spmm = make_gat_message_fn(graph.op.pcsr, graph.op.pcsr_t)
-        fwd = lambda p, x, msg: gat_forward(p, x, msg, heads=heads)
+            spmm = make_gat_message_fn(
+                graph.op.pcsr, graph.op.pcsr_t,
+                scale=1.0 if attention == "additive" else None)
+        if attention == "additive":
+            fwd = lambda p, x, msg: gat_additive_forward(p, x, msg, heads)
+        else:
+            fwd = lambda p, x, msg: gat_forward(p, x, msg, heads=heads)
 
     opt_cfg = AdamWConfig(lr=lr)
     opt = adamw_init(params)
@@ -278,16 +329,18 @@ def train_gnn(task: NodeTask, *, model: str = "gcn", hidden: int = 64,
         t0 = time.perf_counter()
         with span("gnn.first_step" if step == 0 else "gnn.step", step=step):
             with span("gnn.forward", step=step):
-                loss = node_ce_loss(fwd(params, X, spmm), labels, tmask,
-                                    total=n_train)
+                logits = fwd(params, X, spmm)
+                with span("gnn.loss", step=step):
+                    loss_t = loss_fn(logits, labels, tmask, total=n_train)
+                del logits
             with span("gnn.backward", step=step):
-                grads = torch.autograd.grad(loss, [v for layer in params
-                                                   for v in layer.values()])
+                grads = torch.autograd.grad(loss_t, [v for layer in params
+                                                     for v in layer.values()])
                 if comm is not None:   # one collective: gradients and loss
                     flat = comm.all_reduce_sum(torch.cat(
                         [g.reshape(-1) for g in grads]
-                        + [loss.detach().reshape(1)]))
-                    loss = flat[-1]
+                        + [loss_t.detach().reshape(1)]))
+                    loss_t = flat[-1]
                     grads = [f.reshape(g.shape) for f, g in zip(
                         flat[:-1].split([g.numel() for g in grads]), grads)]
             with span("gnn.optimizer", step=step):
@@ -297,7 +350,7 @@ def train_gnn(task: NodeTask, *, model: str = "gcn", hidden: int = 64,
                 params = [{k: v.requires_grad_() for k, v in layer.items()}
                           for layer in params]
             with span("gnn.sync", step=step):
-                res.losses.append(float(loss.detach()))
+                res.losses.append(float(loss_t.detach()))
                 _sync(device)
         if step > 0:       # step 0 builds and loads the kernels
             elapsed += time.perf_counter() - t0
@@ -310,7 +363,7 @@ def train_gnn(task: NodeTask, *, model: str = "gcn", hidden: int = 64,
     with span("gnn.eval"), torch.no_grad():
         logits = fwd(params, X, spmm)
         if comm is None:
-            res.val_acc = float(accuracy(logits, labels, vmask))
+            res.val_acc = float(acc_fn(logits, labels, vmask))
         else:
             right = ((logits.argmax(-1) == labels).to(vmask.dtype)
                      * vmask).sum()

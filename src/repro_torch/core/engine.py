@@ -205,14 +205,17 @@ class _GATSpec:
     geo: dict                           # n_blocks, R, V, K, dblk, n_rows
     slope: float
     transpose: Optional[Callable]       # device → TransposeSide, or None
+    scale: Optional[float] = None       # the logits' scale; None: 1/√d
 
 
 class _GATMessage(torch.autograd.Function):
     """The GAT message over one covered steering, forward and backward.
 
-    Forward: the fused SDDMM → softmax-stats kernel, then the ParamSpMM
-    kernel with its softmax prologue; α is never written out, and the
-    residuals are the logits, the two row stats and the output.
+    Forward: the fused SDDMM → softmax-stats kernel (span
+    ``gat.scores``), then the ParamSpMM kernel with its softmax prologue
+    (span ``gat.aggregate``); α is never written out, and the residuals
+    are the logits, the two row stats and the output.  The logits are
+    ``scale·q_i·k_j``, ``scale`` 1/√d unless the spec gives one.
     Backward, flash style (the reference's ``f_bwd``)::
 
         dα  = SDDMM(pcsr, dOut, Vf)               (raw SDDMM kernel)
@@ -236,12 +239,17 @@ class _GATMessage(torch.autograd.Function):
         from repro_torch.kernels.paramspmm import ops as spmm_ops
         from repro_torch.kernels.sddmm import ops as sddmm_ops
         g = spec.geo
-        logits, rowmax, rowsum = sddmm_ops._stats_call(
-            spec.steer, Q, K_mat, n_blocks=g["n_blocks"], R=g["R"], V=g["V"],
-            K=g["K"], n_rows=g["n_rows"],
-            scale=float(1.0 / np.sqrt(Q.shape[-1])), slope=spec.slope)
-        out = spmm_ops._call(spec.steer, Vf, vals=logits, rowmax=rowmax,
-                             rowsum=rowsum, **g)
+        scale = spec.scale
+        if scale is None:
+            scale = float(1.0 / np.sqrt(Q.shape[-1]))
+        with span("gat.scores"):
+            logits, rowmax, rowsum = sddmm_ops._stats_call(
+                spec.steer, Q, K_mat, n_blocks=g["n_blocks"], R=g["R"],
+                V=g["V"], K=g["K"], n_rows=g["n_rows"], scale=scale,
+                slope=spec.slope)
+        with span("gat.aggregate"):
+            out = spmm_ops._call(spec.steer, Vf, vals=logits, rowmax=rowmax,
+                                 rowsum=rowsum, **g)
         ctx.save_for_backward(Q, K_mat, Vf, logits, rowmax, rowsum, out)
         ctx.spec = spec
         return out
@@ -263,9 +271,11 @@ class _GATMessage(torch.autograd.Function):
         dalpha = rowdot = None
         scale = 1.0
         if need_q or need_k:
-            # 1/√d in float32, as the reference computes it
-            scale = (1.0 / torch.sqrt(torch.tensor(
-                float(Q.shape[-1]), dtype=torch.float32))).item()
+            scale = spec.scale
+            if scale is None:
+                # 1/√d in float32, as the reference computes it
+                scale = (1.0 / torch.sqrt(torch.tensor(
+                    float(Q.shape[-1]), dtype=torch.float32))).item()
             dalpha = sddmm_ops._call(steer, dOut, Vf, n_blocks=g["n_blocks"],
                                      R=R, V=V, K=K, n_rows=g["n_rows"])
             rowdot = _row_dot(dOut, out, g["n_blocks"] * R)
@@ -288,22 +298,26 @@ class _GATMessage(torch.autograd.Function):
 
 
 def gat_message(steer, Q, K_mat, Vf, *, n_blocks, R, V, K, dblk, n_rows,
-                slope: float = 0.2, transpose: Optional[Callable] = None):
+                slope: float = 0.2, transpose: Optional[Callable] = None,
+                scale: Optional[float] = None):
     """The GAT message over one covered steering: the fused SDDMM →
     softmax-stats kernel, then the ParamSpMM kernel with its softmax
     prologue — two launches on CUDA tensors, their plain versions on CPU
     tensors, α never materialised.  ``(n, d)`` operands return
     ``(n_rows, dv)``; ``(H, n, d)`` ones run every head in the same two
-    launches and return ``(H, n_rows, dv)``.  Differentiable in ``Q``,
+    launches and return ``(H, n_rows, dv)``.  The logits are
+    ``scale·q_i·k_j`` (``scale`` default 1/√d).  Differentiable in ``Q``,
     ``K_mat`` and ``Vf`` when ``transpose`` (device → ``TransposeSide``)
     is given; the backward raises without it."""
     spec = _GATSpec(steer, dict(n_blocks=n_blocks, R=R, V=V, K=K, dblk=dblk,
-                                n_rows=n_rows), float(slope), transpose)
+                                n_rows=n_rows), float(slope), transpose,
+                    None if scale is None else float(scale))
     return _GATMessage.apply(Q, K_mat, Vf, spec)
 
 
 def gat_message_fn(steer, geo, *, slope: float = 0.2,
-                   transpose: Optional[Callable] = None):
+                   transpose: Optional[Callable] = None,
+                   scale: Optional[float] = None):
     """``f(Q, K, Vf)``: ``gat_message`` over ``steer`` with the geometry
     of ``geo`` — a ``PCSR`` or a serving bucket's ``PackGeom``, both of
     which carry ``config``, ``n_blocks``, ``n_rows`` and ``K``."""
@@ -311,17 +325,19 @@ def gat_message_fn(steer, geo, *, slope: float = 0.2,
     return functools.partial(gat_message, steer, n_blocks=geo.n_blocks,
                              R=cfg.R, V=cfg.V, K=geo.K, dblk=cfg.dblk,
                              n_rows=geo.n_rows, slope=slope,
-                             transpose=transpose)
+                             transpose=transpose, scale=scale)
 
 
 def make_gat_message_fn(pcsr: PCSR, pcsr_t: PCSR | None = None, *,
-                        slope: float = 0.2):
+                        slope: float = 0.2, scale: Optional[float] = None):
     """Differentiable GAT message ``f(Q, K, Vf)`` over one PCSR: SDDMM →
-    scale 1/√d → LeakyReLU(slope) → edge softmax → SpMM, as two kernel
-    launches (``gat_message``) on the inputs' device, with the
+    ``scale`` (default 1/√d) → LeakyReLU(slope) → edge softmax → SpMM, as
+    two kernel launches (``gat_message``) on the inputs' device, with the
     flash-recompute backward (``_GATMessage``).  ``pcsr_t`` is Aᵀ's PCSR
     (``ParamSpMMOperator.pcsr_t``), or a function returning it; without
-    it the transpose is packed at the first backward."""
+    it the transpose is packed at the first backward.  Additive attention
+    (``models.gnn.additive_scores``) passes ``scale=1`` and 2-wide
+    operands whose dot is ``el_i + er_j``."""
     from repro_torch.kernels.paramspmm.ops import device_steering
     sides: dict = {}
 
@@ -338,8 +354,8 @@ def make_gat_message_fn(pcsr: PCSR, pcsr_t: PCSR | None = None, *,
 
     def f(Q, K_mat, Vf):
         steer = device_steering(pcsr, Q.device)
-        return gat_message_fn(steer, pcsr, slope=slope,
-                              transpose=transpose)(Q, K_mat, Vf)
+        return gat_message_fn(steer, pcsr, slope=slope, transpose=transpose,
+                              scale=scale)(Q, K_mat, Vf)
     return f
 
 

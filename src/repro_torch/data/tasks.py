@@ -17,7 +17,8 @@ from .graphs import sbm
 class NodeTask:
     csr: CSRMatrix           # raw adjacency (unnormalized)
     features: np.ndarray     # (n, f) float32
-    labels: np.ndarray       # (n,) int32
+    labels: np.ndarray       # (n,) int32 class ids, or (n, C) float32
+                             # multi-hot (a multi-label task, C classes)
     train_mask: np.ndarray   # (n,) float32
     val_mask: np.ndarray
     n_classes: int

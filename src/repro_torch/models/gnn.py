@@ -7,7 +7,9 @@ residual=)`` get each GCN layer's bias + ReLU, and each GIN layer's
 ``(1+ε)h`` term, handed to the SpMM's fused epilogue — one kernel per
 aggregation.  The fuse rules are the JAX package's, so the port launches
 the same kernels in the same order.  GAT takes a ``gat_msg(Q, K, Vf)``
-closure instead (two kernel launches per layer).  Parameters are lists
+closure instead (two kernel launches per layer): dot-product attention
+(``gat_forward``) or the published additive attention
+(``gat_additive_forward``, Veličković et al., ICLR 2018).  Parameters are lists
 of dicts of tensors; ``repro_torch.convert`` carries them over from numpy.
 With differentiable closures (``core.engine``) the forwards train:
 autograd runs every aggregation's backward in the kernels too.
@@ -17,6 +19,8 @@ from __future__ import annotations
 import inspect
 
 import torch
+
+from repro_torch.obs.trace import span
 
 
 def _dense_init(fan_in, fan_out, generator, device):
@@ -150,6 +154,77 @@ def gat_forward(params, X, gat_msg, heads: int = 1):
     return h
 
 
+# ------------------------------------------------------ GAT, additive
+def gat_head_dims(layer_dims, heads):
+    """Per-layer ``(H, F′)``: hidden layers concatenate ``heads[i]`` heads
+    of ``width / heads[i]`` (the width must divide), the last averages
+    ``heads[-1]`` heads of its full width."""
+    L = len(layer_dims) - 1
+    if len(heads) != L:
+        raise ValueError(f"{len(heads)} head counts for {L} layers")
+    out = []
+    for i, H in enumerate(heads):
+        width = layer_dims[i + 1]
+        if i < L - 1 and width % H:
+            raise ValueError(f"layer dim {width} not divisible by {H} heads")
+        out.append((H, width // H if i < L - 1 else width))
+    return out
+
+
+def init_gat_additive(layer_dims, heads, *, generator: torch.Generator,
+                      device="cpu"):
+    """The published GAT's parameters: per layer ``w`` (d_in × H·F′), the
+    attention vectors ``al`` and ``ar`` (H × F′) and a bias of the layer's
+    output width, He-normal (``al``/``ar`` over fan-in F′) and zero."""
+    params = []
+    for i, (H, F) in enumerate(gat_head_dims(layer_dims, heads)):
+        params.append({
+            "w": _dense_init(layer_dims[i], H * F, generator, device),
+            "al": _dense_init(F, H, generator, device).T.contiguous(),
+            "ar": _dense_init(F, H, generator, device).T.contiguous(),
+            "b": torch.zeros(layer_dims[i + 1], device=device),
+        })
+    return params
+
+
+def additive_scores(wh, al, ar):
+    """The message operands of additive attention: ``wh`` ``(n, H, F′)``
+    gives ``el = wh·a_l`` and ``er = wh·a_r`` per head, and ``Q = [el, 1]``,
+    ``K = [1, er]`` ``(H, n, 2)``, whose dot at scale 1 is ``el_i + er_j``:
+    one rounding, as a plain add."""
+    el = (wh * al).sum(-1).T                                   # (H, n)
+    er = (wh * ar).sum(-1).T
+    one = torch.ones_like(el)
+    return (torch.stack([el, one], -1).contiguous(),
+            torch.stack([one, er], -1).contiguous())
+
+
+def gat_additive_forward(params, X, gat_msg, heads):
+    """The published GAT: α = softmax_j(LeakyReLU(a_lᵀ W h_i + a_rᵀ W
+    h_j)) over i's edges, the heads' ``Σ_j α_ij W h_j`` concatenated
+    (hidden layers) or averaged (the last), plus a bias.  A hidden layer
+    whose width is its input's (the PPI model's middle layer) adds that
+    input, the identity skip, before the ELU.  ``gat_msg(Q, K, Vf)`` is
+    the attention message at logit scale 1
+    (``core.engine.make_gat_message_fn(..., scale=1)``); every head of a
+    layer runs in its two launches."""
+    h, L = X, len(params)
+    for i, layer in enumerate(params):
+        n, H = h.shape[0], layer["al"].shape[0]
+        wh = (h @ layer["w"]).view(n, H, -1)                   # (n, H, F′)
+        with span("gat.scores"):
+            Q, K = additive_scores(wh, layer["al"], layer["ar"])
+        msg = gat_msg(Q, K, wh.transpose(0, 1).contiguous())   # (H, n, F′)
+        if i == L - 1:
+            return msg.mean(dim=0) + layer["b"]
+        out = msg.transpose(0, 1).reshape(n, -1) + layer["b"]
+        if out.shape == h.shape:
+            with span("gat.skip"):
+                out = out + h
+        h = torch.nn.functional.elu(out)
+    return h
+
+
 # ------------------------------------------------------------------- loss
 def node_ce_loss(logits, labels, mask, total: float | None = None):
     """Cross-entropy summed over the nodes where ``mask`` is 1, over
@@ -160,6 +235,24 @@ def node_ce_loss(logits, labels, mask, total: float | None = None):
     if total is None:
         return -(ll * mask).sum() / torch.clamp_min(mask.sum(), 1.0)
     return -(ll * mask).sum() / max(total, 1.0)
+
+
+def node_bce_loss(logits, labels, mask, total: float | None = None):
+    """Sigmoid cross-entropy against multi-hot ``labels`` ``(n, C)``,
+    summed over the nodes where ``mask`` is 1 and their C labels, over
+    ``total`` (default: their count) times C: the mean per label."""
+    per_node = torch.nn.functional.binary_cross_entropy_with_logits(
+        logits, labels, reduction="none").sum(-1)
+    count = torch.clamp_min(mask.sum(), 1.0) if total is None \
+        else max(total, 1.0)
+    return (per_node * mask).sum() / (count * labels.shape[-1])
+
+
+def label_accuracy(logits, labels, mask):
+    """Share of the (node, label) pairs of the nodes where ``mask`` is 1
+    whose sign of the logit matches the multi-hot label."""
+    right = ((logits > 0) == (labels > 0.5)).to(mask.dtype).mean(-1)
+    return (right * mask).sum() / torch.clamp_min(mask.sum(), 1.0)
 
 
 def accuracy(logits, labels, mask):

@@ -1462,3 +1462,83 @@ def test_captured_rwkv_and_whisper_decode_equals_eager(cuda_device, arch):
     seqs = [generate(cfg, params, prompt, 12, 8, device=cuda_device,
                      graphs=graphs) for graphs in (True, False)]
     assert torch.equal(seqs[0], seqs[1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cfg", CONFIGS[::3], ids=lambda c: str(c.astuple()))
+@pytest.mark.parametrize("H, dv", [(4, 256), (6, 121)])
+def test_gat_kernels_at_the_published_gat_widths(cuda_device, cfg, H, dv):
+    """The published GAT's widths (PPI: 4 heads of 256, 6 of 121, the
+    last at vector width 1).  The SDDMM → softmax stats on the 2-wide
+    operands [el, 1] and [1, er] at scale 1 gives LeakyReLU(el_i + er_j)
+    bit for bit, as its plain version and a plain add do; the prologue
+    SpMM and the raw SDDMM (dα) at ``dv`` against their plain versions
+    (``rtol=1e-5``, ``atol=1e-4`` / ``1e-5``, as above); the slot pass at
+    scale 1 bit for bit; dQ and dK at width 2 against the plain SpMM; and
+    the whole message's gradients on the card against the CPU's."""
+    p = _pack(cfg, False, explicit_zeros=True)
+    p_t = transpose_pcsr(p)
+    steer = ops.device_steering(p, cuda_device)
+    t = engine.TransposeSide.build(p, p_t, cuda_device)
+    g = torch.Generator(device=cuda_device).manual_seed(H)
+    el, er = (torch.randn((H, 90), generator=g, device=cuda_device) * 4
+              for _ in range(2))
+    one = torch.ones_like(el)
+    Q, K = torch.stack([el, one], -1), torch.stack([one, er], -1)
+    Vf, dOut = (torch.randn((H, 90, dv), generator=g, device=cuda_device)
+                for _ in range(2))
+    geo = dict(n_blocks=p.n_blocks, R=cfg.R, V=cfg.V, K=p.K, n_rows=90)
+    logits, rm, rs = sddmm_ops._stats_call(steer, Q, K, scale=1.0, **geo)
+    w_logits, w_rm, w_rs = sddmm_ops.sddmm_softmax_plain(
+        steer, Q, K, scale=1.0, slope=0.2, **geo)
+    assert torch.equal(logits.view(torch.int32), w_logits.view(torch.int32))
+    real = steer.vals != 0
+    C = steer.trow.shape[0]
+    row = (steer.trow.long()[:, None, None] * cfg.R
+           + steer.lrow.long().reshape(C, 1, p.K) * cfg.V
+           + torch.arange(cfg.V, device=cuda_device)[None, :, None])
+    col = steer.colidx.long().reshape(C, 1, p.K).expand_as(row)
+    e = el[:, row[real]] + er[:, col[real]]
+    assert torch.equal(logits[:, real], torch.where(e >= 0, e, 0.2 * e))
+    torch.testing.assert_close(rm, w_rm, rtol=1e-5, atol=1e-6)
+    torch.testing.assert_close(rs, w_rs, rtol=1e-5, atol=1e-6)
+
+    assert ops.vector_width(dv, Vf) == (4 if dv % 4 == 0 else 1)
+    out = ops._call(steer, Vf, vals=logits, rowmax=rm, rowsum=rs,
+                    dblk=cfg.dblk, **geo)
+    want = ops.paramspmm_plain(steer, Vf, V=cfg.V, R=cfg.R, K=p.K,
+                               n_blocks=p.n_blocks, n_rows=90, vals=logits,
+                               rowmax=rm, rowsum=rs)
+    torch.testing.assert_close(out, want, rtol=1e-5, atol=1e-4)
+    dalpha = sddmm_ops._call(steer, dOut, Vf, **geo)
+    torch.testing.assert_close(
+        dalpha, sddmm_ops.sddmm_plain(steer, dOut, Vf, V=cfg.V, R=cfg.R,
+                                      K=p.K, n_rows=90),
+        rtol=1e-5, atol=1e-5)
+
+    rowdot = engine._row_dot(dOut, out, p.n_blocks * cfg.R)
+    kw = dict(R=cfg.R, V=cfg.V, K=p.K, t_shape=t.shape, scale=1.0,
+              slope=0.2, rowdot=rowdot)
+    want = sddmm_ops.gat_backward_plain(steer, t.src, logits, rm, rs,
+                                        dalpha=dalpha, **kw)
+    got = sddmm_ops.gat_backward(steer, t.src, logits, rm, rs,
+                                 dalpha=dalpha.clone(), **kw)
+    for a, b in zip(got, want):
+        assert torch.equal(a.view(torch.int32), b.view(torch.int32))
+    de, de_t = got[0], got[1]
+    for s, B, vals, gm in ((steer, K, de, geo),
+                           (t.steer, Q, de_t, t.geo)):
+        dq = ops._call(s, B, vals=vals, **dict(gm, dblk=gm.get(
+            "dblk", cfg.dblk)))
+        torch.testing.assert_close(
+            dq, ops.paramspmm_plain(s, B, V=gm["V"], R=gm["R"], K=gm["K"],
+                                    n_blocks=gm["n_blocks"],
+                                    n_rows=gm["n_rows"], vals=vals),
+            rtol=1e-5, atol=1e-4)
+
+    f = engine.make_gat_message_fn(p, p_t, scale=1.0)
+    cpu = [x.cpu() for x in (Q, K, Vf)]
+    want = _grads(lambda q, k, v: f(q, k, v), cpu, dOut.cpu())
+    got = _grads(lambda q, k, v: f(q, k, v), [x.clone() for x in (Q, K, Vf)],
+                 dOut)
+    _assert_close(got, want, False)
